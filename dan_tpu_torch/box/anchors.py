@@ -62,3 +62,9 @@ def center_to_corner(boxes: torch.Tensor) -> torch.Tensor:
     return torch.stack(
         [cx - w * 0.5, cy - h * 0.5, cx + w * 0.5, cy + h * 0.5], dim=-1
     )
+
+
+def corner_to_center(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 4) (x1, y1, x2, y2) -> (cx, cy, w, h)."""
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack([(x1 + x2) * 0.5, (y1 + y2) * 0.5, x2 - x1, y2 - y1], dim=-1)

@@ -10,10 +10,12 @@ The JAX package keeps parameters as a nested dict of arrays:
 DANDetector's state_dict uses the same names: '<group>.<name>.weight'
 (cout, cin, kh, kw), '<group>.<name>.bias' and 'l2norm.<name>.scale'.
 Both directions copy values unchanged, so a round trip is bit-exact.
+The optimizer's momentum (optax.trace) has the parameters' tree: it comes
+across with `opt_state_from_jax` and goes back with `params_to_jax`.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -50,3 +52,31 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             leaf = key
         tree[group].setdefault(name, {})[leaf] = np.ascontiguousarray(a)
     return tree
+
+
+def _optax_leaves(opt_state):
+    """(trace tree, count) of an optax chain state: the TraceState of
+    optax.trace (the momentum) and the ScaleByScheduleState's count."""
+    trace, count = None, None
+    stack = [opt_state]
+    while stack:
+        node = stack.pop()
+        fields = getattr(node, "_fields", ())  # optax states are namedtuples
+        if "trace" in fields:
+            trace = node.trace
+        elif "count" in fields:
+            count = node.count
+        elif isinstance(node, (tuple, list)):
+            stack.extend(node)
+    if trace is None or count is None:
+        raise KeyError("no momentum trace and step count in this optimizer state")
+    return trace, count
+
+
+def opt_state_from_jax(opt_state) -> Tuple[Dict[str, torch.Tensor], int]:
+    """The JAX package's optax state (make_optimizer's chain) -> (momentum
+    buffers by parameter name, in the port's layouts, and the count of
+    updates made)."""
+    trace, count = _optax_leaves(opt_state)
+    return params_from_jax(trace), int(np.asarray(count))
+

@@ -12,84 +12,28 @@ need not be sorted.  ops.nms.rank_to_result turns ranks into the ordered
 fixed-shape NMSResult.
 
 A tensor on the CPU goes through `greedy_nms_rank_plain`; a CUDA tensor
-launches the kernel, which is built with nvcc on first use into
-dan_tpu_torch/_build/ (keyed by a hash of the source).  There is no
+launches the kernel, which ops/_cuda_build.py builds with nvcc on first
+use into dan_tpu_torch/_build/ (keyed by a hash of the source).  There is no
 fallback between the two: a CUDA tensor that cannot be handled raises.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 
 import torch
 
 from dan_tpu_torch.box.iou import iou_one_to_many
+from dan_tpu_torch.ops import _cuda_build
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "nms.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-)
+SOURCE = "nms"
 
 # Kernel launches since the last reset (set to 0 to reset).
 LAUNCHES = 0
-# Seconds the last nvcc build took and what nvcc printed (None until a
-# build ran in this process).
-BUILD_SECONDS = None
-BUILD_LOG = None
-
-_lib = None
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME")
-    for cand in (
-        os.path.join(cuda_home, "bin", "nvcc") if cuda_home else None,
-        shutil.which("nvcc"),
-        "/usr/local/cuda/bin/nvcc",
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
 def build() -> ctypes.CDLL:
     """Compile csrc/nms.cu (once per source hash) and load it."""
-    global _lib, BUILD_SECONDS, BUILD_LOG
-    if _lib is not None:
-        return _lib
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"nms_{tag}.so")
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, SOURCE],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-                )
-            os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-        BUILD_SECONDS = time.perf_counter() - t0
-        BUILD_LOG = proc.stdout + proc.stderr
-    lib = ctypes.CDLL(so)
+    lib = _cuda_build.load(SOURCE)
     lib.nms_rank_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -98,7 +42,6 @@ def build() -> ctypes.CDLL:
     lib.nms_rank_launch.restype = ctypes.c_int
     lib.nms_rank_max_n.argtypes = []
     lib.nms_rank_max_n.restype = ctypes.c_int
-    _lib = lib
     return lib
 
 
@@ -151,14 +94,12 @@ def _launch(boxes, scores, iou_threshold, max_out, score_threshold):
     if bsz == 0 or n == 0:
         return rank
     with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream(boxes.device).cuda_stream
         err = lib.nms_rank_launch(
             boxes.data_ptr(), scores.data_ptr(), rank.data_ptr(),
             bsz, n, int(max_out), float(iou_threshold), float(score_threshold),
-            stream,
+            _cuda_build.stream_of(boxes),
         )
-    if err != 0:
-        raise RuntimeError(f"nms_rank_launch failed: CUDA error {err}")
+    _cuda_build.check(err, "nms_rank_launch")
     LAUNCHES += 1
     return rank
 

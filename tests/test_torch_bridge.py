@@ -66,15 +66,17 @@ def test_packed_conv1_kernels_equal_jax(jax_tree, name, pack_t, pack_j):
 
 
 def test_load_repacks_conv1(jax_tree):
-    """Loading weights rebuilds the packed conv1 kernels the forward uses."""
+    """After loading weights, the packed conv1 kernels the forward uses
+    (gathered from the live parameters) are the JAX package's."""
     model = DANDetector(ModelConfig())
     model.load_state_dict(params_from_jax(jax_tree))
+    k1p, b1p, k2p = (t.detach() for t in model.backbone.packed_kernels())
     k1 = jax_tree["backbone"]["conv1_1"]["kernel"]
     want = np.asarray(jvgg._pack_conv_kernel_stride2(jax.numpy.asarray(k1)))
+    np.testing.assert_array_equal(k1p.numpy().transpose(2, 3, 1, 0), want)
     np.testing.assert_array_equal(
-        model.backbone.k1_packed.numpy().transpose(2, 3, 1, 0), want
+        b1p.numpy(), np.tile(jax_tree["backbone"]["conv1_1"]["bias"], 4)
     )
-    np.testing.assert_array_equal(
-        model.backbone.b1_packed.numpy(),
-        np.tile(jax_tree["backbone"]["conv1_1"]["bias"], 4),
-    )
+    k2 = jax_tree["backbone"]["conv1_2"]["kernel"]
+    want2 = np.asarray(jvgg._pack_conv_kernel_2x2_phase(jax.numpy.asarray(k2)))
+    np.testing.assert_array_equal(k2p.numpy().transpose(2, 3, 1, 0), want2)
