@@ -1,15 +1,20 @@
 """Public detector API (counterpart of dan_tpu/api.py): image in,
 detection dict out.
 
-    det = Detector.from_random(seed=0, device="cuda")
+    det = Detector.from_random(seed=0)         # on the first CUDA card
     out = det.detect(image_rgb_uint8)          # (H, W, 3), any size
     out["bboxes"], out["scores"]               # pixels of the input image
+    out = det.detect_tta(image_rgb_uint8)      # pyramid + flip + bbox-vote
+
+Every constructor takes `device`; the default is the first CUDA card, and
+without one it raises unless `device="cpu"` is passed.
 
 Each image is placed in the top-left of a square uint8 canvas (the smallest
 of config.tta.buckets that holds it), squash-resized on the device to the
 network input, run through the model, decoded, filtered and NMS'd, and its
 boxes are scaled back to the image's own pixels.  On a CUDA device the NMS
-is the CUDA kernel of ops/nms_cuda.py.
+is the CUDA kernel of ops/nms_cuda.py, and the TTA path's fusion the one of
+ops/bbox_vote_cuda.py.
 """
 from __future__ import annotations
 
@@ -18,9 +23,12 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from dan_tpu.config import DANConfig, default_config
+from dan_tpu_torch.config import DANConfig, default_config
 from dan_tpu_torch.box.anchors import generate_anchors
 from dan_tpu_torch.ckpt.bridge import params_from_jax
+from dan_tpu_torch.ckpt.train_state import load_model_weights
+from dan_tpu_torch.device import resolve_device
+from dan_tpu_torch.eval.tta import TTARunner
 from dan_tpu_torch.models.detector import DANDetector
 from dan_tpu_torch.ops.postprocess import postprocess_batch
 from dan_tpu_torch.ops.squash import eval_preprocess
@@ -29,9 +37,10 @@ from dan_tpu_torch.ops.squash import eval_preprocess
 class Detector:
     """Single-shot face detector on one torch device."""
 
-    def __init__(self, model: DANDetector, config: DANConfig, device="cpu"):
+    def __init__(self, model: DANDetector, config: DANConfig, device=None):
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
+        self._tta_runner: Optional[TTARunner] = None
         self.model = model.to(self.device).eval()
         size = config.model.image_size
         self.anchors = generate_anchors(config.anchors, size, size, self.device)
@@ -40,7 +49,7 @@ class Detector:
 
     @classmethod
     def from_random(
-        cls, seed: int = 0, config: Optional[DANConfig] = None, device="cpu"
+        cls, seed: int = 0, config: Optional[DANConfig] = None, device=None
     ) -> "Detector":
         """Random He-normal weights from a torch.Generator seeded with `seed`."""
         config = config or default_config()
@@ -49,12 +58,23 @@ class Detector:
 
     @classmethod
     def from_jax_params(
-        cls, tree: Mapping, config: Optional[DANConfig] = None, device="cpu"
+        cls, tree: Mapping, config: Optional[DANConfig] = None, device=None
     ) -> "Detector":
         """Weights from the JAX package's parameter tree (numpy leaves)."""
         config = config or default_config()
         model = DANDetector(config.model)
         model.load_state_dict(params_from_jax(tree))
+        return cls(model, config, device)
+
+    @classmethod
+    def from_train_checkpoint(
+        cls, path: str, config: Optional[DANConfig] = None, device=None
+    ) -> "Detector":
+        """Weights from a checkpoint of `python -m dan_tpu_torch.train`: one
+        step file or a model_dir (its newest step)."""
+        config = config or default_config()
+        model = DANDetector(config.model)
+        model.load_state_dict(load_model_weights(path))
         return cls(model, config, device)
 
     # -- inference -----------------------------------------------------------
@@ -153,3 +173,67 @@ class Detector:
                 np.full((1,), c, np.float32),
                 np.full((1,), c, np.float32),
             )
+
+    # -- test-time augmentation ------------------------------------------------
+
+    def _get_tta_runner(self) -> TTARunner:
+        if self._tta_runner is None:
+            self._tta_runner = TTARunner(self.model, self.config, device=self.device)
+        return self._tta_runner
+
+    def warmup_tta(
+        self,
+        sizes,
+        tta_batch: Optional[int] = None,
+        vote_batch: Optional[int] = None,
+    ) -> int:
+        """Run every TTA launch shape the given (h, w) image sizes will need
+        once, with the knobs the eval CLI exposes (--tta_batch /
+        --vote_batch; None = TTARunner's defaults).  Returns the number of
+        shapes warmed (TTARunner.warmup)."""
+        return self._get_tta_runner().warmup(
+            sizes,
+            batch_per_device=(
+                tta_batch if tta_batch is not None else TTARunner.DEFAULT_TTA_BATCH
+            ),
+            vote_batch=(
+                vote_batch if vote_batch is not None else TTARunner.DEFAULT_VOTE_BATCH
+            ),
+        )
+
+    def detect_tta(
+        self, image, score_threshold: Optional[float] = None
+    ) -> Dict[str, np.ndarray]:
+        """Full pyramid + flip TTA with bbox-vote fusion on one image (the
+        accuracy-mode eval path), same detection dict as detect().  The
+        TTARunner is cached on the Detector; for dataset-scale work use
+        detect_tta_dataset / warmup_tta."""
+        out = self._get_tta_runner().detect_tta(self._check_image(image))
+        if score_threshold is not None:
+            keep = out["scores"] >= score_threshold
+            out = {k: v[keep] for k, v in out.items()}
+        return out
+
+    def detect_tta_dataset(
+        self,
+        items,
+        tta_batch: Optional[int] = None,
+        vote_batch: Optional[int] = None,
+        progress_every: int = 0,
+        max_pending: int = 32,
+    ) -> Dict[str, Dict[str, np.ndarray]]:
+        """Dataset-scale TTA: iterable of (key, image) -> {key: detection
+        dict}, batched per resolution bucket: the API twin of the eval
+        CLI's run_dataset path with the same tta_batch / vote_batch /
+        max_pending knobs (None = TTARunner's defaults)."""
+        return self._get_tta_runner().run_dataset(
+            ((k, self._check_image(im)) for k, im in items),
+            batch_per_device=(
+                tta_batch if tta_batch is not None else TTARunner.DEFAULT_TTA_BATCH
+            ),
+            progress_every=progress_every,
+            vote_batch=(
+                vote_batch if vote_batch is not None else TTARunner.DEFAULT_VOTE_BATCH
+            ),
+            max_pending=max_pending,
+        )

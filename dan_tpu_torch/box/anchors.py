@@ -15,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from dan_tpu.config import AnchorConfig
+from dan_tpu_torch.config import AnchorConfig
 
 
 def layer_anchor_centers(

@@ -16,7 +16,8 @@ def decode_boxes(
     """Decode (..., A, 4) predicted offsets against (A, 4) centre anchors.
 
     Returns corner-format boxes, clipped to [0, w] x [0, h] when the image
-    size is given."""
+    size is given: two floats, or two tensors that broadcast against
+    (..., A) (one size per batch row: shape (B, 1))."""
     s = torch.tensor(prior_scaling, dtype=loc_pred.dtype, device=loc_pred.device)
     acx, acy, aw, ah = anchors_center.unbind(-1)
     tx, ty, tw, th = loc_pred.unbind(-1)
@@ -28,12 +29,14 @@ def decode_boxes(
     boxes = center_to_corner(torch.stack([cx, cy, w, h], dim=-1))
     if image_h is not None and image_w is not None:
         x1, y1, x2, y2 = boxes.unbind(-1)
+        w_hi = torch.as_tensor(image_w, dtype=boxes.dtype, device=boxes.device)
+        h_hi = torch.as_tensor(image_h, dtype=boxes.dtype, device=boxes.device)
         boxes = torch.stack(
             [
-                x1.clamp(0.0, image_w),
-                y1.clamp(0.0, image_h),
-                x2.clamp(0.0, image_w),
-                y2.clamp(0.0, image_h),
+                torch.minimum(x1.clamp_min(0.0), w_hi),
+                torch.minimum(y1.clamp_min(0.0), h_hi),
+                torch.minimum(x2.clamp_min(0.0), w_hi),
+                torch.minimum(y2.clamp_min(0.0), h_hi),
             ],
             dim=-1,
         )

@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from dan_tpu.config import AnchorConfig, MatchConfig
+from dan_tpu_torch.config import AnchorConfig, MatchConfig
 from dan_tpu_torch.box.anchors import center_to_corner, corner_to_center
 from dan_tpu_torch.box.iou import pairwise_iou
 

@@ -6,6 +6,7 @@ of the port).
     path = save(model_dir, state.step, state)   # keeps the newest 5
     step = latest_step(model_dir)                 # None when there is none
     restore(model_dir, state)                     # in place, newest step
+    weights = load_model_weights(path)            # a step file or a model_dir
 
 A save writes to a temporary file and renames it, so a crash never leaves
 a partial checkpoint under a step name.
@@ -75,3 +76,14 @@ def restore(model_dir: str, state, step: Optional[int] = None):
             buf.copy_(payload["momentum"][name])
     state.step = int(payload["step"])
     return state
+
+
+def load_model_weights(path: str):
+    """The model's state dict from a checkpoint: `path` is one step file
+    (`.../step_00000100.pt`) or a model_dir, whose newest step is read."""
+    if os.path.isdir(path):
+        step = latest_step(path)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {path}")
+        path = _path(path, step)
+    return torch.load(path, map_location="cpu", weights_only=True)["model"]

@@ -15,7 +15,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from dan_tpu.config import ModelConfig
+from dan_tpu_torch.config import ModelConfig
 from dan_tpu_torch.models.heads import Heads
 from dan_tpu_torch.models.layers import L2Norm
 from dan_tpu_torch.models.lfpn import LFPN

@@ -13,7 +13,7 @@ from typing import Dict, List, Tuple
 import torch
 from torch import nn
 
-from dan_tpu.config import ModelConfig
+from dan_tpu_torch.config import ModelConfig
 from dan_tpu_torch.models.layers import Conv, conv2d_same
 from dan_tpu_torch.models.vgg import TAP_NAMES, effective_tap_channels
 

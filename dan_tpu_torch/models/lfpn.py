@@ -12,7 +12,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from dan_tpu.config import ModelConfig
+from dan_tpu_torch.config import ModelConfig
 from dan_tpu_torch.models.layers import Conv, upsample2x
 from dan_tpu_torch.models.vgg import TAP_NAMES, raw_tap_channels
 

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dan_tpu.config import ModelConfig
+from dan_tpu_torch.config import ModelConfig
 from dan_tpu_torch.models.layers import Conv, max_pool
 from dan_tpu_torch.ops.conv12_wgrad_cuda import conv12_wgrad
 from dan_tpu_torch.ops.phase_pool_cuda import phase_pool_bwd

@@ -34,6 +34,8 @@ BASE_FLAGS = ARCH + (
 EXTRA_FLAGS = {
     "nms": ("-fmad=false",),
     "matching": ("-fmad=false",),
+    "bbox_vote": ("-fmad=false",),
+    "nms_blocked": ("-fmad=false",),
 }
 
 

@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from dan_tpu.config import AnchorConfig, MatchConfig
+from dan_tpu_torch.config import AnchorConfig, MatchConfig
 from dan_tpu_torch.box.anchors import center_to_corner, corner_to_center
 from dan_tpu_torch.box.matching import MatchTargets, finish_targets
 from dan_tpu_torch.ops import _cuda_build

@@ -12,7 +12,7 @@ from typing import Dict
 
 import torch
 
-from dan_tpu.config import AnchorConfig, PostprocessConfig
+from dan_tpu_torch.config import AnchorConfig, PostprocessConfig
 from dan_tpu_torch.box.decode import decode_boxes
 from dan_tpu_torch.ops.nms import rank_to_result, topk_select
 from dan_tpu_torch.ops.nms_cuda import greedy_nms_rank

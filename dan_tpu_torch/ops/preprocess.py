@@ -21,7 +21,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from dan_tpu.config import PreprocessConfig
+from dan_tpu_torch.config import PreprocessConfig
 
 
 def normalize_image(x: torch.Tensor, cfg: PreprocessConfig) -> torch.Tensor:
@@ -101,6 +101,32 @@ def bilinear_resample(
     tmp = torch.matmul(wy, image.float().reshape(h, w * c)).reshape(out_h, w, c)
     out = torch.einsum("hwc,ow->hoc", tmp, wx)
     return out.to(image.dtype) if image.is_floating_point() else out
+
+
+def bilinear_resample_batch(
+    images: torch.Tensor,
+    out_h: int,
+    out_w: int,
+    scale_y: torch.Tensor,
+    scale_x: torch.Tensor,
+    y0: torch.Tensor,
+    x0: torch.Tensor,
+    region,
+    semantics: str = "half_pixel",
+) -> torch.Tensor:
+    """bilinear_resample for a batch: (B, H, W, C) float images ->
+    (B, out_h, out_w, C) float32, image b with its own scale, offset and
+    region = (y_lo, y_hi, x_lo, x_hi), all (B,) float32 tensors.  One pair
+    of interpolation matrices per image, applied as batched matrix
+    products."""
+    bsz, h, w, c = images.shape
+    dev = images.device
+    col = lambda v: v.to(dev, torch.float32)[:, None]  # noqa: E731
+    y_lo, y_hi, x_lo, x_hi = (col(v) for v in region)
+    wy = _bilinear_weights(h, out_h, col(scale_y), col(y0), y_lo, y_hi, semantics, dev)
+    wx = _bilinear_weights(w, out_w, col(scale_x), col(x0), x_lo, x_hi, semantics, dev)
+    tmp = torch.bmm(wy, images.float().reshape(bsz, h, w * c)).reshape(bsz, out_h, w, c)
+    return torch.einsum("bhwc,bow->bhoc", tmp, wx)
 
 
 # ---------------------------------------------------------------------------
@@ -295,18 +321,14 @@ def crop_and_resize(
     sampling each image's square window (x0, y0, size) (float32 (B,)
     tensors, canvas pixels).  The resample clamps at the window's edge and
     window content beyond the canvas reads as zero, as the JAX package's
-    crop_and_resize does.  One pair of interpolation matrices per image,
-    applied as batched matrix products."""
-    bsz, h, w, c = images.shape
+    crop_and_resize does."""
     dev = images.device
-    x0, y0, size = (v.to(dev, torch.float32)[:, None] for v in (x0, y0, size))
+    x0, y0, size = (v.to(dev, torch.float32) for v in (x0, y0, size))
     s = torch.tensor(float(out_size), device=dev) / size
-    wy = _bilinear_weights(h, out_size, s, y0, y0, y0 + size, semantics, dev)
-    wx = _bilinear_weights(w, out_size, s, x0, x0, x0 + size, semantics, dev)
-    tmp = torch.bmm(wy, images.float().reshape(bsz, h, w * c)).reshape(
-        bsz, out_size, w, c
+    return bilinear_resample_batch(
+        images, out_size, out_size, s, s, y0, x0,
+        region=(y0, y0 + size, x0, x0 + size), semantics=semantics,
     )
-    return torch.einsum("bhwc,bow->bhoc", tmp, wx)
 
 
 def transform_boxes(

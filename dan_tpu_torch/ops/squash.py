@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from dan_tpu.config import PreprocessConfig
+from dan_tpu_torch.config import PreprocessConfig
 from dan_tpu_torch.ops.preprocess import bilinear_resample, normalize_image
 
 

@@ -1,5 +1,6 @@
 """Train the detector with the PyTorch port (counterpart of
-scripts/train.py), on one device: the first CUDA card, else the CPU.
+scripts/train.py), on one device: the first CUDA card, or the CPU with
+--device cpu (without a card and without that flag it raises).
 
     python -m dan_tpu_torch.train --synthetic --steps 100 --model_dir /tmp/smoke
     python -m dan_tpu_torch.train --wider_root /data/widerface --model_dir /tmp/run
@@ -21,10 +22,10 @@ import os
 import sys
 import time
 
-import torch
 
-from dan_tpu.config import default_config
+from dan_tpu_torch.config import default_config
 from dan_tpu_torch.ckpt import train_state as ckpt
+from dan_tpu_torch.device import resolve_device
 from dan_tpu_torch.train.loop import create_train_state, train_step
 
 
@@ -42,6 +43,8 @@ def parse_args(argv=None):
     ap.add_argument("--warmup_steps", type=int, default=None)
     ap.add_argument("--checkpoint_every", type=int, default=None)
     ap.add_argument("--log_every", type=int, default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device; default: the first CUDA card")
     return ap.parse_args(argv)
 
 
@@ -71,15 +74,15 @@ def batches(args, cfg, start: int):
     seeded with seed + i, so a resumed run sees the batches it would have
     seen without the interruption."""
     if args.synthetic:
-        from dan_tpu.data.synthetic import synthetic_batch
+        from dan_tpu_torch.data.synthetic import synthetic_batch
 
         i = start
         while True:
             yield synthetic_batch(cfg, cfg.train.batch_size, seed=args.seed + i)
             i += 1
     else:
-        from dan_tpu.data.pipeline import TrainPipeline
-        from dan_tpu.data.widerface import load_split
+        from dan_tpu_torch.data.pipeline import TrainPipeline
+        from dan_tpu_torch.data.widerface import load_split
 
         records = load_split(args.wider_root, "train")
         print(f"loaded {len(records)} train images", file=sys.stderr)
@@ -93,7 +96,7 @@ def main(argv=None) -> int:
     cfg = make_config(args)
     total_steps = args.steps or cfg.train.total_steps
     log_every = args.log_every or cfg.train.log_every
-    device = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    device = resolve_device(args.device)
     print(f"device: {device}", file=sys.stderr)
 
     state = create_train_state(cfg, args.seed, device)

@@ -22,7 +22,8 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from dan_tpu.config import DANConfig
+from dan_tpu_torch.config import DANConfig
+from dan_tpu_torch.device import resolve_device
 from dan_tpu_torch.box.anchors import generate_anchors
 from dan_tpu_torch.box.matching import MatchTargets, match_anchors_batch
 from dan_tpu_torch.models.detector import DANDetector
@@ -48,9 +49,10 @@ class TrainState:
         return next(self.model.parameters()).device
 
 
-def create_train_state(config: DANConfig, seed: int = 0, device="cpu") -> TrainState:
+def create_train_state(config: DANConfig, seed: int = 0, device=None) -> TrainState:
     """Random He-normal weights from a torch.Generator seeded with `seed`,
     zero momentum, step 0."""
+    device = resolve_device(device)
     model = DANDetector(config.model, torch.Generator().manual_seed(seed)).to(device)
     momentum = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
     return TrainState(model=model, momentum=momentum, step=0, config=config)

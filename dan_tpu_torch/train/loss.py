@@ -13,7 +13,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from dan_tpu.config import TrainConfig
+from dan_tpu_torch.config import TrainConfig
 
 
 def smooth_l1(x: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from dan_tpu.config import TrainConfig
+from dan_tpu_torch.config import TrainConfig
 
 
 def learning_rate(config: TrainConfig, step: int) -> float:

@@ -23,6 +23,7 @@ from dan_tpu.config import (
 from dan_tpu.data.widerface import load_image_rgb
 from dan_tpu.ops.squash import eval_preprocess as jax_eval_preprocess
 from dan_tpu_torch.api import Detector
+from dan_tpu_torch.config import from_reference
 from dan_tpu_torch.ops.squash import eval_preprocess
 
 torch.set_num_threads(1)
@@ -68,7 +69,7 @@ def _pair(semantics):
     cfg = tiny_config(semantics)
     jdet = JaxDetector.from_random(jax.random.PRNGKey(0), cfg)
     tree = jax.tree_util.tree_map(np.asarray, jdet.params)
-    return jdet, Detector.from_jax_params(tree, cfg)
+    return jdet, Detector.from_jax_params(tree, from_reference(cfg), device="cpu")
 
 
 def _same_dets(got, want):
@@ -121,13 +122,13 @@ def test_port_runs_without_jax():
     """`import dan_tpu_torch` plus one CPU detect leaves JAX unimported."""
     code = (
         "import sys, numpy as np\n"
-        "from dan_tpu.config import DANConfig, ModelConfig, PostprocessConfig, TTAConfig\n"
+        "from dan_tpu_torch.config import DANConfig, ModelConfig, PostprocessConfig, TTAConfig\n"
         "from dan_tpu_torch.api import Detector\n"
         "cfg = DANConfig(model=ModelConfig(image_size=64, compute_dtype='float32'),\n"
         "                postprocess=PostprocessConfig(pre_nms_topk=64, max_detections=16),\n"
         "                tta=TTAConfig(buckets=(64, 128)))\n"
-        "Detector.from_random(0, cfg).detect(np.full((40, 50, 3), 7, np.uint8))\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib'))\n"
+        "Detector.from_random(0, cfg, device='cpu').detect(np.full((40, 50, 3), 7, np.uint8))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dan_tpu'))\n"
         "assert not bad, bad\n"
         "print('no-jax-ok')\n"
     )

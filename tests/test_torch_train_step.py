@@ -40,6 +40,7 @@ from dan_tpu.data.synthetic import synthetic_batch
 from dan_tpu.train.loop import create_train_state as jax_create
 from dan_tpu.train.loop import make_train_step
 from dan_tpu_torch.ckpt import train_state as ckpt
+from dan_tpu_torch.config import from_reference
 from dan_tpu_torch.ckpt.bridge import opt_state_from_jax, params_from_jax, params_to_jax
 from dan_tpu_torch.models.detector import DANDetector
 from dan_tpu_torch.train import TrainState, create_train_state, train_step
@@ -114,7 +115,7 @@ def test_two_steps_match_jax():
 
 def test_loss_decreases_and_padding_batch_stays_finite():
     cfg = tiny_config()
-    state = create_train_state(cfg, seed=0)
+    state = create_train_state(from_reference(cfg), seed=0, device="cpu")
     batch = synthetic_batch(cfg, 8, seed=0)
     losses = [float(train_step(state, batch)["loss"]) for _ in range(6)]
     assert np.isfinite(losses).all()
@@ -130,15 +131,15 @@ def test_save_restore_resume_is_bit_identical(tmp_path):
     """3 steps straight == 2 steps + save + restore into a fresh state + 1."""
     cfg = tiny_config()
     batches = [synthetic_batch(cfg, 8, seed=i) for i in range(3)]
-    straight = create_train_state(cfg, seed=0)
+    straight = create_train_state(from_reference(cfg), seed=0, device="cpu")
     for b in batches:
         train_step(straight, b)
-    first = create_train_state(cfg, seed=0)
+    first = create_train_state(from_reference(cfg), seed=0, device="cpu")
     for b in batches[:2]:
         train_step(first, b)
     ckpt.save(str(tmp_path), first.step, first)
     assert ckpt.latest_step(str(tmp_path)) == 2
-    resumed = ckpt.restore(str(tmp_path), create_train_state(cfg, seed=1))
+    resumed = ckpt.restore(str(tmp_path), create_train_state(from_reference(cfg), seed=1, device="cpu"))
     assert resumed.step == 2
     train_step(resumed, batches[2])
     assert resumed.step == straight.step == 3
@@ -149,7 +150,7 @@ def test_save_restore_resume_is_bit_identical(tmp_path):
 
 def test_checkpoints_keep_the_newest_five(tmp_path):
     cfg = tiny_config()
-    state = create_train_state(cfg, seed=0)
+    state = create_train_state(from_reference(cfg), seed=0, device="cpu")
     for step in range(1, 8):
         ckpt.save(str(tmp_path), step, state)
     names = sorted(os.listdir(tmp_path))
@@ -176,16 +177,16 @@ def test_train_runs_without_jax():
     unimported."""
     code = (
         "import sys\n"
-        "from dan_tpu.config import DANConfig, MatchConfig, ModelConfig, PreprocessConfig, TrainConfig\n"
-        "from dan_tpu.data.synthetic import synthetic_batch\n"
+        "from dan_tpu_torch.config import DANConfig, MatchConfig, ModelConfig, PreprocessConfig, TrainConfig\n"
+        "from dan_tpu_torch.data.synthetic import synthetic_batch\n"
         "import dan_tpu_torch.train as t\n"
         "cfg = DANConfig(model=ModelConfig(image_size=64, compute_dtype='float32'),\n"
         "                preprocess=PreprocessConfig(train_image_size=64, canvas_size=128),\n"
         "                match=MatchConfig(max_gt=8), train=TrainConfig(batch_size=2))\n"
-        "s = t.create_train_state(cfg)\n"
+        "s = t.create_train_state(cfg, device='cpu')\n"
         "m = t.train_step(s, synthetic_batch(cfg, 2, seed=0))\n"
         "assert s.step == 1 and float(m['loss']) > 0\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dan_tpu'))\n"
         "assert not bad, bad\n"
         "print('no-jax-ok')\n"
     )
