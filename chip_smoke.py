@@ -8,21 +8,31 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build every CUDA source (csrc/*.cu, one nvcc each, all at once) and
      print the NMS kernel's build time;
-  3. compare the kernel with its plain PyTorch version on the card:
-     (128, 5000) rows from a random-init 640x640 forward, and B=1 rows with
-     N=257, max_out > N, all-zero scores and a score threshold -- ranks,
-     indices and valid flags must be identical;
+  3. compare the NMS kernel with its plain PyTorch version on the card,
+     ranks, indices and valid flags identical, and the path each row took
+     (`nms_cuda.LAST_PATHS`: tile scan for a sorted row, argmax loop
+     otherwise) as expected and as `rows_sorted` says: the (128, 5000) rows
+     of a random-init 640x640 forward (sorted, with exact ties: all tile
+     scan); the same rows shuffled (all argmax loop, the same boxes kept
+     with the same ranks); both kinds in one launch; one sorted row with
+     max_out 20 and 65, a score threshold of 0.5, a tail of zeros from box
+     0, 64 and 100, one swapped pair (argmax loop); 300 equal boxes with
+     equal scores; N = 257, 64 and 1 sorted; N = 257 unsorted with
+     max_out > N, all-zero scores and a score threshold;
   4. serve requests through dan_tpu_torch.api.Detector at the default
      config (640x640, bf16): detect() on 3 images of different sizes and
      one detect_batch() of 4, checking shapes, finiteness and boxes inside
-     each image;
+     each image; every NMS row must have taken the tile scan;
   5. run the bench path at batch 128 (normalize -> forward ->
      postprocess_batch), timed with CUDA events after warm-up; the kernel
-     launch counts of phases 4-5 must be > 0;
+     launch counts of phases 4-5 must be > 0 and every NMS row of every
+     bench step must have taken the tile scan;
   6. numeric check: the float32 forward on the card (TF32 off) against the
      same forward on the CPU, and the bf16 forward against the float32 one;
   7. time the NMS kernel against the plain version at (128, 5000, 750) and
-     (1, 5000, 750);
+     (1, 5000, 750), and beside it the argmax loop (the design the tile
+     scan replaced on sorted rows) on the same rows shuffled and on the
+     sorted rows with one swapped pair; the tile scan must be the faster;
   8. print the build time and the ptxas registers, spills and shared
      memory of the train-step kernels (matching.cu, phase_pool.cu,
      conv12_wgrad.cu);
@@ -32,7 +42,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      with a gt in slot >= 128) with identical targets; the phase-pool
      backward bit for bit on winners from a real packed forward; the
      conv1_2' weight grad within relative L2 1e-4 of float32 and
-     bit-identical across two runs;
+     bit-identical across two runs, at the train shape, at batch 1 and 3,
+     at o1 (2, 37, 53, 256) and (1, 64, 65, 256) (rows that end inside a
+     64-pixel segment), on a border-only o1 and dr, and exactly 0 on an
+     all-negative o1;
  10. train the default config at batch 32, 640x640, bf16, on synthetic
      data (warm-up 50, clip 10): 6 steps on one batch must lower the loss;
      10 timed steps on fresh batches give ms/step, img/s, the split into
@@ -51,13 +64,14 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      run: valid, scores and counts identical, boxes within rtol 1e-5 /
      atol 1e-4, two kernel runs bit-identical; the blocked NMS at N = 5000
      on the bench path's candidates and at N = 257: kept set identical to
-     its plain version and to the ranks of the argmax-loop kernel;
+     its plain version and to the ranks of greedy_nms_rank (the tile scan);
  13. the TTA path at the default config (full width, bf16, random weights):
      160 seeded images of 8 WIDER-like sizes that reach every bucket,
      `warmup_tta`, `detect_tta` on one image of each size, then
      `detect_tta_dataset` on all (tta_batch 16, vote_batch 128,
      max_pending 32).  Its launch statistics must equal the planners'
-     arithmetic and the kernels' launch counters those statistics; outputs
+     arithmetic and the kernels' launch counters those statistics; every
+     NMS row of every bucket launch must have taken the tile scan; outputs
      finite, inside the image, at most 750, scores descending; a second
      run, and each image alone through the dataset runner, bit-identical.
      Against per-image detect_tta (other launch shapes, so other cuDNN
@@ -76,7 +90,7 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      device's busy share from one profiler pass;
  14. time the vote kernel at (128, 6000, 750) and (1, 6000, 750) and the
      blocked NMS at (5000, 750) against their plain versions (the blocked
-     NMS's wrapper and its two passes alone, beside the argmax-loop kernel
+     NMS's wrapper and its two passes alone, beside greedy_nms_rank's kernel
      at B = 1), and replay the selections to count the IoUs and merges that
      this run's rows need, for the bounds.
 
@@ -272,10 +286,13 @@ def nms_candidates(det: Detector, images_u8: torch.Tensor):
     return boxes_k, scores_k
 
 
-def compare_kernel(boxes, scores, thr, max_out, score_thr=0.0) -> int:
+def compare_kernel(boxes, scores, thr, max_out, score_thr=0.0, path=None, what="") -> int:
     """Kernel vs plain version on the same CUDA tensors; raises unless the
-    ranks, indices and valid flags are identical.  Returns max |rank diff|."""
+    ranks, indices and valid flags are identical and, where `path` is given
+    (1 = tile scan, 0 = argmax loop; an int for all rows or one per row),
+    unless each row took that path.  Returns max |rank diff|."""
     got = nms_cuda.greedy_nms_rank(boxes, scores, thr, max_out, score_thr)
+    paths = nms_cuda.LAST_PATHS
     want = nms_cuda.greedy_nms_rank_plain(boxes, scores, thr, max_out, score_thr)
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
@@ -284,13 +301,40 @@ def compare_kernel(boxes, scores, thr, max_out, score_thr=0.0) -> int:
     if not (torch.equal(got, want) and torch.equal(rg.indices, rw.indices)
             and torch.equal(rg.valid, rw.valid)):
         raise AssertionError(
-            f"NMS kernel != plain at {tuple(scores.shape)} max_out={max_out}: "
+            f"NMS kernel != plain at {tuple(scores.shape)} max_out={max_out} {what}: "
             f"{int((got != want).sum())} ranks differ"
         )
+    if not torch.equal(paths.bool(), nms_cuda.rows_sorted(scores)):
+        raise AssertionError(f"{what}: the kernel's path choice is not rows_sorted()'s")
+    if path is not None:
+        expect = torch.as_tensor(path, dtype=torch.uint8, device=paths.device).expand_as(paths)
+        if not torch.equal(paths, expect):
+            raise AssertionError(
+                f"NMS {what} at {tuple(scores.shape)}: rows took paths {paths.tolist()[:16]}..., "
+                f"expected {expect.tolist()[:16]}... (1 = tile scan)")
     log(f"  kernel == plain at B={scores.shape[0]} N={scores.shape[1]} "
-        f"max_out={max_out} thr={thr} score_thr={score_thr}: "
-        f"{int((got >= 0).sum())} kept")
+        f"max_out={max_out} thr={thr} score_thr={score_thr}{' ' + what if what else ''}: "
+        f"{int((got >= 0).sum())} kept; tile scan on {int(paths.sum())} of {paths.numel()} rows, "
+        f"at most {int(nms_cuda.LAST_TILES.max())} tiles")
     return err
+
+
+def shuffle_rows(boxes, scores, seed):
+    """Each row's boxes in a random order that keeps boxes of equal score in
+    their relative order, so the greedy selection (lowest index on ties)
+    picks the same boxes in the same order.  -> boxes, scores, and pos with
+    shuffled[b, pos[b, j]] = sorted[b, j]."""
+    bsz, n = scores.shape
+    gen = torch.Generator(device=scores.device).manual_seed(seed)
+    pos = torch.argsort(torch.rand((bsz, n), generator=gen, device=scores.device), dim=1)
+    group = torch.cumsum(
+        torch.nn.functional.pad(scores[:, 1:] != scores[:, :-1], (1, 0)).long(), dim=1)
+    # Within a group of equal scores (adjacent in a sorted row) the positions
+    # drawn for it, in ascending order.
+    pos = torch.gather(pos, 1, torch.argsort(group * n + pos, dim=1))
+    out_b = torch.empty_like(boxes).scatter_(1, pos[..., None].expand(-1, -1, 4), boxes)
+    out_s = torch.empty_like(scores).scatter_(1, pos, scores)
+    return out_b, out_s, pos
 
 
 def random_boxes(rng, n):
@@ -402,15 +446,63 @@ def main() -> int:
     ).to(dev)
     boxes_k, scores_k = nms_candidates(det, images_u8)
     log(f"phase 3: NMS rows {tuple(boxes_k.shape)} from a random-init forward")
-    err_b = compare_kernel(boxes_k, scores_k, post.nms_iou_threshold, post.max_detections)
-    err_1 = compare_kernel(boxes_k[:1], scores_k[:1],
-                           post.nms_iou_threshold, post.max_detections)
+    thr, max_out = post.nms_iou_threshold, post.max_detections
+    ties = int((scores_k[:, 1:] == scores_k[:, :-1]).sum(dim=1).max())
+    # The bench rows: sorted by filter_and_topk, with exact ties (up to
+    # `ties` adjacent equal scores a row): every row must take the tile scan.
+    err_b = compare_kernel(boxes_k, scores_k, thr, max_out, path=1,
+                           what=f"bench rows (<= {ties} tied neighbours a row)")
+    sorted_rank = nms_cuda.greedy_nms_rank(boxes_k, scores_k, thr, max_out)
+    # The same rows shuffled (ties keep their order): the argmax loop, and
+    # the same boxes kept with the same ranks.
+    boxes_u, scores_u, pos = shuffle_rows(boxes_k, scores_k, SEED + 3)
+    err_b = max(err_b, compare_kernel(boxes_u, scores_u, thr, max_out, path=0,
+                                      what="bench rows shuffled"))
+    if not torch.equal(torch.gather(nms_cuda.greedy_nms_rank(boxes_u, scores_u, thr, max_out),
+                                    1, pos), sorted_rank):
+        raise AssertionError("the argmax loop on shuffled rows keeps other boxes than the tile "
+                             "scan on the sorted rows")
+    log("  shuffled rows keep the same boxes with the same ranks as the sorted rows")
+    # One launch that mixes both kinds of row.
+    odd = (torch.arange(BATCH, device=dev) % 2 == 1)
+    err_b = max(err_b, compare_kernel(
+        torch.where(odd[:, None, None], boxes_u, boxes_k),
+        torch.where(odd[:, None], scores_u, scores_k), thr, max_out,
+        path=(~odd).to(torch.uint8), what="sorted and shuffled rows in one launch"))
+    b1, s1 = boxes_k[:1].contiguous(), scores_k[:1].contiguous()
+    err_1 = compare_kernel(b1, s1, thr, max_out, path=1, what="one bench row")
+    # max_out inside a tile and one past a tile's edge.
+    for cut in (20, 65):
+        err_1 = max(err_1, compare_kernel(b1, s1, thr, cut, path=1, what="max_out cut"))
+    err_1 = max(err_1, compare_kernel(b1, s1, thr, max_out, score_thr=0.5, path=1,
+                                      what="score threshold"))
+    # A tail of zeros from the first box, from box 64 and from box 100.
+    for start in (0, 64, 100):
+        s_tail = s1.clone()
+        s_tail[:, start:] = 0.0
+        err_1 = max(err_1, compare_kernel(b1, s_tail, thr, max_out, path=1,
+                                          what=f"zeros from box {start}"))
+    # Sorted but for one swapped pair: the argmax loop.
+    lo = int((s1[0, 1:] < s1[0, :-1]).nonzero()[0])  # first strict descent
+    s_swap = s1.clone()
+    s_swap[0, lo], s_swap[0, lo + 1] = s1[0, lo + 1], s1[0, lo]
+    err_1 = max(err_1, compare_kernel(b1, s_swap, thr, max_out, path=0, what="one swapped pair"))
+    # Equal boxes with equal scores: the first is kept alone.
+    same_b, same_s = b1[:, :1].expand(-1, 300, -1).contiguous(), torch.full((1, 300), 0.7, device=dev)
+    err_1 = max(err_1, compare_kernel(same_b, same_s, thr, max_out, path=1, what="equal boxes"))
+    if int((nms_cuda.greedy_nms_rank(same_b, same_s, thr, max_out) >= 0).sum()) != 1:
+        raise AssertionError("equal boxes with equal scores kept more than one")
+    # Partial tiles, sorted and unsorted, on seeded boxes.
     b = torch.from_numpy(random_boxes(rng, 257)[None]).to(dev)
     s = torch.from_numpy(rng.uniform(0.01, 1.0, (1, 257)).astype(np.float32)).to(dev)
-    err_1 = max(err_1, compare_kernel(b, s, 0.4, 20))
-    err_1 = max(err_1, compare_kernel(b, s, 0.3, 750))  # max_out > N
-    err_1 = max(err_1, compare_kernel(b, s, 0.3, 750, score_thr=0.5))
-    err_1 = max(err_1, compare_kernel(b, torch.zeros_like(s), 0.3, 750))
+    s_desc = torch.sort(s, dim=1, descending=True).values
+    for n in (257, 64, 1):
+        err_1 = max(err_1, compare_kernel(b[:, :n].contiguous(), s_desc[:, :n].contiguous(),
+                                          0.4, 750, path=1, what="sorted"))
+    err_1 = max(err_1, compare_kernel(b, s, 0.4, 20, path=0))
+    err_1 = max(err_1, compare_kernel(b, s, 0.3, 750, path=0))  # max_out > N
+    err_1 = max(err_1, compare_kernel(b, s, 0.3, 750, score_thr=0.5, path=0))
+    err_1 = max(err_1, compare_kernel(b, torch.zeros_like(s), 0.3, 750, path=1))
     if int((nms_cuda.greedy_nms_rank(b, torch.zeros_like(s), 0.3, 750) >= 0).sum()):
         raise AssertionError("all-zero scores kept a box")
     # Rows of the bench path's candidates (descending scores) for phase 12,
@@ -418,6 +510,7 @@ def main() -> int:
     nms_rows = (boxes_k[:4].clone(), scores_k[:4].clone())
     kept_rows = (nms_cuda.greedy_nms_rank(
         boxes_k, scores_k, post.nms_iou_threshold, post.max_detections) >= 0).sum(dim=1)
+    nms_tiles = nms_cuda.LAST_TILES.clone()
     nms_steps, nms_pairs, _ = selection_work(
         boxes_k, scores_k, scores_k > 0.0, post.nms_iou_threshold, post.max_detections, False)
     if not torch.equal(nms_steps, kept_rows):
@@ -427,16 +520,34 @@ def main() -> int:
     nms_cuda.LAUNCHES = 0
     req = [rng.integers(0, 255, hw + (3,), dtype=np.uint8)
            for hw in ((480, 640), (720, 1280), (300, 200))]
+    nms_paths = []  # LAST_PATHS of every launch of phases 4-5: all must be 1
+
+    def took_tile_scan(what):
+        """Every row of the recorded launches took the tile scan, or raise: a
+        fast path that the main path never reaches is a hidden fallback."""
+        rows = torch.cat(nms_paths)
+        nms_paths.clear()
+        if not bool(rows.all()):
+            raise AssertionError(f"{what}: {int((rows == 0).sum())} of {rows.numel()} NMS rows "
+                                 f"took the argmax loop")
+        return rows.numel()
+
     t0 = time.perf_counter()
-    dets = [det.detect(im) for im in req]
+    dets = []
+    for im in req:
+        dets.append(det.detect(im))
+        nms_paths.append(nms_cuda.LAST_PATHS)
     log(f"phase 4: detect() on {[im.shape[:2] for im in req]}: "
         f"{[len(d['scores']) for d in dets]} detections, "
         f"{time.perf_counter() - t0:.3f} s for the 3 (cold)")
     check_dets(dets, req, post.max_detections)
+    log(f"  all {took_tile_scan('detect()')} NMS rows of detect() took the tile scan")
     launches_one = nms_cuda.LAUNCHES
     batch_req = [rng.integers(0, 255, hw + (3,), dtype=np.uint8)
                  for hw in ((640, 640), (500, 375), (1024, 768), (100, 160))]
     dets = det.detect_batch(batch_req)
+    nms_paths.append(nms_cuda.LAST_PATHS)
+    took_tile_scan("detect_batch()")
     log(f"  detect_batch() of 4: {[len(d['scores']) for d in dets]} detections")
     check_dets(dets, batch_req, post.max_detections)
 
@@ -446,8 +557,10 @@ def main() -> int:
         with torch.inference_mode():
             x = normalize_image(images_u8.float(), cfg.preprocess)
             cls, loc = det.model(x)
-            return postprocess_batch(cls, loc, anchors, cfg.anchors, post,
-                                     float(size), float(size))
+            out = postprocess_batch(cls, loc, anchors, cfg.anchors, post,
+                                    float(size), float(size))
+            nms_paths.append(nms_cuda.LAST_PATHS)
+            return out
 
     for _ in range(2):
         out = bench_step()
@@ -464,11 +577,13 @@ def main() -> int:
         raise AssertionError(f"bench path output {tuple(out['bboxes'].shape)}, "
                              f"min valid {int(n_valid.min())}")
     launches_batched = nms_cuda.LAUNCHES - launches_one
+    n_rows_scanned = took_tile_scan("the bench path")
     log(f"phase 5: bench path batch {BATCH} at {size}x{size} bf16: "
         f"{bench_ms:.3f} ms/batch = {img_s:.1f} img/s ({smi}); "
         f"valid detections per image {int(n_valid.min())}..{int(n_valid.max())}")
     log(f"  NMS kernel launches in phases 4-5: {launches_one} at B=1, "
-        f"{launches_batched} batched")
+        f"{launches_batched} batched; all {n_rows_scanned} rows of the bench steps took the "
+        f"tile scan")
     if launches_one == 0 or launches_batched == 0:
         raise AssertionError("the main path did not launch the NMS kernel")
 
@@ -492,6 +607,7 @@ def main() -> int:
         f"min {min(lat):.3f} ms (host clock, 10 calls)")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  peak device memory so far {peak:.2f} GiB")
+    nms_paths.clear()
 
     # -- 6. numerics ----------------------------------------------------------
     f32_cfg = dataclasses.replace(cfg.model, compute_dtype="float32")
@@ -514,24 +630,53 @@ def main() -> int:
         raise AssertionError("forward numerics out of tolerance")
 
     # -- 7. NMS kernel vs plain timing ----------------------------------------
+    # The tile scan on the bench rows, and the argmax loop (the design of the
+    # earlier kernel, kept for unsorted rows) on the same rows shuffled: the
+    # same launch shape, the same boxes kept, the same run on the same card.
     args = (post.nms_iou_threshold, post.max_detections)
     b1, s1 = boxes_k[:1], scores_k[:1]
+    bu1, su1 = boxes_u[:1], scores_u[:1]
+    # A third input: the sorted rows with one neighbouring pair of scores
+    # swapped in each.  They take the argmax loop too, but their active boxes
+    # stay packed at the row's end as in a sorted row (in a shuffled row they
+    # are spread over every warp), which is what the loop saw before the tile
+    # scan took the sorted rows.
+    first = (scores_k[:, :-1] > scores_k[:, 1:]).float().argmax(dim=1)
+    rows = torch.arange(BATCH, device=dev)
+    scores_w = scores_k.clone()
+    scores_w[rows, first], scores_w[rows, first + 1] = (scores_k[rows, first + 1],
+                                                        scores_k[rows, first])
     for _ in range(3):
         nms_cuda.greedy_nms_rank(boxes_k, scores_k, *args)
-    times = {"plain": [], "kernel": [], "plain1": [], "kernel1": []}
+        nms_cuda.greedy_nms_rank(boxes_u, scores_u, *args)
+        nms_cuda.greedy_nms_rank(boxes_k, scores_w, *args)
+    if bool(nms_cuda.LAST_PATHS.any()):
+        raise AssertionError("a row with a swapped pair took the tile scan")
+    times = {k: [] for k in ("plain", "kernel", "argmax", "swapped", "plain1", "kernel1",
+                             "argmax1", "swapped1")}
     for name in ("plain", "kernel", "kernel", "plain"):
-        fn = (nms_cuda.greedy_nms_rank_plain if name == "plain"
-              else nms_cuda.greedy_nms_rank)
-        times[name].append(cuda_ms(lambda: fn(boxes_k, scores_k, *args),
-                                   2 if name == "plain" else 20))
-        times[name + "1"].append(cuda_ms(lambda: fn(b1, s1, *args),
-                                         2 if name == "plain" else 20))
+        if name == "plain":
+            times["plain"].append(cuda_ms(
+                lambda: nms_cuda.greedy_nms_rank_plain(boxes_k, scores_k, *args), 2))
+            times["plain1"].append(cuda_ms(
+                lambda: nms_cuda.greedy_nms_rank_plain(b1, s1, *args), 2))
+            continue
+        for key, (bx, sc) in (("kernel", (boxes_k, scores_k)), ("argmax", (boxes_u, scores_u)),
+                              ("swapped", (boxes_k, scores_w)), ("kernel1", (b1, s1)),
+                              ("argmax1", (bu1, su1)), ("swapped1", (b1, scores_w[:1]))):
+            times[key].append(cuda_ms(lambda: nms_cuda.greedy_nms_rank(bx, sc, *args), 20))
     ms = {k: float(np.mean(v)) for k, v in times.items()}
     log(f"phase 7: NMS at ({BATCH}, {boxes_k.shape[1]}, {post.max_detections}): "
-        f"kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms; at B=1: kernel "
-        f"{ms['kernel1']:.4f} ms, plain {ms['plain1']:.4f} ms ({smi})")
+        f"kernel (tile scan, at most {int(nms_tiles.max())} tiles a row) {ms['kernel']:.4f} ms, the "
+        f"argmax loop on the shuffled rows {ms['argmax']:.4f} ms and on the sorted rows with one "
+        f"swapped pair {ms['swapped']:.4f} ms, plain {ms['plain']:.4f} ms; at B=1: kernel "
+        f"({int(nms_tiles[0])} tiles) {ms['kernel1']:.4f} ms, argmax loop {ms['argmax1']:.4f} ms "
+        f"shuffled and {ms['swapped1']:.4f} ms swapped, plain {ms['plain1']:.4f} ms ({smi})")
+    if not (ms["kernel"] < min(ms["argmax"], ms["swapped"])
+            and ms["kernel1"] < min(ms["argmax1"], ms["swapped1"])):
+        raise AssertionError("the tile scan is not faster than the argmax loop")
 
-    del det, model32, images_u8, boxes_k, scores_k, out
+    del det, model32, images_u8, boxes_k, scores_k, boxes_u, scores_u, scores_w, out
     torch.cuda.empty_cache()
 
     # -- 8. build of the train-step and TTA kernels ---------------------------
@@ -562,9 +707,11 @@ def main() -> int:
     tta_ms, tta_bounds = phase14(tta["vote_inputs"], nms_rows, post, dev, smi)
 
     n_rows, n_box = BATCH, post.pre_nms_topk
-    # The argmax-loop NMS: 20 bytes a box in, its rank out; in each dependent
-    # step an IoU, a threshold test and an argmax compare for every box that
-    # is still active, counted from this run's rows.
+    # NMS: 20 bytes a box in, its rank out; for every selected box an IoU, a
+    # threshold test and (the input need not be sorted) an argmax compare
+    # for every box that is still active, counted from this run's rows.  The
+    # chain of dependent steps is the tile scan's tiles; the argmax loop's
+    # time on the same rows shuffled stands beside the kernel's.
     pair_ops = IOU_OPS + TEST_OPS + ARGMAX_OPS
     b_nms = bound(n_rows * n_box * 24, int(nms_pairs.sum()) * pair_ops, PEAK_F32)
     b_nms1 = bound(n_box * 24, int(nms_pairs[0]) * pair_ops, PEAK_F32)
@@ -572,13 +719,16 @@ def main() -> int:
         {"name": "greedy_nms_rank (batched)", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "dan_tpu/ops/nms_batched_pallas.py:29", "launches": launches_batched,
          "launches_tta": tta["nms_launches"], "max_abs_err": err_b, "ms": ms["kernel"],
-         "plain_ms": ms["plain"], "bound_ms": b_nms[0], "bound_by": b_nms[1],
-         "dependent_steps": int(kept_rows.max()), "library_ms": None},
+         "argmax_loop_ms": ms["argmax"], "argmax_loop_swapped_ms": ms["swapped"],
+         "plain_ms": ms["plain"], "bound_ms": b_nms[0],
+         "bound_by": b_nms[1], "dependent_steps": int(nms_tiles.max()),
+         "kept": int(kept_rows.max()), "library_ms": None},
         {"name": "greedy_nms_rank (B=1)", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "dan_tpu/ops/nms_pallas.py:34", "launches": launches_one,
-         "max_abs_err": err_1, "ms": ms["kernel1"], "plain_ms": ms["plain1"],
-         "bound_ms": b_nms1[0], "bound_by": b_nms1[1],
-         "dependent_steps": int(kept_rows[0]), "library_ms": None},
+         "max_abs_err": err_1, "ms": ms["kernel1"], "argmax_loop_ms": ms["argmax1"],
+         "argmax_loop_swapped_ms": ms["swapped1"],
+         "plain_ms": ms["plain1"], "bound_ms": b_nms1[0], "bound_by": b_nms1[1],
+         "dependent_steps": int(nms_tiles[0]), "kept": int(kept_rows[0]), "library_ms": None},
     ]
     for name, (_, src, replaces) in TRAIN_KERNELS.items():
         entry = {
@@ -586,6 +736,11 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
             "ms": train_ms[name]["kernel"], "plain_ms": train_ms[name]["plain"],
             "library_ms": train_ms[name].get("library")}
+        if name == "conv12_wgrad":
+            plan = train_bounds["conv12_wgrad tiling"]
+            seg = conv12_wgrad_cuda.SEGMENT
+            entry.update(partials=plan.partials, flush_pixels=plan.flush_segs * seg,
+                         pixels_per_block=plan.segs_per_range * seg)
         if name != "matcher":
             ms_b, by = train_bounds[name]
             kernels.append(dict(entry, bound_ms=ms_b, bound_by=by))
@@ -649,6 +804,27 @@ def edge_case_batch(cfg):
     return batch
 
 
+def compare_wgrad(o1, dr, what) -> float:
+    """The conv1_2' weight-gradient kernel against its plain version in
+    float32 (TF32 off): relative L2 <= 1e-4 and two runs bit-identical, or
+    raise.  Returns max |diff|."""
+    k_a = conv12_wgrad_cuda.conv12_wgrad(o1, dr)
+    plan = conv12_wgrad_cuda.LAST_TILING
+    k_b = conv12_wgrad_cuda.conv12_wgrad(o1, dr)
+    plain = conv12_wgrad_cuda.conv12_wgrad_plain(o1, dr)
+    torch.cuda.synchronize()
+    e_w = rel_l2(k_a, plain)
+    e_abs = float((k_a - plain).abs().max())
+    same = torch.equal(k_a, k_b)
+    log(f"phase 9: conv12 wgrad kernel vs plain (f32, TF32 off) at o1 {tuple(o1.shape)}, dr "
+        f"{tuple(dr.shape)} ({what}): rel L2 {e_w:.3e} (limit 1e-4), max |diff| {e_abs:.3e}; "
+        f"two runs identical: {same}; {plan.partials} partials of {plan.segs_per_range} "
+        f"segments, a chain ends every {plan.flush_segs * conv12_wgrad_cuda.SEGMENT} pixels")
+    if not (e_w <= 1e-4 and same and bool(torch.isfinite(k_a).all())):
+        raise AssertionError(f"conv12 wgrad kernel out of tolerance or not deterministic ({what})")
+    return e_abs
+
+
 def phase9(cfg, dev):
     """Each train kernel against its plain version at the train shapes;
     returns the max errors and the inputs phase 11 times."""
@@ -705,24 +881,41 @@ def phase9(cfg, dev):
         f"{[int(c) for c in counts[:4]]}, clamped (255) {int(counts[255])}")
     del got, want
 
-    # conv1_2' weight grad at full shape.
+    # conv1_2' weight grad at the train shape, then at other shapes.
     o1 = nhwc(o1_pre)
     del o1_pre
     dr = torch.randn((TRAIN_BATCH, o1.shape[1] + 1, o1.shape[2] + 1, 256),
                      generator=gen, device=dev, dtype=torch.bfloat16)
-    k_a = conv12_wgrad_cuda.conv12_wgrad(o1, dr)
-    k_b = conv12_wgrad_cuda.conv12_wgrad(o1, dr)
-    plain = conv12_wgrad_cuda.conv12_wgrad_plain(o1, dr)
-    torch.cuda.synchronize()
-    e_w = rel_l2(k_a, plain)
-    same = torch.equal(k_a, k_b)
-    log(f"phase 9: conv12 wgrad kernel vs plain (f32, TF32 off) at o1 "
-        f"{tuple(o1.shape)}, dr {tuple(dr.shape)}: rel L2 {e_w:.3e} (limit 1e-4), "
-        f"max |diff| {float((k_a - plain).abs().max()):.3e}; two runs identical: {same}")
-    if not (e_w <= 1e-4 and same):
-        raise AssertionError("conv12 wgrad kernel out of tolerance or not deterministic")
+    e_abs = compare_wgrad(o1, dr, "the train shape, o1 from a real packed forward")
+    compare_wgrad(o1[:1].contiguous(), dr[:1].contiguous(), "batch 1 at 640x640")
+    compare_wgrad(o1[:3].contiguous(), dr[:3].contiguous(), "batch 3 at 640x640")
+    # Rows that are no multiple of the 64-pixel segment: a ragged last
+    # segment, and one pixel over a segment (the kernel reads zeros past W).
+    for shape in ((2, 37, 53, 256), (1, 64, 65, 256)):
+        small = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+        small_dr = torch.randn((shape[0], shape[1] + 1, shape[2] + 1, 256), generator=gen,
+                               device=dev, dtype=torch.bfloat16)
+        compare_wgrad(small, small_dr, "an odd size")
+    # Nothing passes the relu: dW is exactly 0.
+    zero = conv12_wgrad_cuda.conv12_wgrad(-o1[:2].abs() - 1.0, dr[:2].contiguous())
+    if float(zero.abs().max()) != 0.0:
+        raise AssertionError("conv12 wgrad of an all-negative o1 is not exactly 0")
+    log("  all-negative o1: dW exactly 0")
+    # Only the border: o1 positive on its outer rows and columns alone, dr
+    # nonzero on its outer rows and columns alone -- the taps next to the
+    # zero padding carry everything.
+    edge = -o1[:2].abs() - 1.0
+    for sl in ((slice(None), 0), (slice(None), -1), (slice(None), slice(None), 0),
+               (slice(None), slice(None), -1)):
+        edge[sl] = o1[:2][sl].abs()
+    edge_dr = torch.zeros_like(dr[:2])
+    for sl in ((slice(None), 0), (slice(None), -1), (slice(None), slice(None), 0),
+               (slice(None), slice(None), -1)):
+        edge_dr[sl] = dr[:2][sl]
+    compare_wgrad(edge, edge_dr, "border-only o1 and dr")
+    del zero, edge, edge_dr
     errs = {"matcher": max(e_iou, e_loc), "phase_pool_bwd": 0.0,
-            "conv12_wgrad": float((k_a - plain).abs().max())}
+            "conv12_wgrad": e_abs}
     cases = {"matcher": margs, "phase_pool_bwd": (g, win), "conv12_wgrad": (o1, dr)}
     return errs, cases
 
@@ -897,6 +1090,8 @@ def phase11(cases, smi):
     }
     for name, (ms_b, by) in bounds.items():
         log(f"  bound {name}: {ms_b:.4f} ms by {by}")
+    conv12_wgrad_cuda.conv12_wgrad(o1, dr)
+    bounds["conv12_wgrad tiling"] = conv12_wgrad_cuda.LAST_TILING
     return out, bounds
 
 
@@ -962,7 +1157,7 @@ def phase12_real(vote_inputs, post, dev) -> float:
 
 def phase12_blocked(nms_rows, post, dev) -> float:
     """The blocked NMS kernel: kept set against its plain version and
-    against the argmax-loop kernel's ranks."""
+    against greedy_nms_rank's ranks (the tile scan: these rows are sorted)."""
     boxes, scores = nms_rows
     thr, max_out = post.nms_iou_threshold, post.max_detections
     rng = np.random.default_rng(SEED + 9)
@@ -972,7 +1167,7 @@ def phase12_blocked(nms_rows, post, dev) -> float:
     cases = [(boxes[i], scores[i], thr, 0.0) for i in range(boxes.shape[0])]
     cases += [(small_b, small_s, 0.4, 0.0), (small_b, small_s, 0.3, 0.5),
               (small_b, torch.zeros_like(small_s), 0.3, 0.0)]
-    log("phase 12: blocked NMS kernel against its plain version and the argmax-loop kernel")
+    log("phase 12: blocked NMS kernel against its plain version and the ranks of greedy_nms_rank")
     diff = 0
     for bx, sc, t, sthr in cases:
         # max_out = N gives the whole kept set; then the path's max_out.
@@ -989,20 +1184,27 @@ def phase12_blocked(nms_rows, post, dev) -> float:
             if any(off):
                 raise AssertionError(
                     f"blocked NMS at N={sc.shape[0]} thr={t} score_thr={sthr} max_out={out}: "
-                    f"{off[0]} kept entries differ from plain, {off[1]} from the argmax-loop "
-                    f"kernel")
-        log(f"  blocked NMS == plain == argmax-loop kernel at N={sc.shape[0]} thr={t} "
+                    f"{off[0]} kept entries differ from plain, {off[1]} from "
+                    f"greedy_nms_rank")
+        log(f"  blocked NMS == plain == greedy_nms_rank at N={sc.shape[0]} thr={t} "
             f"score_thr={sthr}: kept sets identical, {int(got.valid.sum())} within max_out")
     return float(diff)
 
 
 class RecordingRunner(TTARunner):
     """The TTA runner, keeping the host arrays of every vote launch so that
-    phase 12 can hold the kernel against its plain version on them."""
+    phase 12 can hold the kernel against its plain version on them, and the
+    path that every NMS row of every bucket launch took."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.vote_inputs = []
+        self.nms_paths = []  # nms_cuda.LAST_PATHS of every bucket launch
+
+    def _run_bucket(self, *args, **kwargs):
+        out = super()._run_bucket(*args, **kwargs)
+        self.nms_paths.append(nms_cuda.LAST_PATHS)
+        return out
 
     def _run_vote(self, boxes_b, scores_b, valid_b):
         self.vote_inputs.append((boxes_b, scores_b, valid_b))
@@ -1062,6 +1264,7 @@ def phase13(cfg, dev, smi):
     if n_warm != len(groups) + 1:
         raise AssertionError(f"warmup returned {n_warm}, expected {len(groups) + 1}")
     runner.vote_inputs.clear()
+    runner.nms_paths.clear()
 
     # The counted run: detect_tta on one image of each size, then the dataset.
     nms_cuda.LAUNCHES = bbox_vote_cuda.LAUNCHES = nms_blocked_cuda.LAUNCHES = 0
@@ -1090,6 +1293,12 @@ def phase13(cfg, dev, smi):
         f"memory {peak:.2f} GiB")
     log(f"  launches: greedy_nms_rank {nms_one} in detect_tta + {nms_ds} in the dataset run; "
         f"bbox_vote {vote_one} at B=1 + {vote_ds} batched")
+    nms_rows_tta = torch.cat(runner.nms_paths)
+    log(f"  NMS rows of detect_tta and the dataset run: {int(nms_rows_tta.sum())} of "
+        f"{nms_rows_tta.numel()} took the tile scan ({len(runner.nms_paths)} launches)")
+    if len(runner.nms_paths) != nms_one + nms_ds or not bool(nms_rows_tta.all()):
+        raise AssertionError("an NMS row of the TTA run took the argmax loop, or a launch "
+                             "was not recorded")
     if stats != want_stats:
         raise AssertionError(f"last_run_stats {stats} != planned {want_stats}")
     if (nms_ds, vote_ds) != (stats["bucket_launches"], stats["vote_launches"]):
@@ -1320,10 +1529,10 @@ def phase14(vote_inputs, nms_rows, post, dev, smi):
     # rank_to_result follows the kernel: the two launches alone, beside it.
     out["blocked"]["launch"] = cuda_ms(
         lambda: nms_blocked_cuda._launch(bx, sc, nthr, 0.0), 20)
-    argmax_ms = cuda_ms(lambda: rank_to_result(
+    k1_ms = cuda_ms(lambda: rank_to_result(
         nms_cuda.greedy_nms_rank(bx[None], sc[None], nthr, max_out), bx[None], sc[None],
         max_out), 20)
-    argmax_launch_ms = cuda_ms(
+    k1_launch_ms = cuda_ms(
         lambda: nms_cuda.greedy_nms_rank(bx[None], sc[None], nthr, max_out), 20)
     log(f"phase 14: bbox_vote at {tuple(s.shape)} -> {max_out}: kernel "
         f"{out['vote']['kernel']:.4f} ms, plain {out['vote']['plain']:.4f} ms; at B=1: kernel "
@@ -1331,9 +1540,9 @@ def phase14(vote_inputs, nms_rows, post, dev, smi):
     log(f"phase 14: greedy_nms_blocked at ({sc.shape[0]}, {max_out}): the wrapper (order check "
         f"that waits for the device, both passes, rank_to_result) "
         f"{out['blocked']['kernel']:.4f} ms, its two passes alone "
-        f"{out['blocked']['launch']:.4f} ms, plain {out['blocked']['plain']:.4f} ms; the "
-        f"argmax-loop kernel at B=1 with rank_to_result {argmax_ms:.4f} ms, alone "
-        f"{argmax_launch_ms:.4f} ms ({smi})")
+        f"{out['blocked']['launch']:.4f} ms, plain {out['blocked']['plain']:.4f} ms; "
+        f"greedy_nms_rank (tile scan) at B=1 with rank_to_result {k1_ms:.4f} ms, alone "
+        f"{k1_launch_ms:.4f} ms ({smi})")
 
     # Bounds, from what these inputs need.  Vote: 21 bytes a detection in,
     # 21 an output slot; in each dependent step an IoU, a test and an argmax

@@ -11,6 +11,13 @@ threshold, boxes with score <= score_threshold never take part.  The input
 need not be sorted.  ops.nms.rank_to_result turns ranks into the ordered
 fixed-shape NMSResult.
 
+The kernel picks one of two paths for each row, on the device: a row whose
+scores are non-increasing (`rows_sorted`; what filter_and_topk's stable sort
+hands over on the detect and TTA paths) takes the tile scan, one dependent
+step for every 64 boxes still active; any other row takes the argmax loop, one step for
+every box kept.  Both give the ranks of `greedy_nms_rank_plain` bit for
+bit.  `LAST_PATHS` holds which path each row of the last launch took.
+
 A tensor on the CPU goes through `greedy_nms_rank_plain`; a CUDA tensor
 launches the kernel, which ops/_cuda_build.py builds with nvcc on first
 use into dan_tpu_torch/_build/ (keyed by a hash of the source).  There is no
@@ -19,6 +26,7 @@ fallback between the two: a CUDA tensor that cannot be handled raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -29,14 +37,20 @@ SOURCE = "nms"
 
 # Kernel launches since the last reset (set to 0 to reset).
 LAUNCHES = 0
+# (B,) uint8 on the device, written by the last launch without a wait: 1
+# where the row took the tile scan, 0 where it took the argmax loop.
+LAST_PATHS: Optional[torch.Tensor] = None
+# (B,) int32, likewise: the tiles (dependent steps) each row's scan took; 0
+# where the row took the argmax loop.
+LAST_TILES: Optional[torch.Tensor] = None
 
 
 def build() -> ctypes.CDLL:
     """Compile csrc/nms.cu (once per source hash) and load it."""
     lib = _cuda_build.load(SOURCE)
     lib.nms_rank_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
     ]
     lib.nms_rank_launch.restype = ctypes.c_int
@@ -77,12 +91,19 @@ def greedy_nms_rank(
     return _launch(boxes, scores, iou_threshold, max_out, score_threshold)
 
 
+def rows_sorted(scores: torch.Tensor) -> torch.Tensor:
+    """(B, N) scores -> (B,) bool: the rule by which the kernel sends a row
+    to the tile scan.  A row is sorted when no score is followed by a larger
+    one; ties and a tail of zeros are in order, a NaN anywhere is not."""
+    return (scores[:, :-1] >= scores[:, 1:]).all(dim=1)
+
+
 def _launch(boxes, scores, iou_threshold, max_out, score_threshold):
-    global LAUNCHES
-    if boxes.device.type != "cuda":
-        raise ValueError(f"the NMS kernel takes CUDA tensors, got {boxes.device}")
+    global LAUNCHES, LAST_PATHS, LAST_TILES
     if not (boxes.is_contiguous() and scores.is_contiguous()):
         raise ValueError("the NMS kernel takes contiguous boxes and scores")
+    if boxes.device.type != "cuda":
+        raise ValueError(f"the NMS kernel takes CUDA tensors, got {boxes.device}")
     bsz, n = scores.shape
     lib = build()
     if n > lib.nms_rank_max_n():
@@ -93,14 +114,18 @@ def _launch(boxes, scores, iou_threshold, max_out, score_threshold):
     rank = torch.empty((bsz, n), dtype=torch.int32, device=boxes.device)
     if bsz == 0 or n == 0:
         return rank
+    paths = torch.empty((bsz,), dtype=torch.uint8, device=boxes.device)
+    tiles = torch.empty((bsz,), dtype=torch.int32, device=boxes.device)
     with torch.cuda.device(boxes.device):
         err = lib.nms_rank_launch(
-            boxes.data_ptr(), scores.data_ptr(), rank.data_ptr(),
+            boxes.data_ptr(), scores.data_ptr(), rank.data_ptr(), paths.data_ptr(),
+            tiles.data_ptr(),
             bsz, n, int(max_out), float(iou_threshold), float(score_threshold),
             _cuda_build.stream_of(boxes),
         )
     _cuda_build.check(err, "nms_rank_launch")
     LAUNCHES += 1
+    LAST_PATHS, LAST_TILES = paths, tiles
     return rank
 
 
