@@ -18,7 +18,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      max_out 20 and 65, a score threshold of 0.5, a tail of zeros from box
      0, 64 and 100, one swapped pair (argmax loop); 300 equal boxes with
      equal scores; N = 257, 64 and 1 sorted; N = 257 unsorted with
-     max_out > N, all-zero scores and a score threshold;
+     max_out > N, all-zero scores and a score threshold; a bench row with a
+     NaN x1 and a NaN y2 on two boxes, sorted (tile scan) and shuffled
+     (argmax loop);
   4. serve requests through dan_tpu_torch.api.Detector at the default
      config (640x640, bf16): detect() on 3 images of different sizes and
      one detect_batch() of 4, checking shapes, finiteness and boxes inside
@@ -37,9 +39,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      memory of the train-step kernels (matching.cu, phase_pool.cu,
      conv12_wgrad.cu);
   9. hold each train-step kernel against its plain version on the card at
-     the train shapes (batch 32, 640x640): the matcher (A = 34125, G = 256,
-     on train-preprocessed synthetic gts plus an image without gts and one
-     with a gt in slot >= 128) with identical targets; the phase-pool
+     the train shapes (batch 32, 640x640): the matcher (A = 34125, G = 256)
+     with all four MatchTargets leaves bit-identical, on the
+     train-preprocessed synthetic batch, on the same with an image without
+     gts and one with a gt in slot >= 128, and on that with one image
+     added whose 256 gts are all valid; the phase-pool
      backward bit for bit on winners from a real packed forward; the
      conv1_2' weight grad within relative L2 1e-4 of float32 and
      bit-identical across two runs, at the train shape, at batch 1 and 3,
@@ -54,17 +58,26 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      step; then 2 steps through `python -m dan_tpu_torch.train`'s main(),
      the second resumed from the first one's checkpoint;
  11. time each train-step kernel against its plain version at the train
-     shapes, and cuDNN's weight gradient beside the conv1_2' kernel (the
-     one PyTorch call that computes a ported kernel's function);
+     shapes, the matcher call beside its three kernels' own device time
+     (torch.profiler), and cuDNN's weight gradient beside the conv1_2'
+     kernel (the one PyTorch call that computes a ported kernel's
+     function);
  12. hold the vote kernel and the blocked-NMS kernel against their plain
      versions on the card: the vote at (7, 6000) -> 750 on seeded rows
      (clusters, an empty row, a full row, score ties, a pair at IoU exactly
-     the threshold, scores <= 0, a packed prefix), at B = 1, and -- after
-     phase 13 -- at (128, 6000) on the pre-vote detections of the real TTA
-     run: valid, scores and counts identical, boxes within rtol 1e-5 /
-     atol 1e-4, two kernel runs bit-identical; the blocked NMS at N = 5000
-     on the bench path's candidates and at N = 257: kept set identical to
-     its plain version and to the ranks of greedy_nms_rank (the tile scan);
+     the threshold, scores <= 0, a packed prefix) at thresholds 0.3, 0 and
+     1, at B = 1, on edge rows at 6000 (300 near-equal boxes merging into
+     one output across tiles, max_out 20 and 70 cutting inside a tile, a
+     zero-area box selected first, NaN coordinates and a NaN score), at
+     R = 1, and -- after phase 13 -- at (128, 6000) on the pre-vote
+     detections of the real TTA run: valid, scores and counts identical,
+     boxes within rtol 1e-5 / atol 1e-4 (NaN where the plain version's
+     are), two kernel runs bit-identical, and every row's tiles
+     (`bbox_vote_cuda.LAST_TILES`) positive exactly when it has an active
+     detection and at most one a 64 active ones; the blocked NMS at
+     N = 5000 on the bench path's candidates, on the NaN row of phase 3 and
+     at N = 257: kept set identical to its plain version and to the ranks
+     of greedy_nms_rank (the tile scan);
  13. the TTA path at the default config (full width, bf16, random weights):
      160 seeded images of 8 WIDER-like sizes that reach every bucket,
      `warmup_tta`, `detect_tta` on one image of each size, then
@@ -72,8 +85,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      max_pending 32).  Its launch statistics must equal the planners'
      arithmetic and the kernels' launch counters those statistics; every
      NMS row of every bucket launch must have taken the tile scan; outputs
-     finite, inside the image, at most 750, scores descending; a second
-     run, and each image alone through the dataset runner, bit-identical.
+     finite, inside the image, at most 750, scores descending; every vote
+     row's tiles as in phase 12; a second run, each image alone through
+     the dataset runner, and a second detect_tta of each image (timed warm)
+     bit-identical.
      Against per-image detect_tta (other launch shapes, so other cuDNN
      kernels) the bf16 run is held as a set of boxes (>= 90 % with a
      partner at IoU > 0.5 and >= 70 % at IoU > 0.9) and the same weights in
@@ -88,8 +103,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      Prints images/s, ms per bucket launch by bucket, ms per vote launch,
      peak memory overall and for one 2048-bucket launch of 8 units, and the
      device's busy share from one profiler pass;
- 14. time the vote kernel at (128, 6000, 750) and (1, 6000, 750) and the
-     blocked NMS at (5000, 750) against their plain versions (the blocked
+ 14. time the vote kernel at (128, 6000, 750) and (1, 6000, 750) with its
+     own device time (torch.profiler) and the blocked NMS at (5000, 750)
+     against their plain versions (the blocked
      NMS's wrapper and its two passes alone, beside greedy_nms_rank's kernel
      at B = 1), and replay the selections to count the IoUs and merges that
      this run's rows need, for the bounds.
@@ -118,12 +134,12 @@ from dan_tpu_torch.data.synthetic import synthetic_batch
 from dan_tpu_torch.api import Detector
 from dan_tpu_torch.box.anchors import generate_anchors
 from dan_tpu_torch.box.iou import iou_one_to_many, pairwise_iou
-from dan_tpu_torch.box.matching import match_anchors
+from dan_tpu_torch.box.matching import MatchTargets, match_anchors
 from dan_tpu_torch.ckpt import train_state as ckpt
 from dan_tpu_torch.models.detector import DANDetector
 from dan_tpu_torch.models.vgg import phase_pool_with_winner, nhwc
 from dan_tpu_torch.eval import __main__ as eval_cli
-from dan_tpu_torch.eval.tta import TTARunner, plan_variant_buckets
+from dan_tpu_torch.eval.tta import TTARunner, VoteRows, plan_variant_buckets
 from dan_tpu_torch.eval.widerface_ap import evaluate_widerface
 from dan_tpu_torch.eval.writer import load_detection_dir, write_wider_detections
 from dan_tpu_torch.ops import (
@@ -162,8 +178,11 @@ TRAIN_KERNELS = {  # module, source, the TPU kernel it replaces
     "conv12_wgrad": (conv12_wgrad_cuda, "conv12_wgrad",
                      "dan_tpu/ops/conv12_wgrad_pallas.py:51"),
 }
-# Launches per train step: the matcher's two passes, one each for the rest.
-PER_STEP = {"matcher": 2, "phase_pool_bwd": 1, "conv12_wgrad": 1}
+# Launches per train step: one each (the matcher counts calls of its C
+# entry point, each of which launches both of its passes).
+PER_STEP = {"matcher": 1, "phase_pool_bwd": 1, "conv12_wgrad": 1}
+# The matcher's kernels: pass 1 (K3) is the first two, pass 2 (K4) the last.
+MATCHER_KERNELS = ("anchor_best_kernel", "gt_stats_kernel", "assign_kernel")
 TTA_SOURCES = ("bbox_vote", "nms_blocked")
 # (h, w) of the TTA run's images: sizes WIDER FACE has, reaching every
 # bucket class (640x480 takes the extra 2.0 scale; 1024x400 is under 0.42 MP,
@@ -257,15 +276,62 @@ def nbytes(*tensors) -> int:
 
 def turns(kernel, plain, kernel_iters=10, plain_iters=2):
     """Mean ms of kernel() and plain(), timed in turns plain, kernel,
-    kernel, plain after one warm call of each."""
+    kernel, plain after one warm call of each.  Each kernel turn follows
+    three untimed calls, so that no turn starts cold after the plain
+    version's run."""
     kernel()
     plain()
     torch.cuda.synchronize()
     times = {"plain": [], "kernel": []}
     for which in ("plain", "kernel", "kernel", "plain"):
         fn, iters = (kernel, kernel_iters) if which == "kernel" else (plain, plain_iters)
+        if which == "kernel":
+            for _ in range(3):
+                fn()
         times[which].append(cuda_ms(fn, iters))
     return {k: float(np.mean(v)) for k, v in times.items()}
+
+
+def host_ms(fn, iters=20) -> float:
+    """Mean host milliseconds a call of fn() takes to return (what it
+    enqueues is not waited for)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return t
+
+
+def device_ms(fn, iters, names):
+    """Device time per call of fn() spent in the CUDA kernels whose names
+    contain each of `names`, from torch.profiler over `iters` calls after
+    one warm call -> {name: ms}.  Raises if a named kernel shows no time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA":
+            for name in names:
+                if name in e.key:
+                    out[name] += e.self_device_time_total / 1e3 / iters
+    if not all(v > 0.0 for v in out.values()):
+        raise AssertionError(f"the profiler shows no device time for some of {names}: {out}")
+    return out
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (float32 compared as int32: a NaN equals its copy)."""
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -505,6 +571,18 @@ def main() -> int:
     err_1 = max(err_1, compare_kernel(b, torch.zeros_like(s), 0.3, 750, path=1))
     if int((nms_cuda.greedy_nms_rank(b, torch.zeros_like(s), 0.3, 750) >= 0).sum()):
         raise AssertionError("all-zero scores kept a box")
+    # A NaN x1 and a NaN y2 on two boxes of a bench row: max / min propagate
+    # the NaN as torch.maximum / minimum do, so both boxes have IoU 0 with
+    # every box, on both paths.
+    b_nan = b1.clone()
+    b_nan[0, 3, 0] = float("nan")
+    b_nan[0, 40, 3] = float("nan")
+    err_1 = max(err_1, compare_kernel(b_nan, s1, thr, max_out, path=1,
+                                      what="NaN x1 and y2, sorted"))
+    bu_nan, su_nan, _ = shuffle_rows(b_nan, s1, SEED + 5)
+    err_1 = max(err_1, compare_kernel(bu_nan, su_nan, thr, max_out, path=0,
+                                      what="NaN x1 and y2, shuffled"))
+    nan_row = (b_nan[0].clone(), s1[0].clone())
     # Rows of the bench path's candidates (descending scores) for phase 12,
     # and the dependent steps and IoU pairs that this run's NMS rows need.
     nms_rows = (boxes_k[:4].clone(), scores_k[:4].clone())
@@ -701,7 +779,7 @@ def main() -> int:
 
     # -- 12a, 13, 12b, 14: the TTA evaluation path ---------------------------------
     vote_err = phase12_synthetic(post, dev)
-    blocked_err = phase12_blocked(nms_rows, post, dev)
+    blocked_err = phase12_blocked(nms_rows, nan_row, post, dev)
     tta = phase13(cfg, dev, smi)
     vote_err = max(vote_err, phase12_real(tta["vote_inputs"], post, dev))
     tta_ms, tta_bounds = phase14(tta["vote_inputs"], nms_rows, post, dev, smi)
@@ -745,28 +823,32 @@ def main() -> int:
             ms_b, by = train_bounds[name]
             kernels.append(dict(entry, bound_ms=ms_b, bound_by=by))
             continue
-        # The matcher's wrapper launches both passes: one entry for each TPU
-        # kernel, its own bound and half of the launches; the times are the
-        # wrapper's (both passes and the tensor work between them).
-        for pass_name, line in (("matcher pass 1", 87), ("matcher pass 2", 208)):
+        # One call of the matcher launches both passes: one entry for each
+        # TPU kernel with its own bound and its kernels' device time; `ms` is
+        # the call's (both passes and the wrapper's host work).
+        dev_t = train_ms[name]["device"]
+        for pass_name, line, names in (("matcher pass 1", 87, MATCHER_KERNELS[:2]),
+                                       ("matcher pass 2", 208, MATCHER_KERNELS[2:])):
             ms_b, by = train_bounds[pass_name]
             kernels.append(dict(
                 entry, name=pass_name, replaces=f"dan_tpu/ops/matching_pallas.py:{line}",
-                launches=launches[name] // 2, bound_ms=ms_b, bound_by=by,
-                ms_covers="both passes through match_anchors_cuda"))
+                bound_ms=ms_b, bound_by=by, device_ms=sum(dev_t[k] for k in names),
+                ms_covers="one match_anchors_cuda call: both passes and the wrapper"))
     vote_src = "dan_tpu_torch/csrc/bbox_vote.cu"
     kernels += [
         {"name": "bbox_vote (batched)", "route": "cuda", "source": vote_src,
          "replaces": "dan_tpu/ops/bbox_vote_pallas.py:162", "launches": tta["vote_launches"],
          "max_abs_err": vote_err, "ms": tta_ms["vote"]["kernel"],
-         "plain_ms": tta_ms["vote"]["plain"], "bound_ms": tta_bounds["vote"][0],
-         "bound_by": tta_bounds["vote"][1], "dependent_steps": tta_bounds["vote"][2],
+         "device_ms": tta_ms["vote"]["device"], "plain_ms": tta_ms["vote"]["plain"],
+         "bound_ms": tta_bounds["vote"][0], "bound_by": tta_bounds["vote"][1],
+         "dependent_steps": tta_bounds["vote"][2], "outputs": tta_bounds["vote"][3],
          "library_ms": None},
         {"name": "bbox_vote (B=1)", "route": "cuda", "source": vote_src,
          "replaces": "dan_tpu/ops/bbox_vote_pallas.py:30", "launches": tta["vote_launches_one"],
          "max_abs_err": vote_err, "ms": tta_ms["vote1"]["kernel"],
-         "plain_ms": tta_ms["vote1"]["plain"], "bound_ms": tta_bounds["vote1"][0],
-         "bound_by": tta_bounds["vote1"][1], "dependent_steps": tta_bounds["vote1"][2],
+         "device_ms": tta_ms["vote1"]["device"], "plain_ms": tta_ms["vote1"]["plain"],
+         "bound_ms": tta_bounds["vote1"][0], "bound_by": tta_bounds["vote1"][1],
+         "dependent_steps": tta_bounds["vote1"][2], "outputs": tta_bounds["vote1"][3],
          "library_ms": None},
         {"name": "greedy_nms_blocked", "route": "cuda",
          "source": "dan_tpu_torch/csrc/nms_blocked.cu",
@@ -825,39 +907,61 @@ def compare_wgrad(o1, dr, what) -> float:
     return e_abs
 
 
+def preprocessed(batch, cfg, dev):
+    """A host train batch through train_preprocess on the card, with the
+    draws of its own seeds -> (images, boxes, mask)."""
+    t = to_device(batch, dev)
+    draws = sample_augment_batch(batch["seed"], cfg.preprocess)
+    return train_preprocess(
+        t["canvas"], (t["crop_x0"], t["crop_y0"], t["crop_size"]), t["boxes"],
+        t["mask"], draws, cfg.preprocess)
+
+
+def compare_matcher(margs, what) -> MatchTargets:
+    """The matcher kernel against match_anchors on the same CUDA tensors:
+    all four MatchTargets leaves bit-identical, or raise."""
+    got = matching_cuda.match_anchors_cuda(*margs)
+    want = match_anchors(*margs)
+    torch.cuda.synchronize()
+    off = {name: int((g != w.to(g.dtype)).sum()) for name, g, w in zip(got._fields, got, want)}
+    ulp = int((got.loc_target.view(torch.int32).long()
+               - want.loc_target.view(torch.int32).long()).abs().max())
+    if any(off.values()) or not all(same_bits(g, w.to(g.dtype)) for g, w in zip(got, want)):
+        raise AssertionError(f"matcher kernel != plain on {what}: elements that differ {off}, "
+                             f"loc_target by up to {ulp} ulp")
+    npos = (got.cls_target == 1).sum(dim=1)
+    log(f"phase 9: matcher kernel == plain on {what} (B={margs[1].shape[0]} "
+        f"A={margs[0].shape[0]} G={margs[1].shape[1]}, {int(margs[2].sum())} valid gts): "
+        f"cls_target, loc_target, matched_gt, matched_iou bit-identical; positives per image "
+        f"{int(npos.min())}..{int(npos.max())}")
+    return got
+
+
 def phase9(cfg, dev):
     """Each train kernel against its plain version at the train shapes;
     returns the max errors and the inputs phase 11 times."""
     size = cfg.preprocess.train_image_size
-    batch = edge_case_batch(cfg)
-    t = to_device(batch, dev)
-    draws = sample_augment_batch(batch["seed"], cfg.preprocess)
-    images, boxes, mask = train_preprocess(
-        t["canvas"], (t["crop_x0"], t["crop_y0"], t["crop_size"]), t["boxes"],
-        t["mask"], draws, cfg.preprocess)
+    anchors = generate_anchors(cfg.anchors, size, size, dev)
+    _, boxes, mask = preprocessed(synthetic_batch(cfg, TRAIN_BATCH, seed=SEED), cfg, dev)
+    compare_matcher((anchors, boxes, mask, cfg.match, cfg.anchors), "the train batch")
+    images, boxes, mask = preprocessed(edge_case_batch(cfg), cfg, dev)
     if not (bool(mask[31, 200]) and not bool(mask[30].any())):
         raise AssertionError("the edge-case gts did not survive the preprocess")
-    anchors = generate_anchors(cfg.anchors, size, size, dev)
     margs = (anchors, boxes, mask, cfg.match, cfg.anchors)
-    got = matching_cuda.match_anchors_cuda(*margs)
-    want = match_anchors(*margs)
-    torch.cuda.synchronize()
-    if not (torch.equal(got.cls_target, want.cls_target)
-            and torch.equal(got.matched_gt, want.matched_gt.to(torch.int32))):
-        raise AssertionError(
-            f"matcher kernel != plain: {int((got.cls_target != want.cls_target).sum())} "
-            f"cls targets, {int((got.matched_gt != want.matched_gt).sum())} matched gts differ")
-    e_iou = float((got.matched_iou - want.matched_iou).abs().max())
-    e_loc = float((got.loc_target - want.loc_target).abs().max())
-    npos = (got.cls_target == 1).sum(dim=1)
-    log(f"phase 9: matcher kernel == plain at B={TRAIN_BATCH} A={anchors.shape[0]} "
-        f"G={boxes.shape[1]}: cls_target and matched_gt identical; max |diff| "
-        f"matched_iou {e_iou:.3e}, loc_target {e_loc:.3e}; positives per image "
-        f"{int(npos.min())}..{int(npos.max())} (image 30: {int(npos[30])}, "
-        f"gt 200 of image 31 matched: {bool(((got.matched_gt[31] == 200) & (got.cls_target[31] == 1)).any())})")
-    if int(npos[30]) != 0 or not bool(((got.matched_gt[31] == 200)
-                                       & (got.cls_target[31] == 1)).any()):
+    got = compare_matcher(margs, "the edge batch (image 30 without gts, image 31 with gt 200)")
+    if int((got.cls_target[30] == 1).sum()) != 0 or not bool(
+            ((got.matched_gt[31] == 200) & (got.cls_target[31] == 1)).any()):
         raise AssertionError("edge cases: image 30 has positives or gt 200 is unmatched")
+    # One more image, every gt slot valid.
+    rng = np.random.default_rng(SEED + 256)
+    g_n = boxes.shape[1]
+    xy = rng.uniform(0, size - 16, (g_n, 2))
+    full = np.concatenate([xy, np.minimum(xy + rng.uniform(4, 160, (g_n, 2)), size)], -1)
+    boxes_full = torch.cat([boxes, torch.from_numpy(full.astype(np.float32))[None].to(dev)])
+    mask_full = torch.cat([mask, torch.ones((1, g_n), dtype=torch.bool, device=dev)])
+    compare_matcher((anchors, boxes_full.contiguous(), mask_full.contiguous(), cfg.match,
+                     cfg.anchors), f"the edge batch and one image with all {g_n} gts valid")
+    del boxes_full, mask_full
 
     # Phase-pool backward on winners from a real packed forward (bf16).
     model = DANDetector(cfg.model, torch.Generator().manual_seed(SEED)).to(dev)
@@ -914,8 +1018,7 @@ def phase9(cfg, dev):
         edge_dr[sl] = dr[:2][sl]
     compare_wgrad(edge, edge_dr, "border-only o1 and dr")
     del zero, edge, edge_dr
-    errs = {"matcher": max(e_iou, e_loc), "phase_pool_bwd": 0.0,
-            "conv12_wgrad": e_abs}
+    errs = {"matcher": 0.0, "phase_pool_bwd": 0.0, "conv12_wgrad": e_abs}
     cases = {"matcher": margs, "phase_pool_bwd": (g, win), "conv12_wgrad": (o1, dr)}
     return errs, cases
 
@@ -1045,6 +1148,16 @@ def phase11(cases, smi):
         out[name] = turns(lambda: kernel(*args), lambda: plain(*args), 10, 3)
         log(f"phase 11: {name}: kernel {out[name]['kernel']:.4f} ms, plain "
             f"{out[name]['plain']:.4f} ms ({smi})")
+    # The matcher call (host work, allocations, three launches) beside its
+    # kernels' own device time.
+    margs = cases["matcher"]
+    call = lambda: matching_cuda.match_anchors_cuda(*margs)  # noqa: E731
+    dev_t = device_ms(call, 20, MATCHER_KERNELS)
+    out["matcher"]["device"] = dev_t
+    log(f"phase 11: matcher call {out['matcher']['kernel']:.4f} ms (CUDA events over back-to-back "
+        f"calls; the wrapper's host time {host_ms(call):.4f} ms a call); its kernels' device time "
+        f"(torch.profiler, a call) " + ", ".join(f"{k} {v:.4f} ms" for k, v in dev_t.items())
+        + f" = {sum(dev_t.values()):.4f} ms ({smi})")
 
     # The one PyTorch call that computes a ported kernel's function: cuDNN's
     # weight gradient for the conv1_2' kernel, bf16, on the materialised
@@ -1100,29 +1213,79 @@ def phase11(cases, smi):
 # ---------------------------------------------------------------------------
 
 
+def check_tiles(tiles, active, what):
+    """Every vote row took the tile scan as its input says it must: tiles
+    > 0 exactly where a detection is active, at most one for every 64
+    active detections.  tiles and active (B,) int tensors; raises."""
+    tiles, active = tiles.cpu().long(), active.cpu().long()
+    per_tile = bbox_vote_cuda.TILE
+    if not (torch.equal(tiles > 0, active > 0)
+            and bool((tiles <= (active + per_tile - 1) // per_tile).all())):
+        raise AssertionError(f"vote rows of {what}: tiles {tiles.tolist()[:16]} for active "
+                             f"{active.tolist()[:16]}")
+    return tiles
+
+
 def compare_vote(boxes, scores, valid, thr, max_out, what) -> float:
     """Vote kernel vs plain version on the same CUDA tensors.  Raises unless
     valid, scores and output counts are identical, boxes within rtol 1e-5 /
-    atol 1e-4, and two kernel runs give the same bits.  Returns max |box
+    atol 1e-4 (NaN where the plain version has NaN), two kernel runs give
+    the same bits, and each row's tiles fit its input.  Returns max |box
     diff|."""
     got = bbox_vote_cuda.bbox_vote_batched_cuda(boxes, scores, valid, thr, max_out)
+    tiles = bbox_vote_cuda.LAST_TILES
     again = bbox_vote_cuda.bbox_vote_batched_cuda(boxes, scores, valid, thr, max_out)
     want = bbox_vote_batched(boxes, scores, valid, thr, max_out)
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+    if not all(same_bits(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"vote kernel: two runs differ on {what}")
     if not (torch.equal(got.valid, want.valid) and torch.equal(got.scores, want.scores)):
         raise AssertionError(
             f"vote kernel != plain on {what}: {int((got.valid != want.valid).sum())} valid "
             f"flags, {int((got.scores != want.scores).sum())} scores differ")
-    err = float((got.boxes - want.boxes).abs().max())
-    if not torch.allclose(got.boxes, want.boxes, rtol=1e-5, atol=1e-4):
+    err = float((got.boxes - want.boxes).abs().nan_to_num(0.0).max())
+    if not torch.allclose(got.boxes, want.boxes, rtol=1e-5, atol=1e-4, equal_nan=True):
         raise AssertionError(f"vote kernel boxes off by {err:.3e} on {what}")
+    tiles = check_tiles(tiles, (valid & (scores > 0.0)).sum(dim=1), what)
     counts = got.valid.sum(dim=1)
-    log(f"  vote kernel == plain on {what} {tuple(scores.shape)} -> {max_out}: valid and "
-        f"scores identical, max |box diff| {err:.3e} (rtol 1e-5, atol 1e-4), two runs "
-        f"identical; outputs per row {int(counts.min())}..{int(counts.max())}")
+    n_nan = int(torch.isnan(got.boxes).any(dim=-1).sum())
+    log(f"  vote kernel == plain on {what} {tuple(scores.shape)} -> {max_out} at IoU >= {thr}: "
+        f"valid and scores identical, max |box diff| {err:.3e} (rtol 1e-5, atol 1e-4"
+        f"{f'; {n_nan} NaN boxes in both' if n_nan else ''}), two runs identical; outputs per "
+        f"row {int(counts.min())}..{int(counts.max())}, tiles a row {int(tiles.min())}.."
+        f"{int(tiles.max())}")
     return err
+
+
+def vote_more_rows(rng, n):
+    """Seeded (4, n) vote rows for the tile scan's own edges, as numpy
+    (boxes (4, n, 4) f32, scores (4, n) f32, valid (4, n) bool):
+      0  300 near-equal boxes, the rest invalid: one output, whose members
+         come from later tiles' worth of the sorted list (the owner crosses
+         tiles);
+      1  n spread boxes, all valid (max_out 20 and 70 cut inside the first
+         and the second tile);
+      2  clusters under a zero-area box of the top score (selected first,
+         it merges only itself);
+      3  clusters with a NaN x1 and a NaN y2 on two valid boxes, a NaN y1 on
+         an invalid one, and a NaN score (never active)."""
+    boxes = np.zeros((4, n, 4), np.float32)
+    scores = rng.uniform(0.05, 1.0, (4, n)).astype(np.float32)
+    valid = np.ones((4, n), bool)
+    boxes[0, :300] = np.float32([100, 100, 160, 170]) + rng.normal(0, 0.5, (300, 4))
+    valid[0, 300:] = False
+    xy = rng.uniform(0, 3000, (n, 2))
+    boxes[1] = np.concatenate([xy, xy + rng.uniform(8, 60, (n, 2))], -1)
+    centers = rng.uniform(0, 1000, (max(n // 12, 1), 2))
+    for row in (2, 3):
+        xy = centers[rng.integers(0, len(centers), n)] + rng.normal(0, 4, (n, 2))
+        boxes[row] = np.concatenate([xy, xy + rng.uniform(20, 80, (n, 2))], -1)
+    boxes[2, 0] = [20.0, 20.0, 20.0, 40.0]
+    scores[2, 0] = 1.0
+    boxes[3, 5, 0] = boxes[3, 40, 3] = boxes[3, 70, 1] = np.nan
+    valid[3, 70] = False
+    scores[3, 90] = np.nan
+    return boxes, scores, valid
 
 
 def phase12_synthetic(post, dev) -> float:
@@ -1138,26 +1301,47 @@ def phase12_synthetic(post, dev) -> float:
         raise AssertionError("the empty row voted or the full row stopped early")
     if float(got.scores[4, 0]) != float(s[4, 0]) or float(got.scores[4, 1]) >= float(s[4, 1]):
         raise AssertionError("the pair at IoU == threshold did not merge")
+    for t in (0.0, 1.0):
+        err = max(err, compare_vote(b, s, v, t, max_out, f"seeded edge rows at threshold {t}"))
     for row in (0, 2, 6):  # the same kernel at B = 1
         err = max(err, compare_vote(b[row:row + 1], s[row:row + 1], v[row:row + 1],
                                     thr, max_out, f"edge row {row} at B=1"))
     err = max(err, compare_vote(b[:, :257].contiguous(), s[:, :257].contiguous(),
                                 v[:, :257].contiguous(), thr, 20, "257-long rows, max_out 20"))
+    err = max(err, compare_vote(b[:, :1].contiguous(), s[:, :1].contiguous(),
+                                v[:, :1].contiguous(), thr, max_out, "R = 1"))
+    mb, ms, mv = (torch.from_numpy(a).to(dev) for a in vote_more_rows(rng, rows))
+    err = max(err, compare_vote(mb, ms, mv, thr, max_out,
+                                "a 300-box cluster, spread boxes, a zero-area top box, NaNs"))
+    got = bbox_vote_cuda.bbox_vote_batched_cuda(mb, ms, mv, thr, max_out)
+    if int(got.valid[0].sum()) != 1 or float(got.scores[2, 0]) != 1.0:
+        raise AssertionError("the cluster gave more than one output, or the zero-area box "
+                             "was not selected first")
+    if not (bool(torch.isnan(got.boxes[3][got.valid[3]][:, [0, 1, 3]]).all())
+            and not bool(torch.isnan(got.boxes[3][got.valid[3]][:, 2]).any())):
+        raise AssertionError("the NaN row's outputs are not NaN in its NaN columns alone")
+    for cut in (20, 70):
+        err = max(err, compare_vote(mb[1:2], ms[1:2], mv[1:2], thr, cut,
+                                    f"spread boxes, max_out {cut} inside tile {cut // 64 + 1}"))
+        if int(bbox_vote_cuda.LAST_TILES[0]) != cut // 64 + 1:
+            raise AssertionError(f"max_out {cut} did not end the scan in tile {cut // 64 + 1}")
     return err
 
 
 def phase12_real(vote_inputs, post, dev) -> float:
     """The vote kernel on the packed pre-vote detections of the TTA run."""
-    b, s, v = (torch.from_numpy(a).to(dev) for a in vote_inputs[0])
+    b, s, v = (torch.from_numpy(a).to(dev) for a in vote_inputs[0][:3])
     log(f"phase 12: vote kernel on the TTA run's own pre-vote rows; valid detections per "
         f"image {int(v.sum(dim=1).min())}..{int(v.sum(dim=1).max())}")
     return compare_vote(b, s, v, post.vote_iou_threshold, post.max_detections,
                         "the TTA run's first vote chunk")
 
 
-def phase12_blocked(nms_rows, post, dev) -> float:
+def phase12_blocked(nms_rows, nan_row, post, dev) -> float:
     """The blocked NMS kernel: kept set against its plain version and
-    against greedy_nms_rank's ranks (the tile scan: these rows are sorted)."""
+    against greedy_nms_rank's ranks (the tile scan: these rows are sorted),
+    on the bench rows, on the bench row with two NaN coordinates, and on
+    257 seeded boxes."""
     boxes, scores = nms_rows
     thr, max_out = post.nms_iou_threshold, post.max_detections
     rng = np.random.default_rng(SEED + 9)
@@ -1165,6 +1349,7 @@ def phase12_blocked(nms_rows, post, dev) -> float:
     small_s = torch.from_numpy(np.sort(rng.uniform(0.01, 1.0, 257).astype(np.float32))[::-1]
                                .copy()).to(dev)
     cases = [(boxes[i], scores[i], thr, 0.0) for i in range(boxes.shape[0])]
+    cases.append((nan_row[0], nan_row[1], thr, 0.0))
     cases += [(small_b, small_s, 0.4, 0.0), (small_b, small_s, 0.3, 0.5),
               (small_b, torch.zeros_like(small_s), 0.3, 0.0)]
     log("phase 12: blocked NMS kernel against its plain version and the ranks of greedy_nms_rank")
@@ -1192,13 +1377,15 @@ def phase12_blocked(nms_rows, post, dev) -> float:
 
 
 class RecordingRunner(TTARunner):
-    """The TTA runner, keeping the host arrays of every vote launch so that
-    phase 12 can hold the kernel against its plain version on them, and the
-    path that every NMS row of every bucket launch took."""
+    """The TTA runner, keeping the host rows of every vote launch so that
+    phase 12 can hold the kernel against its plain version on them, with
+    each launch's tiles a row, and the path that every NMS row of every
+    bucket launch took."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.vote_inputs = []
+        self.vote_tiles = []  # (tiles, active detections) a row, every vote launch
         self.nms_paths = []  # nms_cuda.LAST_PATHS of every bucket launch
 
     def _run_bucket(self, *args, **kwargs):
@@ -1206,9 +1393,12 @@ class RecordingRunner(TTARunner):
         self.nms_paths.append(nms_cuda.LAST_PATHS)
         return out
 
-    def _run_vote(self, boxes_b, scores_b, valid_b):
-        self.vote_inputs.append((boxes_b, scores_b, valid_b))
-        return super()._run_vote(boxes_b, scores_b, valid_b)
+    def _run_vote(self, boxes_b, scores_b, valid_b, buffer):
+        fetch = super()._run_vote(boxes_b, scores_b, valid_b, buffer)
+        self.vote_inputs.append(VoteRows(boxes_b, scores_b, valid_b, buffer))
+        self.vote_tiles.append((bbox_vote_cuda.LAST_TILES,
+                                torch.from_numpy((valid_b & (scores_b > 0.0)).sum(axis=1))))
+        return fetch
 
 
 def tta_images(n):
@@ -1264,6 +1454,7 @@ def phase13(cfg, dev, smi):
     if n_warm != len(groups) + 1:
         raise AssertionError(f"warmup returned {n_warm}, expected {len(groups) + 1}")
     runner.vote_inputs.clear()
+    runner.vote_tiles.clear()
     runner.nms_paths.clear()
 
     # The counted run: detect_tta on one image of each size, then the dataset.
@@ -1308,6 +1499,13 @@ def phase13(cfg, dev, smi):
                              f"expected {single_groups} / {len(singles)}")
     if list(got) != [k for k, _ in keyed]:
         raise AssertionError("run_dataset lost or reordered keys")
+    tiles = torch.cat([check_tiles(t, a, "detect_tta and the dataset run")
+                       for t, a in runner.vote_tiles])
+    log(f"  vote rows of detect_tta and the dataset run: all {tiles.numel()} took the tile "
+        f"scan ({len(runner.vote_tiles)} launches), {int(tiles.min())}..{int(tiles.max())} "
+        f"tiles a row")
+    if len(runner.vote_tiles) != vote_one + vote_ds:
+        raise AssertionError("a vote launch was not recorded")
 
     check_dets([got[k] for k, _ in keyed], [im for _, im in keyed], post.max_detections)
     n_det = [len(got[k]["scores"]) for k, _ in keyed]
@@ -1326,6 +1524,16 @@ def phase13(cfg, dev, smi):
             raise AssertionError(f"{k}: alone through the dataset runner != in the full run")
     log(f"  a second detect_tta_dataset run is bit-identical; each of {len(singles)} images "
         f"alone through the dataset runner is bit-identical to its entry in the full run")
+    # The counted detect_tta calls above were the first at their launch
+    # shapes (1-3 units, which warmup_tta does not run): the same images
+    # again give the warm latency, and must give the same bits.
+    t0 = time.perf_counter()
+    warm = {k: det.detect_tta(im) for k, im in singles}
+    t_warm = (time.perf_counter() - t0) / len(singles)
+    if not all(same(warm[k], one[k]) for k, _ in singles):
+        raise AssertionError("a second detect_tta of the same image differs")
+    log(f"  detect_tta warm {t_warm * 1e3:.1f} ms an image (host clock, mean of {len(singles)}; "
+        f"the first calls {t_single * 1e3:.1f} ms), bit-identical to the first calls ({smi})")
     # detect_tta launches 1-3 units where the dataset run launches 8 or 16:
     # the same image at the same launch shapes gives the same bits (above),
     # at other shapes cuDNN picks other kernels, bf16 rounds elsewhere, and
@@ -1510,9 +1718,10 @@ def profile_tta(det, keyed):
 
 def phase14(vote_inputs, nms_rows, post, dev, smi):
     """Times of the vote and blocked-NMS kernels beside their plain
-    versions, and their bounds from these inputs."""
+    versions, the vote's own device time, and their bounds from these
+    inputs."""
     thr, max_out = post.vote_iou_threshold, post.max_detections
-    b, s, v = (torch.from_numpy(a).to(dev) for a in vote_inputs[0])
+    b, s, v = (torch.from_numpy(a).to(dev) for a in vote_inputs[0][:3])
     b1, s1, v1 = b[:1].contiguous(), s[:1].contiguous(), v[:1].contiguous()
     out = {
         "vote": turns(lambda: bbox_vote_cuda.bbox_vote_batched_cuda(b, s, v, thr, max_out),
@@ -1534,9 +1743,15 @@ def phase14(vote_inputs, nms_rows, post, dev, smi):
         max_out), 20)
     k1_launch_ms = cuda_ms(
         lambda: nms_cuda.greedy_nms_rank(bx[None], sc[None], nthr, max_out), 20)
+    for key, args in (("vote", (b, s, v)), ("vote1", (b1, s1, v1))):
+        call = lambda: bbox_vote_cuda.bbox_vote_batched_cuda(*args, thr, max_out)  # noqa: E731
+        out[key]["device"] = device_ms(call, 20, ("bbox_vote_kernel",))["bbox_vote_kernel"]
+        out[key]["host"] = host_ms(call)
     log(f"phase 14: bbox_vote at {tuple(s.shape)} -> {max_out}: kernel "
-        f"{out['vote']['kernel']:.4f} ms, plain {out['vote']['plain']:.4f} ms; at B=1: kernel "
-        f"{out['vote1']['kernel']:.4f} ms, plain {out['vote1']['plain']:.4f} ms ({smi})")
+        f"{out['vote']['kernel']:.4f} ms (its device time {out['vote']['device']:.4f} ms, the "
+        f"wrapper's host time {out['vote']['host']:.4f} ms), plain {out['vote']['plain']:.4f} ms; "
+        f"at B=1: kernel {out['vote1']['kernel']:.4f} ms (device {out['vote1']['device']:.4f} ms, "
+        f"host {out['vote1']['host']:.4f} ms), plain {out['vote1']['plain']:.4f} ms ({smi})")
     log(f"phase 14: greedy_nms_blocked at ({sc.shape[0]}, {max_out}): the wrapper (order check "
         f"that waits for the device, both passes, rank_to_result) "
         f"{out['blocked']['kernel']:.4f} ms, its two passes alone "
@@ -1548,7 +1763,10 @@ def phase14(vote_inputs, nms_rows, post, dev, smi):
     # 21 an output slot; in each dependent step an IoU, a test and an argmax
     # compare for every detection still active, and five multiply-adds once
     # for every detection that merges.
+    # The kernel's chain is its tiles (LAST_TILES); the outputs are the
+    # selection's dependent steps, which the replay must count alike.
     res = bbox_vote_cuda.bbox_vote_batched_cuda(b, s, v, thr, max_out)
+    tiles = bbox_vote_cuda.LAST_TILES.cpu()
     steps, pairs, merged = selection_work(b, s, v & (s > 0.0), thr, max_out, True)
     if not torch.equal(steps, res.valid.sum(dim=1)):
         raise AssertionError("the replay of the vote counts other steps than the kernel")
@@ -1557,8 +1775,9 @@ def phase14(vote_inputs, nms_rows, post, dev, smi):
     vote_ops = pairs * pair_ops + merged * MERGE_OPS
     bounds = {
         "vote": bound(n_rows * 21 * (r + max_out), int(vote_ops.sum()), PEAK_F32)
-        + (int(steps.max()),),
-        "vote1": bound(21 * (r + max_out), int(vote_ops[0]), PEAK_F32) + (int(steps[0]),),
+        + (int(tiles.max()), int(steps.max())),
+        "vote1": bound(21 * (r + max_out), int(vote_ops[0]), PEAK_F32)
+        + (int(tiles[0]), int(steps[0])),
     }
     # Blocked NMS: 20 bytes a box in, 1 out; an IoU and a test for every
     # (kept box, later box not yet removed) pair up to the max_out-th kept
@@ -1567,12 +1786,13 @@ def phase14(vote_inputs, nms_rows, post, dev, smi):
     n = sc.shape[0]
     _, k9_pairs, _ = selection_work(bx[None], sc[None], sc[None] > 0.0, nthr, max_out, False)
     bounds["blocked"] = bound(21 * n, int(k9_pairs[0]) * (IOU_OPS + TEST_OPS), PEAK_F32) + (
-        -(-n // nms_blocked_cuda.TILE),)
+        -(-n // nms_blocked_cuda.TILE), None)
     log(f"  this run's work: vote {int(pairs.sum())} IoU pairs and {int(merged.sum())} merges "
         f"over {n_rows} rows ({int(pairs[0])} and {int(merged[0])} in row 0); blocked NMS "
         f"{int(k9_pairs[0])} IoU pairs of {n * (n - 1) // 2}")
-    for name, (ms_b, by, chain) in bounds.items():
-        log(f"  bound {name}: {ms_b:.5f} ms by {by}; {chain} dependent steps")
+    for name, (ms_b, by, chain, outs) in bounds.items():
+        log(f"  bound {name}: {ms_b:.5f} ms by {by}; {chain} dependent steps"
+            + (f" (tiles) for {outs} outputs" if outs is not None else ""))
     return out, bounds
 
 

@@ -51,13 +51,17 @@
 //
 // Bit-exactness with the plain version (dan_tpu_torch/ops/nms_cuda.py):
 // areas and IoU use the operation order of nms_batched_pallas.py:52,70-77,
-// IEEE division, and the union > 0 guard.  The tile scan decides each pair
-// as that expression does (`iou_exceeds`).
+// IEEE division, and the union > 0 guard, with NaN-propagating max / min
+// (box_iou.cuh), so a box with a NaN coordinate has IoU 0 with every box as
+// in the plain version.  The tile scan decides each pair as that expression
+// does (`iou_passes`).
 // Build with -fmad=false: an FMA contraction of (barea + area) - inter would
 // change roundings and could flip a decision that sits right at the
 // threshold.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "box_iou.cuh"
 
 namespace {
 
@@ -136,13 +140,8 @@ __device__ __forceinline__ void argmax_loop(const Row s, int *__restrict__ r, in
     for (int k = tid; k < n; k += kThreads) {
       float key = skey[k];
       if (key == neg_inf) continue;
-      float ix1 = fmaxf(bx1, sx1[k]);
-      float iy1 = fmaxf(by1, sy1[k]);
-      float ix2 = fminf(bx2, sx2[k]);
-      float iy2 = fminf(by2, sy2[k]);
-      float inter = fmaxf(ix2 - ix1, 0.0f) * fmaxf(iy2 - iy1, 0.0f);
-      float uni = (barea + sarea[k]) - inter;
-      float iou = uni > 0.0f ? inter / uni : 0.0f;
+      const float iou = box_iou(bx1, by1, bx2, by2, barea, sx1[k], sy1[k], sx2[k], sy2[k],
+                                sarea[k]);
       if (k == j || iou > iou_thr) {
         skey[k] = neg_inf;
       } else if (beats(key, k, my_v, my_i)) {
@@ -153,37 +152,11 @@ __device__ __forceinline__ void argmax_loop(const Row s, int *__restrict__ r, in
   }
 }
 
-// Whether IoU > thr, from the clamped width and height of the intersection
-// and the two areas (the selected box's first).  It decides as the argmax
-// loop's expression does,
-//   inter = w * h;  uni = (barea + area) - inter;
-//   (uni > 0 ? inter / uni : 0) > thr,
-// for every input, but pays the IEEE division only where it must: boxes
-// that do not overlap have IoU 0 (the expression gives 0 for them even with
-// infinite coordinates, where inter and uni are NaN), and an approximate
-// quotient (2 ulp for a divisor in this range) that is farther from the
-// threshold than its own error decides as the rounded one does.
-__device__ __forceinline__ bool iou_exceeds(float w, float h, float barea, float area,
-                                            float thr) {
-  if (w == 0.0f || h == 0.0f) return 0.0f > thr;
-  const float inter = w * h;
-  const float uni = (barea + area) - inter;
-  if (!(uni > 0.0f)) return 0.0f > thr;
-  if (uni > 1e-30f && uni < 1e30f) {
-    const float q = __fdividef(inter, uni);
-    if (fabsf(q - thr) > 1e-5f * fmaxf(1.0f, fabsf(q))) return q > thr;
-  }
-  return inter / uni > thr;
-}
-
 // Whether the selected box j suppresses box k.
 __device__ __forceinline__ bool suppresses(const Row &s, int j, int k, float iou_thr) {
-  float ix1 = fmaxf(s.x1[j], s.x1[k]);
-  float iy1 = fmaxf(s.y1[j], s.y1[k]);
-  float ix2 = fminf(s.x2[j], s.x2[k]);
-  float iy2 = fminf(s.y2[j], s.y2[k]);
-  return iou_exceeds(fmaxf(ix2 - ix1, 0.0f), fmaxf(iy2 - iy1, 0.0f), s.area[j], s.area[k],
-                     iou_thr);
+  return iou_passes<false>(overlap_w(s.x1[j], s.x2[j], s.x1[k], s.x2[k]),
+                           overlap_w(s.y1[j], s.y2[j], s.y1[k], s.y2[k]), s.area[j], s.area[k],
+                           iou_thr);
 }
 
 // The tile scan, for a row whose scores are non-increasing: the greedy order
@@ -268,12 +241,8 @@ __device__ __forceinline__ void tile_scan(const Row s, int *__restrict__ r, int 
         for (int c = 0; c < n_kept; ++c) {
           // suppresses(), with the kept box from its packed copy.
           const float4 kb = kept_box[c];
-          float ix1 = fmaxf(kb.x, x1);
-          float iy1 = fmaxf(kb.y, y1);
-          float ix2 = fminf(kb.z, x2);
-          float iy2 = fminf(kb.w, y2);
-          if (iou_exceeds(fmaxf(ix2 - ix1, 0.0f), fmaxf(iy2 - iy1, 0.0f), kept_area[c], area,
-                          iou_thr)) {
+          if (iou_passes<false>(overlap_w(kb.x, kb.z, x1, x2), overlap_w(kb.y, kb.w, y1, y2),
+                                kept_area[c], area, iou_thr)) {
             live = false;
             break;
           }
@@ -337,7 +306,7 @@ nms_rank_kernel(const float *__restrict__ boxes,   // (B, N, 4)
     sy1[k] = y1;
     sx2[k] = x2;
     sy2[k] = y2;
-    sarea[k] = fmaxf(x2 - x1, 0.0f) * fmaxf(y2 - y1, 0.0f);
+    sarea[k] = box_area(x1, y1, x2, y2);
     float sc = s[k];
     float key = sc > score_thr ? sc : neg_inf;
     skey[k] = key;

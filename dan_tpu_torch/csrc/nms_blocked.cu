@@ -28,10 +28,14 @@
 // The mask scratch (N x tiles x 8 bytes, 3.2 MB at N = 5000) is allocated
 // by the wrapper and stays in L2 between the passes.
 //
-// IoU arithmetic as in nms.cu: areas first, (area_i + area_j) - inter,
-// IEEE division, union > 0 guard; build with -fmad=false.
+// IoU arithmetic as in nms.cu (box_iou.cuh): areas first, (area_i +
+// area_j) - inter, IEEE division, union > 0 guard, NaN-propagating max / min
+// (a box with a NaN coordinate has IoU 0 with every box); build with
+// -fmad=false.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "box_iou.cuh"
 
 namespace {
 
@@ -55,21 +59,19 @@ nms_mask_kernel(const float *__restrict__ boxes,  // (N, 4), score-descending
     cb[t][1] = y1;
     cb[t][2] = x2;
     cb[t][3] = y2;
-    cb[t][4] = fmaxf(x2 - x1, 0.0f) * fmaxf(y2 - y1, 0.0f);
+    cb[t][4] = box_area(x1, y1, x2, y2);
   }
   __syncthreads();
   const int i = r * kTile + t;
   if (i >= n) return;
   const float x1 = boxes[4 * i], y1 = boxes[4 * i + 1];
   const float x2 = boxes[4 * i + 2], y2 = boxes[4 * i + 3];
-  const float area = fmaxf(x2 - x1, 0.0f) * fmaxf(y2 - y1, 0.0f);
+  const float area = box_area(x1, y1, x2, y2);
   const int cols = min(kTile, n - c * kTile);
   unsigned long long word = 0ull;
   for (int b = (r == c ? t + 1 : 0); b < cols; ++b) {
-    float inter = fmaxf(fminf(x2, cb[b][2]) - fmaxf(x1, cb[b][0]), 0.0f) *
-                  fmaxf(fminf(y2, cb[b][3]) - fmaxf(y1, cb[b][1]), 0.0f);
-    float uni = (area + cb[b][4]) - inter;
-    float iou = uni > 0.0f ? inter / uni : 0.0f;
+    const float iou = box_iou(x1, y1, x2, y2, area, cb[b][0], cb[b][1], cb[b][2], cb[b][3],
+                              cb[b][4]);
     if (iou > iou_thr) word |= 1ull << b;
   }
   mask[(size_t)i * tiles + c] = word;

@@ -27,7 +27,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -177,6 +177,26 @@ def _as_uint8(image) -> np.ndarray:
     return image
 
 
+class VoteRows(NamedTuple):
+    """The inputs of one vote launch on the host: three arrays that are
+    views of one byte buffer (pinned on a CUDA device), so that one copy
+    takes them to the device.  Unpacks as (boxes, scores, valid, buffer)."""
+
+    boxes: np.ndarray  # (B, R, 4) float32
+    scores: np.ndarray  # (B, R) float32
+    valid: np.ndarray  # (B, R) bool
+    buffer: torch.Tensor  # (B * R * 21,) uint8: the bytes of all three
+
+
+def _vote_views(buffer: torch.Tensor, b: int, r: int):
+    """(boxes (b, r, 4) f32, scores (b, r) f32, valid (b, r) bool) as views of
+    a (b * r * 21,) uint8 tensor, in that order."""
+    nb, ns = b * r * 16, b * r * 4
+    return (buffer[:nb].view(torch.float32).view(b, r, 4),
+            buffer[nb:nb + ns].view(torch.float32).view(b, r),
+            buffer[nb + ns:].view(torch.bool).view(b, r))
+
+
 class _Fetch:
     """A device result on its way to the host: on a CUDA device a copy into
     pinned host memory queued on the current stream plus an event, so the
@@ -310,19 +330,27 @@ class TTARunner:
         return packed[..., :4], packed[..., 4], packed[..., 5] > 0.5
 
     @torch.inference_mode()
-    def _run_vote(self, boxes_b, scores_b, valid_b) -> _Fetch:
-        """One batched bbox-vote launch on packed host rows; returns the
-        queued fetch of a (B, MAX_DET, 6) tensor (boxes, score, valid)."""
+    def _run_vote(self, boxes_b, scores_b, valid_b, buffer) -> _Fetch:
+        """One batched bbox-vote launch on packed host rows (a VoteRows,
+        unpacked); returns the queued fetch of a (B, MAX_DET, 6) tensor
+        (boxes, score, valid).  The rows reach the device in one copy of
+        their buffer, from pinned memory and not waited for on a CUDA
+        device."""
         post = self.config.postprocess
-        dev = self.device
+        dev_buffer = buffer.to(self.device, non_blocking=True)
         vote = bbox_vote_batched_cuda(
-            torch.from_numpy(boxes_b).to(dev),
-            torch.from_numpy(scores_b).to(dev),
-            torch.from_numpy(valid_b).to(dev),
+            *_vote_views(dev_buffer, *scores_b.shape),
             post.vote_iou_threshold,
             post.max_detections,
         )
         return self._fetch(*vote)
+
+    def _vote_buffer(self, b: int, r: int) -> VoteRows:
+        """Zero host vote rows for b images of r rows in one byte buffer,
+        pinned on a CUDA device."""
+        buffer = torch.zeros((b * r * 21,), dtype=torch.uint8,
+                             pin_memory=self.device.type == "cuda")
+        return VoteRows(*(t.numpy() for t in _vote_views(buffer, b, r)), buffer)
 
     def _to_device(self, image: np.ndarray, canvas_size: int) -> torch.Tensor:
         """The image in the top-left of a zero (C, C, 3) uint8 canvas on the
@@ -365,13 +393,8 @@ class TTARunner:
                 np.ones((chunk,), np.float32),
                 np.zeros((chunk,), bool),
             )
-        r = self.vote_rows()
-        vchunk = self._vote_chunk(1, vote_batch)
-        self._run_vote(
-            np.zeros((vchunk, r, 4), np.float32),
-            np.zeros((vchunk, r), np.float32),
-            np.zeros((vchunk, r), bool),
-        ).numpy()
+        self._run_vote(*self._vote_buffer(self._vote_chunk(1, vote_batch),
+                                          self.vote_rows())).numpy()
         return len(pairs) + 1
 
     def bucket_chunk(self, bucket: int, n_dev: int, batch_per_device: int) -> int:
@@ -440,18 +463,15 @@ class TTARunner:
             np.concatenate(all_valid),
         )
 
-    def _pack_vote_rows(self, images_dets):
+    def _pack_vote_rows(self, images_dets) -> VoteRows:
         """Pack per-image (boxes, scores, valid) host arrays into fixed
-        (B, R) vote inputs.  Invalid rows are dropped before upload (they
-        are never active in the vote, and the relative order of the valid
-        rows — the tie-break key — is kept, so results are unchanged) and
-        the rest is zero-padded to R = vote_rows().  The vote kernel walks
-        only the filled prefix of each row."""
-        r = self.vote_rows()
-        b = len(images_dets)
-        boxes_b = np.zeros((b, r, 4), np.float32)
-        scores_b = np.zeros((b, r), np.float32)
-        valid_b = np.zeros((b, r), bool)
+        (B, R) vote inputs, in one buffer that _run_vote copies to the
+        device at once.  Invalid rows are dropped before upload (they are
+        never active in the vote, and the relative order of the valid rows —
+        the tie-break key — is kept, so results are unchanged) and the rest
+        is zero-padded to R = vote_rows()."""
+        rows = self._vote_buffer(len(images_dets), self.vote_rows())
+        boxes_b, scores_b, valid_b, _ = rows
         for i, (bx, sc, va) in enumerate(images_dets):
             sel = np.asarray(va, bool)
             nb = np.asarray(bx, np.float32)[sel]
@@ -460,7 +480,7 @@ class TTARunner:
             boxes_b[i, :k] = nb
             scores_b[i, :k] = ns
             valid_b[i, :k] = True
-        return boxes_b, scores_b, valid_b
+        return rows
 
     # -- dataset scale -----------------------------------------------------------
 

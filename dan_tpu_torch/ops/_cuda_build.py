@@ -1,8 +1,10 @@
 """Build the port's CUDA sources with nvcc and load them through ctypes.
 
 Each `csrc/<name>.cu` becomes one shared library with a plain C interface,
-`_build/<name>_<hash>.so`, where the hash covers the source and the flags,
-so a change to one kernel rebuilds only that one.  Nothing is built when a
+`_build/<name>_<hash>.so`, where the hash covers the source, the headers it
+includes from csrc/ (`#include "..."`, followed recursively) and the flags,
+so a change to one kernel rebuilds only that one, and a change to a shared
+header rebuilds every source that includes it.  Nothing is built when a
 module is imported: the first CUDA call builds, or `build_all` builds
 several sources at once with one nvcc process each, started together.
 
@@ -16,6 +18,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -67,11 +70,29 @@ def _flags(name: str):
     return BASE_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str):
+    """The files the build of csrc/<name>.cu reads from csrc/: the source,
+    then each header it includes with quotes, in first-include order."""
+    files = [os.path.join(CSRC, f"{name}.cu")]
+    for path in files:  # grows while it is walked
+        with open(path, "rb") as f:
+            for inc in _INCLUDE.findall(f.read()):
+                dep = os.path.join(os.path.dirname(path), inc.decode())
+                if dep not in files:
+                    files.append(dep)
+    return files
+
+
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}_{tag}.so")
+    h = hashlib.sha256()
+    for path in sources(name):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(_flags(name)).encode())
+    return os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
 
 
 def build_all(names: Iterable[str]) -> None:

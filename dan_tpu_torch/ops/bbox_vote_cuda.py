@@ -11,11 +11,17 @@ ops/_cuda_build.py builds with nvcc on first use.  There is no fallback
 between the two: a CUDA tensor that cannot be handled raises.  `valid`,
 the scores and the number of outputs equal the plain version's bit for
 bit; the fused boxes agree to float rounding (the kernel sums in another
-order) and are the same bits from run to run.
+order; a non-finite coordinate gives NaN where the plain version's does)
+and are the same bits from run to run.
+
+The kernel sorts each row's active detections and resolves them in tiles
+of 64 (csrc/bbox_vote.cu); `LAST_TILES` holds each row's tiles (its chain
+of dependent steps) from the last launch.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -30,6 +36,11 @@ SOURCE = "bbox_vote"
 
 # Kernel launches since the last reset (set to 0 to reset).
 LAUNCHES = 0
+# (B,) int32 on the device, written by the last launch without a wait: the
+# tiles each row's scan took (0 for a row with no active detection).
+LAST_TILES: Optional[torch.Tensor] = None
+# A tile resolves this many detections.
+TILE = 64
 
 
 def build() -> ctypes.CDLL:
@@ -37,7 +48,7 @@ def build() -> ctypes.CDLL:
     lib = _cuda_build.load(SOURCE)
     lib.bbox_vote_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_void_p,
     ]
@@ -73,11 +84,13 @@ def bbox_vote_cuda(boxes, scores, in_valid, iou_threshold: float, max_out: int) 
 
 
 def _launch(boxes, scores, in_valid, iou_threshold, max_out) -> VoteResult:
-    global LAUNCHES
+    global LAUNCHES, LAST_TILES
     if boxes.device.type != "cuda":
         raise ValueError(f"the vote kernel takes CUDA tensors, got {boxes.device}")
     if not (boxes.is_contiguous() and scores.is_contiguous() and in_valid.is_contiguous()):
         raise ValueError("the vote kernel takes contiguous boxes, scores and valid")
+    if boxes.data_ptr() % 16:
+        raise ValueError("the vote kernel reads boxes as 16-byte vectors: align them")
     if max_out <= 0:
         raise ValueError(f"max_out must be positive, got {max_out}")
     bsz, n = scores.shape
@@ -95,13 +108,15 @@ def _launch(boxes, scores, in_valid, iou_threshold, max_out) -> VoteResult:
         return VoteResult(out_boxes, out_scores, out_valid)
     if n == 0:
         return VoteResult(out_boxes.zero_(), out_scores.zero_(), out_valid.zero_())
+    tiles = torch.empty((bsz,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.bbox_vote_launch(
             boxes.data_ptr(), scores.data_ptr(), in_valid.data_ptr(),
             out_boxes.data_ptr(), out_scores.data_ptr(), out_valid.data_ptr(),
-            bsz, n, int(max_out), float(iou_threshold),
+            tiles.data_ptr(), bsz, n, int(max_out), float(iou_threshold),
             _cuda_build.stream_of(boxes),
         )
     _cuda_build.check(err, "bbox_vote_launch")
     LAUNCHES += 1
+    LAST_TILES = tiles
     return VoteResult(out_boxes, out_scores, out_valid)

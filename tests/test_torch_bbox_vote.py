@@ -141,6 +141,33 @@ def test_wrapper_takes_the_plain_version_on_cpu_and_checks_its_inputs():
         bbox_vote_cuda._launch(b, s, v, 0.3, 20)  # the kernel path refuses CPU tensors
 
 
+@pytest.mark.parametrize("thresh", [0.3, 0.0])
+def test_nan_coordinates_vs_xla_and_pallas_interpret(thresh):
+    """A NaN x1, a NaN y2 and an invalid NaN box: a NaN box has IoU 0 with
+    every box, so at 0.3 it merges only itself and at 0 everything merges;
+    valid and scores identical to both JAX versions, and the boxes too,
+    NaN where theirs are (every box of the row is weighted in their sums,
+    so a NaN coordinate reaches every output that does not merge it)."""
+    rng = np.random.default_rng(17)
+    boxes = np.stack([_random_dets(rng, 120)[0] for _ in range(3)])
+    scores = rng.uniform(0.01, 1.0, (3, 120)).astype(np.float32)
+    valid = np.ones((3, 120), bool)
+    boxes[0, 7, 0] = np.nan
+    boxes[0, 30, 3] = np.nan
+    boxes[1, 50, 1] = np.nan
+    valid[1, 50] = False
+    scores[2, 9] = np.nan  # never active
+    got = bbox_vote_batched(*_t(boxes, scores, valid), thresh, 40)
+    args = (jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid), thresh, 40)
+    for want in (jax_vote_batched(*args), bbox_vote_pallas_batched(*args, interpret=True)):
+        np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+        np.testing.assert_array_equal(got.scores.numpy(), np.asarray(want.scores))
+        np.testing.assert_allclose(got.boxes.numpy(), np.asarray(want.boxes), rtol=1e-5,
+                                   atol=1e-4, equal_nan=True)
+    out = got.boxes.numpy()[got.valid.numpy()]
+    assert np.isnan(out).any() and not np.isnan(got.boxes.numpy()[2]).any()
+
+
 def test_empty_shapes():
     out = bbox_vote_batched(torch.zeros((2, 0, 4)), torch.zeros((2, 0)),
                             torch.zeros((2, 0), dtype=torch.bool), 0.3, 5)

@@ -182,3 +182,94 @@ def test_cpu_tensors_take_the_plain_version():
     assert out.cls_target.shape == (2, anchors.shape[0])
     with pytest.raises(ValueError):
         matching_cuda.match_anchors_cuda(anchors, gt, mask, MatchConfig(max_gt=4), ACFG)
+
+
+@pytest.mark.parametrize("enable", [True, False])
+def test_kernel_params_are_the_plain_versions_scalars(enable):
+    """The scalars the CUDA matcher takes: k = min(top-k, A); compensation
+    off is k_needs = 0 (no count is < 0); thresholds and prior scaling as
+    the float32 values the plain version compares and divides by."""
+    mc = MatchConfig(enable_scale_comp=enable)
+    p = matching_cuda.kernel_params(mc, ACFG, 34125)
+    assert (p.k, p.k_needs) == (6, 6 if enable else 0)
+    assert matching_cuda.kernel_params(MatchConfig(scale_comp_topk=9), ACFG, 4).k == 4
+    for got, want in ((p.match_threshold, mc.match_threshold),
+                      (p.ignore_threshold, mc.ignore_threshold),
+                      (p.scale_comp_iou, mc.scale_comp_iou)):
+        assert got == float(torch.tensor(want, dtype=torch.float32))
+    assert list(p.prior_scaling) == torch.tensor(ACFG.prior_scaling, dtype=torch.float32).tolist()
+
+
+@pytest.mark.parametrize("enable", [True, False])
+def test_kernel_needs_rule_equals_the_plain_version(enable):
+    """Pass 1's per-anchor argmax (strict improvements over the valid gts
+    from (0, gt 0)) and the count and needs rule of pass 2 (count <
+    k_needs), in numpy, against the plain version's own expressions."""
+    anchors = generate_anchors(ACFG, 128, 128)
+    rng = np.random.default_rng(5)
+    cases = [_random_case(s, n) for s, n in ((1, 3), (2, 9), (3, 0), (4, 16))]
+    gt = torch.from_numpy(np.stack([c[0] for c in cases]))
+    mask = torch.from_numpy(np.stack([c[1] for c in cases]))
+    mask[1, 4] = False  # a masked gt between valid ones
+    gt[1, 4] = torch.from_numpy(rng.uniform(0, 60, 4).astype(np.float32))
+    mc = MatchConfig(max_gt=16, enable_scale_comp=enable)
+    p = matching_cuda.kernel_params(mc, ACFG, anchors.shape[0])
+    iou = (pairwise_iou(match_corner(anchors), gt) * mask[:, None, :].float()).numpy()
+    # The plain version's expressions (box/matching.py::match_anchors).
+    raw = iou.max(-1)
+    plain_arg = iou.argmax(-1)
+    count = np.zeros(mask.shape, np.float32)
+    for b in range(len(cases)):
+        np.add.at(count[b], plain_arg[b], (raw[b] >= np.float32(mc.match_threshold)).astype(
+            np.float32))
+    plain_needs = (count < p.k) & mask.numpy() if enable else np.zeros(mask.shape, bool)
+    # The kernel's rules.
+    kern_best = np.zeros(raw.shape, np.float32)
+    kern_arg = np.zeros(raw.shape, np.int64)
+    for b in range(len(cases)):
+        for g in np.flatnonzero(mask[b].numpy()):
+            better = iou[b, :, g] > kern_best[b]
+            kern_best[b, better], kern_arg[b, better] = iou[b, better, g], g
+    np.testing.assert_array_equal(kern_best, raw)
+    np.testing.assert_array_equal(kern_arg[raw > 0], plain_arg[raw > 0])
+    kern_count = np.zeros(mask.shape, np.int64)
+    for b in range(len(cases)):
+        hit = (raw[b] >= np.float32(p.match_threshold)) & (raw[b] > 0)
+        np.add.at(kern_count[b], kern_arg[b][hit], 1)
+    kern_needs = (kern_count < p.k_needs) & mask.numpy()
+    np.testing.assert_array_equal(kern_needs, plain_needs)
+    assert kern_needs.any() == enable
+
+
+def match_corner(anchors):
+    from dan_tpu_torch.box.anchors import center_to_corner
+
+    return center_to_corner(anchors)
+
+
+@pytest.mark.parametrize("what", ["g_0", "g_513", "f64_gts", "float_mask", "strided_gts",
+                                  "bad_shape", "no_anchors", "cpu"])
+def test_kernel_wrapper_refuses(what):
+    """What the CUDA matcher does not take raises before anything is built
+    or launched (checked here on CPU tensors; the device is checked last)."""
+    anchors = generate_anchors(ACFG, 64, 64)
+    gt, mask = torch.zeros((2, 8, 4)), torch.zeros((2, 8), dtype=torch.bool)
+    err, match = ValueError, "CUDA tensors"
+    if what == "g_0":
+        gt, mask, match = gt[:, :0], mask[:, :0], "gt slots"
+    elif what == "g_513":
+        gt, mask, match = torch.zeros((1, 513, 4)), torch.zeros((1, 513), dtype=torch.bool), "gt slots"
+    elif what == "f64_gts":
+        gt, err, match = gt.double(), TypeError, "float32"
+    elif what == "float_mask":
+        mask, err, match = mask.float(), TypeError, "bool"
+    elif what == "strided_gts":
+        gt, match = torch.zeros((2, 4, 8)).transpose(1, 2), "contiguous"
+    elif what == "bad_shape":
+        mask, match = mask[:, :5], "expected"
+    elif what == "no_anchors":
+        anchors, match = anchors[:0], "no anchors"
+    before = matching_cuda.LAUNCHES
+    with pytest.raises(err, match=match):
+        matching_cuda.match_anchors_cuda(anchors, gt, mask, MatchConfig(max_gt=8), ACFG)
+    assert matching_cuda.LAUNCHES == before

@@ -9,6 +9,11 @@ later boxes a kept box suppresses and compacts the rest -- and held against
 interpret mode.  The selection is integer logic on float32 IoUs computed in
 one operation order, so every comparison is exact (no tolerance).
 
+A box with a NaN coordinate has IoU 0 with every box in the JAX package
+and in the port (NaN-propagating max / min, then the union > 0 guard): rows
+with NaN coordinates, sorted and not, give the same ranks through the plain
+version, the Pallas kernel in interpret mode and the XLA `greedy_nms`.
+
 Also here: the rule that sends a row to the tile scan (`rows_sorted`), and
 what the wrapper refuses.
 """
@@ -18,6 +23,7 @@ import torch
 
 import jax.numpy as jnp
 
+from dan_tpu.ops.nms import greedy_nms
 from dan_tpu.ops.nms_batched_pallas import greedy_nms_pallas_batched
 from dan_tpu_torch.ops import nms_cuda
 from dan_tpu_torch.ops.nms import rank_to_result
@@ -29,12 +35,16 @@ f32 = np.float32
 
 
 def _suppresses(boxes, area, j, k, thr):
-    """IoU(j, k) > thr in float32, in the kernel's operation order."""
-    ix1, iy1 = max(boxes[j, 0], boxes[k, 0]), max(boxes[j, 1], boxes[k, 1])
-    ix2, iy2 = min(boxes[j, 2], boxes[k, 2]), min(boxes[j, 3], boxes[k, 3])
-    inter = f32(max(f32(ix2 - ix1), f32(0))) * f32(max(f32(iy2 - iy1), f32(0)))
-    uni = f32(f32(area[j] + area[k]) - inter)
-    iou = f32(inter / uni) if uni > 0 else f32(0)
+    """IoU(j, k) > thr in float32, in the kernel's operation order, with
+    np.maximum / np.minimum, which return NaN when either operand is NaN as
+    the kernel's max / min do (Python's max / min drop a NaN in second
+    place)."""
+    with np.errstate(invalid="ignore"):
+        ix1, iy1 = np.maximum(boxes[j, 0], boxes[k, 0]), np.maximum(boxes[j, 1], boxes[k, 1])
+        ix2, iy2 = np.minimum(boxes[j, 2], boxes[k, 2]), np.minimum(boxes[j, 3], boxes[k, 3])
+        inter = np.maximum(ix2 - ix1, f32(0)) * np.maximum(iy2 - iy1, f32(0))
+        uni = (area[j] + area[k]) - inter
+        iou = inter / uni if uni > 0 else f32(0)
     return iou > f32(thr)
 
 
@@ -42,8 +52,9 @@ def tile_scan_model(boxes, scores, thr, max_out, score_thr=0.0):
     """One sorted row -> (ranks (N,) int32, tiles).  Mirrors tile_scan()."""
     n = len(scores)
     assert all(scores[k] >= scores[k + 1] for k in range(n - 1)), "the row must be sorted"
-    area = (np.maximum(boxes[:, 2] - boxes[:, 0], f32(0))
-            * np.maximum(boxes[:, 3] - boxes[:, 1], f32(0))).astype(f32)
+    with np.errstate(invalid="ignore"):
+        area = (np.maximum(boxes[:, 2] - boxes[:, 0], f32(0))
+                * np.maximum(boxes[:, 3] - boxes[:, 1], f32(0))).astype(f32)
     rank = np.full(n, -1, np.int32)
     # Boxes with score > score_thr are a prefix of a sorted row.
     act = list(range(int((scores > f32(score_thr)).sum())))
@@ -113,7 +124,17 @@ def _edge_rows():
     rows["no_overlap_keeps_all"] = (
         (np.arange(150, dtype=f32)[:, None] * 50 + f32([0, 0, 10, 10])), _sorted_scores(rng, 150),
         0.3, 750, 0.0)
+    rows["nan_x1_and_y2"] = (_nan_boxes(rng, 300), _sorted_scores(rng, 300), 0.3, 750, 0.0)
     return rows
+
+
+def _nan_boxes(rng, n):
+    """Clustered boxes with a NaN x1 on one box and a NaN y2 on another,
+    among the first tile."""
+    boxes = _boxes(rng, n, clustered=True)
+    boxes[3, 0] = np.nan
+    boxes[40, 3] = np.nan
+    return boxes
 
 
 EDGE_ROWS = _edge_rows()
@@ -136,6 +157,37 @@ def test_tile_scan_model_equals_plain_and_pallas(name):
     np.testing.assert_array_equal(res.indices.numpy(), np.asarray(want.indices))
     np.testing.assert_array_equal(res.boxes.numpy(), np.asarray(want.boxes))
     np.testing.assert_array_equal(res.scores.numpy(), np.asarray(want.scores))
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+def test_nan_coordinates_plain_equals_pallas_and_xla(order):
+    """A NaN x1 and a NaN y2: both boxes have IoU 0 with every box, in the
+    port's plain version as in the JAX package's kernel and XLA version."""
+    rng = np.random.default_rng(21)
+    boxes, scores = _nan_boxes(rng, 300), _sorted_scores(rng, 300)
+    if order == "shuffled":
+        perm = rng.permutation(300)
+        boxes, scores = boxes[perm], scores[perm]
+    tb, ts = torch.from_numpy(boxes[None]), torch.from_numpy(scores[None])
+    assert bool(nms_cuda.rows_sorted(ts)[0]) == (order == "sorted")
+    rank = nms_cuda.greedy_nms_rank_plain(tb, ts, 0.3, 750)
+    got = rank_to_result(rank, tb, ts, 750)
+    for want in (greedy_nms_pallas_batched(jnp.asarray(boxes[None]), jnp.asarray(scores[None]),
+                                           0.3, 750, interpret=True),
+                 greedy_nms(jnp.asarray(boxes), jnp.asarray(scores), 0.3, 750)):
+        np.testing.assert_array_equal(got.indices.numpy().reshape(-1),
+                                      np.asarray(want.indices).reshape(-1))
+        np.testing.assert_array_equal(got.valid.numpy().reshape(-1),
+                                      np.asarray(want.valid).reshape(-1))
+        np.testing.assert_array_equal(got.scores.numpy().reshape(-1),
+                                      np.asarray(want.scores).reshape(-1))
+    # The NaN boxes are kept, and suppress nothing: without them every
+    # other box keeps its fate.
+    nan_rows = np.isnan(boxes).any(axis=1)
+    assert (rank[0].numpy()[nan_rows] >= 0).all()
+    rest = nms_cuda.greedy_nms_rank_plain(tb[:, ~nan_rows].contiguous(),
+                                          ts[:, ~nan_rows].contiguous(), 0.3, 750)
+    np.testing.assert_array_equal(rank[0].numpy()[~nan_rows] >= 0, rest[0].numpy() >= 0)
 
 
 def test_thinning_row_takes_fewer_tiles():
