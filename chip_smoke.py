@@ -110,6 +110,28 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      at B = 1), and replay the selections to count the IoUs and merges that
      this run's rows need, for the bounds.
 
+ 15. data parallelism (dan_tpu_torch/parallel/), every rank a spawned
+     process that launches its own kernels: (a) NCCL at world size 1 on
+     cuda:0, at the train and TTA shapes above: three DP train steps
+     against three `train_step` calls from the same state and global
+     batches (bit-identical where two one-device runs are; within their
+     spread where the backward's atomics make them differ), and a 32-image
+     `detect_tta_dataset(mesh=)` bit-identical to the call without it;
+     (b) gloo, 2 ranks on cuda:0 (NCCL refuses two ranks on one card), each
+     held to half of 0.9 of its memory (`dryrun_multichip.card_share`), a
+     global batch of 32 = 16 a rank: matcher targets, num_pos and the
+     selected-negative count identical to the one-device step, the hard
+     negatives' agreement printed, the loss within 1e-2 and the
+     parameters' update within 5e-2 (relative L2, bf16), K3-K6 once a step
+     on each rank; the 32 images through both ranks bit-identical to the
+     one-device run at the same tta_batch, launch counters = last_run_stats
+     = the planners' arithmetic a rank; on every leg no rank's allocation
+     ran out of device memory (cuDNN would then take another algorithm and
+     other bits); ms a step and the all-reduce's
+     share; the three legs of tools/dryrun_multichip.py; (c) NCCL over
+     min(cards, 4) cards with the same checks and images/s against one
+     card, or one line saying why it did not run.
+
 Phase 12's first half runs before phase 13, its real-data half after it.
 The line before the last is a JSON object describing each kernel, with the
 least time the card could take for this run's inputs (`bound_ms`); the last
@@ -118,6 +140,7 @@ JAX package.
 """
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -159,9 +182,13 @@ from dan_tpu_torch.train.loop import (
     loss_and_grads,
     preprocess_and_match,
     to_device,
+    train_step,
 )
 from dan_tpu_torch.train.optim import sgd_update
 from dan_tpu_torch.ops.nms import NMSResult, rank_to_result
+from dan_tpu_torch.parallel.spawn import spawn
+from dan_tpu_torch.tools import dryrun_multichip as dry
+from dan_tpu_torch.train.loss import class_ce, hard_negatives
 from dan_tpu_torch.ops.postprocess import filter_and_topk, postprocess_batch
 from dan_tpu_torch.ops.preprocess import normalize_image
 from dan_tpu_torch.box.decode import decode_boxes
@@ -204,6 +231,17 @@ F32_LONE_BOXES = 0.01
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
+# Phase 15: DP train steps and TTA images a leg; the tolerances of a
+# 2-rank step against one device in bf16 (the ranks' forward runs at batch
+# 16, whose convolutions may take other kernels than batch 32's): the loss
+# and the relative L2 of the 3-step parameter update.
+DP_STEPS = 3
+DP_TTA_IMAGES = 32
+DP_LOSS_RTOL = 1e-2
+DP_UPDATE_RTOL = 5e-2
+# The metrics of a step that its forward alone decides (grad_norm comes
+# from the backward, whose atomic adds differ between runs).
+FORWARD_METRICS = ("loss", "cls_loss", "loc_loss", "num_pos", "num_neg_selected")
 
 
 def log(msg: str) -> None:
@@ -487,7 +525,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
+        f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}, "
+        f"{torch.cuda.device_count()} CUDA device(s)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -783,6 +822,11 @@ def main() -> int:
     tta = phase13(cfg, dev, smi)
     vote_err = max(vote_err, phase12_real(tta["vote_inputs"], post, dev))
     tta_ms, tta_bounds = phase14(tta["vote_inputs"], nms_rows, post, dev, smi)
+    del tta["vote_inputs"], nms_rows
+    torch.cuda.empty_cache()
+
+    # -- 15. data parallel ---------------------------------------------------
+    dp_launches = phase15(cfg, tcfg, dev, smi)
 
     n_rows, n_box = BATCH, post.pre_nms_topk
     # NMS: 20 bytes a box in, its rank out; for every selected box an IoU, a
@@ -800,7 +844,8 @@ def main() -> int:
          "argmax_loop_ms": ms["argmax"], "argmax_loop_swapped_ms": ms["swapped"],
          "plain_ms": ms["plain"], "bound_ms": b_nms[0],
          "bound_by": b_nms[1], "dependent_steps": int(nms_tiles.max()),
-         "kept": int(kept_rows.max()), "library_ms": None},
+         "kept": int(kept_rows.max()), "library_ms": None,
+         "launches_dp_ranks": [r["nms"] for r in dp_launches["tta"]]},
         {"name": "greedy_nms_rank (B=1)", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "dan_tpu/ops/nms_pallas.py:34", "launches": launches_one,
          "max_abs_err": err_1, "ms": ms["kernel1"], "argmax_loop_ms": ms["argmax1"],
@@ -813,7 +858,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"dan_tpu_torch/csrc/{src}.cu",
             "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
             "ms": train_ms[name]["kernel"], "plain_ms": train_ms[name]["plain"],
-            "library_ms": train_ms[name].get("library")}
+            "library_ms": train_ms[name].get("library"),
+            "launches_dp_ranks": [r[name] for r in dp_launches["train"]]}
         if name == "conv12_wgrad":
             plan = train_bounds["conv12_wgrad tiling"]
             seg = conv12_wgrad_cuda.SEGMENT
@@ -842,7 +888,7 @@ def main() -> int:
          "device_ms": tta_ms["vote"]["device"], "plain_ms": tta_ms["vote"]["plain"],
          "bound_ms": tta_bounds["vote"][0], "bound_by": tta_bounds["vote"][1],
          "dependent_steps": tta_bounds["vote"][2], "outputs": tta_bounds["vote"][3],
-         "library_ms": None},
+         "library_ms": None, "launches_dp_ranks": [r["bbox_vote"] for r in dp_launches["tta"]]},
         {"name": "bbox_vote (B=1)", "route": "cuda", "source": vote_src,
          "replaces": "dan_tpu/ops/bbox_vote_pallas.py:30", "launches": tta["vote_launches_one"],
          "max_abs_err": vote_err, "ms": tta_ms["vote1"]["kernel"],
@@ -1794,6 +1840,244 @@ def phase14(vote_inputs, nms_rows, post, dev, smi):
         log(f"  bound {name}: {ms_b:.5f} ms by {by}; {chain} dependent steps"
             + (f" (tiles) for {outs} outputs" if outs is not None else ""))
     return out, bounds
+
+# ---------------------------------------------------------------------------
+# data parallelism: phase 15
+# ---------------------------------------------------------------------------
+
+
+def card_rank(fn, rank, world_size, init_method, *args):
+    """fn on a spawned rank with this script's numerics (TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return fn(rank, world_size, init_method, *args)
+
+
+def dp_batch(cfg, i):
+    """Global host batch i of phase 15's train legs."""
+    return synthetic_batch(cfg, TRAIN_BATCH, seed=300 + i)
+
+
+def dp_items(n):
+    """Phase 15's TTA images: the first n of phase 13's, as (key, image)."""
+    return [(k, img) for k, img, _ in tta_images(n)]
+
+
+def one_device_steps(cfg, dev):
+    """DP_STEPS train_step calls on one device from create_train_state(SEED),
+    recording what train_rank records; the host ms a step (synchronised)."""
+    state = create_train_state(cfg, SEED, dev)
+    out = {"metrics": [], "targets": [], "hard_negatives": [], "ms": []}
+    for i in range(DP_STEPS):
+        batch = dp_batch(cfg, i)
+        images, targets = preprocess_and_match(batch, cfg, dev)
+        cls_logits, _ = state.model(images)
+        out["hard_negatives"].append(hard_negatives(
+            class_ce(cls_logits, targets.cls_target), targets.cls_target, cfg.train).cpu().numpy())
+        out["targets"].append({k: v.cpu().numpy() for k, v in targets._asdict().items()})
+        del images, targets, cls_logits
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(state, batch)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+    out["state"] = ckpt.state_payload(state)
+    return out
+
+
+def max_param_diff(a, b):
+    return max(float((a[k] - b[k]).abs().max()) for k in b)
+
+
+def dp_expected(items, runner, rank, n, tta_batch, vote_batch):
+    """A rank's bucket and vote launches from the planners: the chunks of
+    each (bucket, canvas) group, and of the vote, in which its block holds
+    an entry."""
+    groups = {}
+    for _, img in items:
+        for _, bucket, canvas in plan_variant_buckets(*img.shape[:2], runner.config):
+            groups[(bucket, canvas)] = groups.get((bucket, canvas), 0) + 1
+    per = {b: runner.bucket_chunk(b, n, tta_batch) // n for b, _ in groups}
+    vchunk = runner._vote_chunk(n, vote_batch)
+    return (sum(len(range(rank * per[b], m, n * per[b])) for (b, _), m in groups.items()),
+            len(range(rank * (vchunk // n), len(items), vchunk)))
+
+
+class Checks:
+    """Phase 15's checks: each is printed, and every failure is raised at
+    the end of the phase, so that one run reports all of them."""
+
+    def __init__(self):
+        self.failed = []
+
+    def __call__(self, ok: bool, what: str) -> None:
+        log(f"  [{'ok' if ok else 'FAILED'}] {what}")
+        if not ok:
+            self.failed.append(what)
+
+
+def check_train_ranks(check, ranks, one, start, label, exact):
+    """One leg's DP train steps against the one-device steps."""
+    n = len(ranks)
+    check(len({r["digest"] for r in ranks}) == 1, f"{label}: the {n} replicas are bit-identical")
+    check(all(r["ooms"] == 0 for r in ranks),
+          f"{label}: no rank's allocation ran out of device memory ({[r['ooms'] for r in ranks]})")
+    check(all(r["metrics"] == ranks[0]["metrics"] for r in ranks),
+          f"{label}: every rank reports the same global metrics")
+    same_targets = all(
+        np.array_equal(np.concatenate([r["targets"][i][k] for r in ranks]), want)
+        for i in range(DP_STEPS) for k, want in one["targets"][i].items())
+    check(same_targets, f"{label}: matcher targets (all four leaves) identical to one device")
+    neg_diff = [int((np.concatenate([r["hard_negatives"][i] for r in ranks])
+                     != one["hard_negatives"][i]).sum()) for i in range(DP_STEPS)]
+    n_neg = [int(h.sum()) for h in one["hard_negatives"]]
+    counts = all(r_m[k] == o_m[k] for r_m, o_m in zip(ranks[0]["metrics"], one["metrics"])
+                 for k in ("num_pos", "num_neg_selected"))
+    check(counts, f"{label}: num_pos and num_neg_selected identical at every step "
+          f"({[m['num_pos'] for m in one['metrics']]}, "
+          f"{[m['num_neg_selected'] for m in one['metrics']]})")
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(ranks[0]["metrics"], one["metrics"]))
+    upd = dry.update_rel_l2(ranks[0]["state"]["model"], one["state"]["model"], start)
+    diff = max_param_diff(ranks[0]["state"]["model"], one["state"]["model"])
+    log(f"  {label}: hard negatives differing from one device {neg_diff} of {n_neg} a step; "
+        f"loss rel diff {loss_rel:.3e}; parameter update rel L2 {upd:.3e}, max |dp| {diff:.3e}")
+    if exact:
+        check(ranks[0]["metrics"] == one["metrics"] and diff == 0.0 and sum(neg_diff) == 0,
+              f"{label}: metrics, hard negatives and parameters bit-identical to one device")
+    else:
+        check(loss_rel <= DP_LOSS_RTOL and upd <= DP_UPDATE_RTOL,
+              f"{label}: loss within {DP_LOSS_RTOL} and update within {DP_UPDATE_RTOL}")
+    for r, rk in enumerate(ranks):
+        want = {name: DP_STEPS * PER_STEP[name] for name in PER_STEP}
+        got = {name: rk["launches"][name] for name in PER_STEP}
+        check(got == want, f"{label}: rank {r} launched K3+K4 / K5 / K6 {got} in {DP_STEPS} steps")
+
+
+def check_tta_ranks(check, ranks, ref, items, runner, label):
+    """One leg's sharded TTA run against the one-device run."""
+    n = len(ranks)
+    check(all(r["ooms"] == 0 for r in ranks),
+          f"{label}: no rank's allocation ran out of device memory (ranks {[r['ooms'] for r in ranks]}; "
+          "cuDNN would take another algorithm)")
+    differ = [[k for k in ref if not (
+        np.array_equal(r["results"][k]["bboxes"], ref[k]["bboxes"])
+        and np.array_equal(r["results"][k]["scores"], ref[k]["scores"]))]
+        if list(r["results"]) == list(ref) else ["(other keys)"] for r in ranks]
+    for rank, keys in enumerate(differ):
+        for k in keys[:4]:
+            got = ranks[rank]["results"].get(k)
+            log(f"    rank {rank} {k}: {0 if got is None else len(got['scores'])} detections, "
+                f"one device {len(ref[k]['scores'])}")
+    check(not any(differ), f"{label}: every rank's {len(ref)} images bit-identical to one device "
+          f"(differing a rank: {[len(d) for d in differ]})")
+    for rank, r in enumerate(ranks):
+        m = r["memory"]
+        log(f"  {label}: rank {rank} peak {m['allocated_gib']:.2f} GiB in use, "
+            f"{m['reserved_gib']:.2f} GiB reserved, {m['retries']} cache flushes to retry an "
+            f"allocation")
+        bucket, vote = dp_expected(items, runner, rank, n, 16, 128)
+        stats = r["stats"]
+        check((stats["bucket_launches"], stats["vote_launches"]) == (bucket, vote)
+              and (r["launches"]["nms"], r["launches"]["bbox_vote"]) == (bucket, vote),
+              f"{label}: rank {rank} launched K1 {r['launches']['nms']} and K7 "
+              f"{r['launches']['bbox_vote']} times = last_run_stats {stats} = planners "
+              f"({bucket}, {vote}); the run {r['s']:.3f} s")
+
+
+def phase15(cfg, tcfg, dev, smi):
+    """Data parallelism on the card; returns the per-rank launches of the
+    2-rank leg."""
+    check = Checks()
+    start = ckpt.state_payload(create_train_state(tcfg, SEED, "cpu"))["model"]
+    one = one_device_steps(tcfg, dev)
+    again = one_device_steps(tcfg, dev)
+    spread = dry.update_rel_l2(again["state"]["model"], one["state"]["model"], start)
+    reproducible = spread == 0.0 and again["metrics"] == one["metrics"]
+    log(f"phase 15: one device, {DP_STEPS} steps at batch {TRAIN_BATCH}: "
+        f"{np.mean(one['ms'][1:]):.3f} ms a step after the first (host clock, synchronised); "
+        f"a second run {'is' if reproducible else 'is NOT'} bit-identical (max |dp| "
+        f"{max_param_diff(again['state']['model'], one['state']['model']):.3e}, update rel L2 "
+        f"{spread:.3e}) ({smi})")
+    batch_fn = functools.partial(dp_batch, tcfg)
+    train_args = (tcfg, SEED, batch_fn, DP_STEPS)
+
+    det = Detector.from_random(SEED, cfg, dev)
+    items = dp_items(DP_TTA_IMAGES)
+    det.warmup_tta([im.shape[:2] for _, im in items], 16, 128)
+    t0 = time.perf_counter()
+    ref = det.detect_tta_dataset(items, 16, 128)
+    torch.cuda.synchronize()
+    tta_one_s = time.perf_counter() - t0
+    runner = det._get_tta_runner()
+    weights = {k: v.cpu() for k, v in det.model.state_dict().items()}
+    tta_args = (cfg, weights, functools.partial(dp_items, DP_TTA_IMAGES), 16, 128)
+    log(f"phase 15: one device, {DP_TTA_IMAGES} TTA images: {tta_one_s:.3f} s = "
+        f"{DP_TTA_IMAGES / tta_one_s:.2f} images/s, {runner.last_run_stats}; allocations of this "
+        f"process that ran out of device memory so far: {dry.allocator_ooms(dev)}; ranks that "
+        f"share the card hold {dry.CARD_SHARE} of its memory between them")
+    del det
+    torch.cuda.empty_cache()
+
+    def ranks_of(fn, n, backend, args):
+        return spawn(functools.partial(card_rank, fn), n, ("cuda", backend) + args, timeout=600,
+                     threads=None)
+
+    # (a) NCCL at world size 1.
+    r1 = ranks_of(dry.train_rank, 1, "nccl", train_args)
+    log(f"phase 15a: NCCL, 1 rank: {np.mean(r1[0]['ms'][1:]):.3f} ms a step after the first, "
+        f"one all-reduce of the gradients' buffer {r1[0]['allreduce_ms']:.3f} ms ({smi})")
+    if reproducible:
+        check_train_ranks(check, r1, one, start, "15a NCCL x1", exact=True)
+    else:
+        check_train_ranks(check, r1, one, start, "15a NCCL x1", exact=False)
+        upd = dry.update_rel_l2(r1[0]["state"]["model"], one["state"]["model"], start)
+        first = all(r1[0]["metrics"][0][k] == one["metrics"][0][k] for k in FORWARD_METRICS)
+        check(first and upd <= 4 * spread,
+              f"15a NCCL x1: the first step's forward metrics bit-identical, the update within "
+              f"4x the one-device runs' own spread ({upd:.3e} <= 4 x {spread:.3e})")
+    t1 = ranks_of(dry.tta_rank, 1, "nccl", tta_args)
+    check_tta_ranks(check, t1, ref, items, runner, "15a NCCL x1")
+
+    # (b) gloo, two ranks sharing cuda:0.
+    r2 = ranks_of(dry.train_rank, 2, "gloo", train_args)
+    ms2 = np.mean([np.mean(r["ms"][1:]) for r in r2])
+    ar2 = np.mean([r["allreduce_ms"] for r in r2])
+    log(f"phase 15b: gloo, 2 ranks on cuda:0, 16 images a rank: {ms2:.3f} ms a step after the "
+        f"first = {TRAIN_BATCH / ms2 * 1e3:.1f} img/s (one device {np.mean(one['ms'][1:]):.3f}); "
+        f"one all-reduce of the gradients' buffer {ar2:.3f} ms = {ar2 / ms2:.3f} of a step "
+        f"({smi})")
+    check_train_ranks(check, r2, one, start, "15b gloo x2", exact=False)
+    t2 = ranks_of(dry.tta_rank, 2, "gloo", tta_args)
+    check_tta_ranks(check, t2, ref, items, runner, "15b gloo x2")
+    try:
+        dry.dryrun_multichip(2, "cuda", "gloo")
+        check(True, "15b: tools/dryrun_multichip.py's three legs on 2 ranks sharing cuda:0")
+    except (AssertionError, RuntimeError) as e:
+        check(False, f"15b: tools/dryrun_multichip.py on 2 ranks sharing cuda:0: {e}")
+
+    # (c) NCCL over the host's cards.
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        log(f"phase 15c: not run: this host has {torch.cuda.device_count()} CUDA device, and "
+            "NCCL over cards needs two or more")
+    else:
+        rn = ranks_of(dry.train_rank, n, "nccl", train_args)
+        msn = np.mean([np.mean(r["ms"][1:]) for r in rn])
+        log(f"phase 15c: NCCL over {n} cards: {msn:.3f} ms a step = "
+            f"{TRAIN_BATCH / msn * 1e3:.1f} img/s against one card's "
+            f"{TRAIN_BATCH / np.mean(one['ms'][1:]) * 1e3:.1f}; all-reduce "
+            f"{np.mean([r['allreduce_ms'] for r in rn]):.3f} ms ({smi})")
+        check_train_ranks(check, rn, one, start, f"15c NCCL x{n}", exact=False)
+        tn = ranks_of(dry.tta_rank, n, "nccl", tta_args)
+        s_n = max(r["s"] for r in tn)
+        log(f"phase 15c: TTA over {n} cards: {DP_TTA_IMAGES / s_n:.2f} images/s against one "
+            f"card's {DP_TTA_IMAGES / tta_one_s:.2f}")
+        check_tta_ranks(check, tn, ref, items, runner, f"15c NCCL x{n}")
+    if check.failed:
+        raise AssertionError("phase 15: " + "; ".join(check.failed))
+    return {"train": [r["launches"] for r in r2], "tta": [r["launches"] for r in t2]}
 
 
 if __name__ == "__main__":

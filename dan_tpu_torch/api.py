@@ -15,6 +15,9 @@ network input, run through the model, decoded, filtered and NMS'd, and its
 boxes are scaled back to the image's own pixels.  On a CUDA device the NMS
 is the CUDA kernel of ops/nms_cuda.py, and the TTA path's fusion the one of
 ops/bbox_vote_cuda.py.
+
+`warmup_tta` and `detect_tta_dataset` take a `mesh` (dan_tpu_torch.parallel)
+to share a dataset over ranks; each rank builds its Detector on mesh.device.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from dan_tpu_torch.eval.tta import TTARunner
 from dan_tpu_torch.models.detector import DANDetector
 from dan_tpu_torch.ops.postprocess import postprocess_batch
 from dan_tpu_torch.ops.squash import eval_preprocess
+from dan_tpu_torch.parallel.mesh import Mesh
 
 
 class Detector:
@@ -186,11 +190,13 @@ class Detector:
         sizes,
         tta_batch: Optional[int] = None,
         vote_batch: Optional[int] = None,
+        mesh: Optional[Mesh] = None,
     ) -> int:
         """Run every TTA launch shape the given (h, w) image sizes will need
         once, with the knobs the eval CLI exposes (--tta_batch /
-        --vote_batch; None = TTARunner's defaults).  Returns the number of
-        shapes warmed (TTARunner.warmup)."""
+        --vote_batch; None = TTARunner's defaults) and the mesh the dataset
+        run will take.  Returns the number of shapes warmed
+        (TTARunner.warmup)."""
         return self._get_tta_runner().warmup(
             sizes,
             batch_per_device=(
@@ -199,6 +205,7 @@ class Detector:
             vote_batch=(
                 vote_batch if vote_batch is not None else TTARunner.DEFAULT_VOTE_BATCH
             ),
+            mesh=mesh,
         )
 
     def detect_tta(
@@ -220,12 +227,14 @@ class Detector:
         tta_batch: Optional[int] = None,
         vote_batch: Optional[int] = None,
         progress_every: int = 0,
-        max_pending: int = 32,
+        max_pending: Optional[int] = None,
+        mesh: Optional[Mesh] = None,
     ) -> Dict[str, Dict[str, np.ndarray]]:
         """Dataset-scale TTA: iterable of (key, image) -> {key: detection
         dict}, batched per resolution bucket: the API twin of the eval
         CLI's run_dataset path with the same tta_batch / vote_batch /
-        max_pending knobs (None = TTARunner's defaults)."""
+        max_pending knobs (None = TTARunner's defaults).  With a mesh every
+        rank passes the same items and gets every image's detections."""
         return self._get_tta_runner().run_dataset(
             ((k, self._check_image(im)) for k, im in items),
             batch_per_device=(
@@ -235,5 +244,8 @@ class Detector:
             vote_batch=(
                 vote_batch if vote_batch is not None else TTARunner.DEFAULT_VOTE_BATCH
             ),
-            max_pending=max_pending,
+            max_pending=(
+                max_pending if max_pending is not None else TTARunner.DEFAULT_MAX_PENDING
+            ),
+            mesh=mesh,
         )

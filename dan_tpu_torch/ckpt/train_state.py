@@ -9,7 +9,9 @@ of the port).
     weights = load_model_weights(path)            # a step file or a model_dir
 
 A save writes to a temporary file and renames it, so a crash never leaves
-a partial checkpoint under a step name.
+a partial checkpoint under a step name.  Under data parallelism rank 0
+writes and every rank waits for it (`save(..., mesh=mesh)`); every rank
+restores the same file to its own device.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import tempfile
 from typing import Optional
 
 import torch
+
+from dan_tpu_torch.parallel.mesh import barrier
 
 KEEP = 5
 _NAME = re.compile(r"step_(\d+)\.pt")
@@ -40,15 +44,38 @@ def latest_step(model_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def save(model_dir: str, step: int, state) -> str:
-    """Write state (model, momentum, step) as step `step`, then delete all
-    but the newest KEEP checkpoints."""
-    os.makedirs(model_dir, exist_ok=True)
-    payload = {
-        "step": int(step),
-        "model": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
-        "momentum": {k: v.detach().cpu() for k, v in state.momentum.items()},
+def state_payload(state, step: Optional[int] = None) -> dict:
+    """A copy of the state's model, momentum and step in CPU tensors: what
+    a checkpoint holds."""
+    return {
+        "step": int(state.step if step is None else step),
+        "model": {k: v.detach().to("cpu", copy=True) for k, v in state.model.state_dict().items()},
+        "momentum": {k: v.to("cpu", copy=True) for k, v in state.momentum.items()},
     }
+
+
+def load_payload(state, payload: dict):
+    """Copy a state_payload into state, in place, on state's device;
+    returns state."""
+    state.model.load_state_dict(payload["model"])
+    with torch.no_grad():
+        for name, buf in state.momentum.items():
+            buf.copy_(payload["momentum"][name])
+    state.step = int(payload["step"])
+    return state
+
+
+def save(model_dir: str, step: int, state, mesh=None) -> str:
+    """Write state (model, momentum, step) as step `step`, then delete all
+    but the newest KEEP checkpoints.  With a mesh (dan_tpu_torch.parallel)
+    only rank 0 writes, and every rank returns once the file is there."""
+    if mesh is not None:
+        if mesh.rank == 0:
+            save(model_dir, step, state)
+        barrier(mesh)
+        return _path(model_dir, step)
+    os.makedirs(model_dir, exist_ok=True)
+    payload = state_payload(state, step)
     fd, tmp = tempfile.mkstemp(suffix=".tmp", dir=model_dir)
     os.close(fd)
     try:
@@ -70,12 +97,7 @@ def restore(model_dir: str, state, step: Optional[int] = None):
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {model_dir}")
     payload = torch.load(_path(model_dir, step), map_location="cpu", weights_only=True)
-    state.model.load_state_dict(payload["model"])
-    with torch.no_grad():
-        for name, buf in state.momentum.items():
-            buf.copy_(payload["momentum"][name])
-    state.step = int(payload["step"])
-    return state
+    return load_payload(state, payload)
 
 
 def load_model_weights(path: str):

@@ -5,9 +5,9 @@ The counterpart of the reference's tf.data input_fn (SURVEY.md §3.1): the
 host never resamples pixels — it decodes JPEGs, pads them into fixed uint8
 canvases, samples data-anchor crop parameters, and hands batches to the
 device, where dan_tpu_torch.ops.preprocess does all the math inside the
-train step.  A worker pool overlaps decode with device compute.  The
-original's C++ batch decoder (dan_tpu/native/loader.cc) and its
-mesh-sharding `device_prefetch` are not copied: every batch takes the
+train step.  A worker pool overlaps decode with device compute, and
+`device_prefetch` the host-to-device copy.  The original's C++ batch
+decoder (dan_tpu/native/loader.cc) is not copied: every batch takes the
 per-image cv2 decode, which yields the same batches.
 
 Batch contract (all fixed shapes):
@@ -177,6 +177,30 @@ def iter_prefetch(items, depth: int = 2, transform=None):
         stop.set()
 
 
+def device_prefetch(batches, device, depth: int = 2):
+    """Copy each batch's arrays to `device` on a background thread, `depth`
+    batches ahead of the consumer (the counterpart of the JAX package's
+    device_prefetch; on N ranks, each rank prefetches its own rows to its
+    own device, mesh.device).  Yields dicts of device tensors with the
+    host `seed` array kept, which train_step takes as they are.  On a card
+    the thread pins each batch and queues its copy on the current stream,
+    ahead of the steps that read it."""
+    import torch  # not for the host-only users of this module
+
+    from dan_tpu_torch.train.loop import to_device
+
+    device = torch.device(device)
+
+    def move(batch):
+        if device.type == "cuda":
+            # The thread's own current device, or pinning would open a
+            # context on card 0 for every rank.
+            torch.cuda.set_device(device)
+        return dict(to_device(batch, device), seed=batch["seed"])
+
+    return iter_prefetch(batches, depth=depth, transform=move)
+
+
 class TrainPipeline:
     """Infinite shuffled loader over ImageRecords with threaded decode.
 
@@ -189,6 +213,12 @@ class TrainPipeline:
     advanced rng, so any producer can compute any step's indices.
     `num_workers` decode threads are spawned PER producer (total host
     threads ~ num_producers * num_workers; size to the host's cores).
+
+    start_step: the first step yielded; batches k, k+1, ... equal those of
+    a pipeline started at 0, so a resumed run sees the batches it would
+    have seen without the interruption.  rank / num_ranks: build only this
+    rank's contiguous rows of each global batch of batch_size (the same
+    records and sample seeds as slicing the global batch).
     """
 
     def __init__(
@@ -200,12 +230,22 @@ class TrainPipeline:
         num_workers: int = 8,
         prefetch: int = 2,
         num_producers: Optional[int] = None,
+        start_step: int = 0,
+        rank: int = 0,
+        num_ranks: int = 1,
     ):
         if not records:
             raise ValueError("empty dataset")
         self.records = records
         self.config = config
         self.batch_size = batch_size or config.train.batch_size
+        if self.batch_size % num_ranks or not 0 <= rank < num_ranks:
+            raise ValueError(
+                f"batch {self.batch_size} does not split over {num_ranks} ranks at rank {rank}"
+            )
+        per = self.batch_size // num_ranks
+        self._rows = range(rank * per, (rank + 1) * per)
+        self.start_step = start_step
         self.seed = seed
         self.num_workers = num_workers
         self.prefetch = prefetch
@@ -251,18 +291,15 @@ class TrainPipeline:
         )
         perm_cache: Dict[int, np.ndarray] = {}
         try:
-            step = k
+            step = self.start_step + k
             while not stop.is_set():
                 idxs = self._step_indices(step, perm_cache)
-                seeds = [
-                    sample_seed + step * self.batch_size + j
-                    for j in range(self.batch_size)
-                ]
                 futures = [
                     pool.submit(
-                        _prepare_sample, self.records[i], self.config, seeds[j]
+                        _prepare_sample, self.records[idxs[j]], self.config,
+                        sample_seed + step * self.batch_size + j,
                     )
-                    for j, i in enumerate(idxs)
+                    for j in self._rows
                 ]
                 batch = _collate([f.result() for f in futures])
                 if not _put_or_stop(q, batch, stop):
@@ -292,13 +329,13 @@ class TrainPipeline:
                 target=self._producer, args=(k, stop, qs[k]), daemon=True
             ).start()
         try:
-            step = 0
+            i = 0
             while True:
-                item = qs[step % self.num_producers].get()
+                item = qs[i % self.num_producers].get()
                 if isinstance(item, BaseException):
                     raise item
                 yield item
-                step += 1
+                i += 1
         finally:
             stop.set()
 

@@ -6,6 +6,12 @@ the CPU with --device cpu.
     python -m dan_tpu_torch.eval --wider_root /data/widerface --ckpt /path/run \\
         --output_dir /tmp/preds [--gt_mats /data/eval_tools/ground_truth]
     python -m dan_tpu_torch.eval --score_only --pred_dir /tmp/preds ...
+    torchrun --nproc_per_node 4 -m dan_tpu_torch.eval --wider_root ... --output_dir ...
+
+Under torchrun every rank (cuda:LOCAL_RANK on NCCL, or the CPU on gloo with
+--device cpu) runs its share of the dataset (TTARunner.run_dataset over the
+mesh; with --no_tta every N-th image), and rank 0 writes the txt files and
+scores AP.
 
 --ckpt is a checkpoint of `python -m dan_tpu_torch.train` (one step file or
 a model_dir); without it the weights are random and a warning says so.
@@ -22,9 +28,11 @@ import time
 
 import numpy as np
 
+from dan_tpu_torch.config import default_config
 from dan_tpu_torch.eval.tta import TTARunner
 from dan_tpu_torch.eval.widerface_ap import evaluate_widerface, load_official_gt
 from dan_tpu_torch.eval.writer import load_detection_dir, write_wider_detections
+from dan_tpu_torch.parallel.mesh import gather_objects, torchrun_mesh
 
 
 def parse_args(argv=None):
@@ -43,7 +51,7 @@ def parse_args(argv=None):
                     "are capped by the pixel budget regardless (TTARunner.bucket_chunk)")
     ap.add_argument("--vote_batch", type=int, default=TTARunner.DEFAULT_VOTE_BATCH,
                     help="images per batched bbox-vote launch")
-    ap.add_argument("--max_pending", type=int, default=32,
+    ap.add_argument("--max_pending", type=int, default=TTARunner.DEFAULT_MAX_PENDING,
                     help="launches kept un-fetched before the oldest is drained "
                     "(TTARunner.run_dataset max_pending)")
     ap.add_argument("--limit", type=int, default=None, help="eval first N images")
@@ -91,9 +99,10 @@ def run_single_scale(det, records, t0):
     return predictions, t0
 
 
-def run_tta(det, records, args):
+def run_tta(det, records, args, mesh=None):
     """Warm every launch shape from the image headers, then run_dataset with
-    the JPEG decode on a background thread."""
+    the JPEG decode on a background thread (every rank reads every image:
+    each plans the whole dataset)."""
     import resource
 
     import torch
@@ -107,6 +116,7 @@ def run_tta(det, records, args):
         (_image_size(r.path) for r in records),
         batch_per_device=args.tta_batch,
         vote_batch=args.vote_batch,
+        mesh=mesh,
     )
     print(f"[tta] warmed {n_warm} launch shapes in {time.time() - t_w:.0f}s", file=sys.stderr)
     items = iter_prefetch(
@@ -119,6 +129,7 @@ def run_tta(det, records, args):
         progress_every=50,
         vote_batch=args.vote_batch,
         max_pending=args.max_pending,
+        mesh=mesh,
     )
     dt = time.time() - t_run
     print(
@@ -137,6 +148,43 @@ def run_tta(det, records, args):
     return {k: _with_scores(v) for k, v in results.items()}
 
 
+def infer(args, records, mesh=None):
+    """Detections of every record, {stem: (N, 5) boxes + scores}, written to
+    --output_dir.  On a mesh each rank runs its share; rank 0 gets them all
+    and writes, the other ranks return {}."""
+    from dan_tpu_torch.api import Detector
+
+    device = mesh.device if mesh else args.device
+    if args.ckpt:
+        det = Detector.from_train_checkpoint(args.ckpt, device=device)
+    else:
+        print("WARNING: random weights", file=sys.stderr)
+        det = Detector.from_random(device=device)
+    print(f"device: {det.device}" + (f", rank {mesh.rank} of {mesh.size} on {mesh.backend}"
+                                     if mesh else ""), file=sys.stderr)
+    t0 = time.time()
+    if args.no_tta:
+        share = records if mesh is None else records[mesh.rank::mesh.size]
+        predictions, t0 = run_single_scale(det, share, t0)
+        if mesh is not None:
+            for theirs in gather_objects(predictions, mesh):
+                predictions.update(theirs)
+    else:
+        predictions = run_tta(det, records, args, mesh)
+    if mesh is not None and mesh.rank != 0:
+        return {}
+    if args.output_dir:
+        stem_to_rel = {_stem(r): r.rel_path for r in records}
+        for stem, p in predictions.items():
+            write_wider_detections(args.output_dir, stem_to_rel[stem], p[:, :4], p[:, 4])
+    # With --no_tta the clock restarts after the first detect, so that
+    # image is not in the numerator either.
+    n_timed = max(len(records) - (1 if args.no_tta else 0), 1)
+    ips = n_timed / max(time.time() - t0, 1e-9)
+    print(f"inference: {ips:.2f} img/s over {len(records)}", file=sys.stderr)
+    return predictions
+
+
 def main(argv=None) -> int:
     ap, args = parse_args(argv)
     predictions = {}
@@ -153,28 +201,14 @@ def main(argv=None) -> int:
     else:
         if not records:
             ap.error("--wider_root is required unless --score_only")
-        from dan_tpu_torch.api import Detector
-
-        if args.ckpt:
-            det = Detector.from_train_checkpoint(args.ckpt, device=args.device)
-        else:
-            print("WARNING: random weights", file=sys.stderr)
-            det = Detector.from_random(device=args.device)
-        print(f"device: {det.device}", file=sys.stderr)
-        t0 = time.time()
-        if args.no_tta:
-            predictions, t0 = run_single_scale(det, records, t0)
-        else:
-            predictions = run_tta(det, records, args)
-        if args.output_dir:
-            stem_to_rel = {_stem(r): r.rel_path for r in records}
-            for stem, p in predictions.items():
-                write_wider_detections(args.output_dir, stem_to_rel[stem], p[:, :4], p[:, 4])
-        # With --no_tta the clock restarts after the first detect, so that
-        # image is not in the numerator either.
-        n_timed = max(len(records) - (1 if args.no_tta else 0), 1)
-        ips = n_timed / max(time.time() - t0, 1e-9)
-        print(f"inference: {ips:.2f} img/s over {len(records)}", file=sys.stderr)
+        mesh = torchrun_mesh(default_config().mesh, args.device)
+        try:
+            predictions = infer(args, records, mesh)
+        finally:
+            if mesh is not None:
+                mesh.close()
+        if mesh is not None and mesh.rank != 0:
+            return 0
 
     # --- AP ---
     if args.gt_mats:

@@ -21,6 +21,14 @@ both are the hand-written kernels; on the CPU their plain versions.
 The planners (`plan_variants` ... `plan_variant_buckets`) are numpy-free
 Python and equal the JAX package's bit for bit, so both packages launch
 the same work.
+
+On N ranks (`run_dataset(..., mesh=mesh)`, dan_tpu_torch/parallel/) every
+rank plans the whole dataset; rank r runs the r-th block of
+batch_per_device units of each chunk of N x batch_per_device and the r-th
+share of each vote chunk, and the ranks gather the pre-vote rows and the
+results over the host group, so every rank returns the whole dict.  Each
+rank's launches are those of a one-device run at the same
+batch_per_device, so the results are the same bits.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from dan_tpu_torch.ops.nms import rank_to_result
 from dan_tpu_torch.ops.nms_cuda import greedy_nms_rank
 from dan_tpu_torch.ops.postprocess import filter_and_topk
 from dan_tpu_torch.ops.preprocess import bilinear_resample_batch, normalize_image
+from dan_tpu_torch.parallel.mesh import Mesh, gather_objects
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,6 +233,7 @@ class TTARunner:
 
     DEFAULT_VOTE_BATCH = 128  # images per batched vote launch
     DEFAULT_TTA_BATCH = 16  # (image, variant) units per launch
+    DEFAULT_MAX_PENDING = 32  # launches queued before the oldest is fetched
     # Cap on bucket² x units for one bucket launch: activations and anchors
     # grow linearly with it, so large buckets take smaller launches.
     # 32M px = 2048² x 8 = 640² x 80.  The rule is the JAX package's, so
@@ -247,7 +257,7 @@ class TTARunner:
         self.pixel_budget = pixel_budget
         self._anchors: Dict[int, torch.Tensor] = {}
         # Filled by run_dataset: {'images', 'variants', 'bucket_launches',
-        # 'vote_launches'}.
+        # 'vote_launches'}; the launches are this rank's.
         self.last_run_stats: Dict[str, int] = {}
 
     # -- stages ----------------------------------------------------------------
@@ -367,15 +377,17 @@ class TTARunner:
         sizes,
         batch_per_device: int = DEFAULT_TTA_BATCH,
         vote_batch: int = DEFAULT_VOTE_BATCH,
+        mesh: Optional[Mesh] = None,
     ) -> int:
         """Run one dummy launch for every (scale-bucket, canvas-bucket) pair
-        the given (h, w) image sizes will need, at the chunk size
-        run_dataset will use, and one dummy vote launch.  On a CUDA device
-        that builds the kernels, lets the convolution library choose its
-        algorithms for each shape and fills the allocator's pools, so the
-        run that follows pays none of it.
+        the given (h, w) image sizes will need, at the launch size
+        run_dataset will use with the same mesh, and one dummy vote launch.
+        On a CUDA device that builds the kernels, lets the convolution
+        library choose its algorithms for each shape and fills the
+        allocator's pools, so the run that follows pays none of it.
 
         Returns the number of pairs + 1 (the vote), 0 without sizes."""
+        n_dev = self._ranks(mesh)[1]
         pairs = set()
         for h, w in sizes:
             for _, bucket, canvas in plan_variant_buckets(h, w, self.config):
@@ -383,7 +395,7 @@ class TTARunner:
         if not pairs:
             return 0
         for bucket, canvas_size in sorted(pairs):
-            chunk = self.bucket_chunk(bucket, 1, batch_per_device)
+            chunk = self.bucket_chunk(bucket, n_dev, batch_per_device) // n_dev
             self._run_bucket(
                 bucket,
                 torch.zeros((chunk, canvas_size, canvas_size, 3), dtype=torch.uint8,
@@ -393,9 +405,17 @@ class TTARunner:
                 np.ones((chunk,), np.float32),
                 np.zeros((chunk,), bool),
             )
-        self._run_vote(*self._vote_buffer(self._vote_chunk(1, vote_batch),
+        self._run_vote(*self._vote_buffer(self._vote_chunk(n_dev, vote_batch) // n_dev,
                                           self.vote_rows())).numpy()
         return len(pairs) + 1
+
+    def _ranks(self, mesh: Optional[Mesh]) -> Tuple[int, int]:
+        """(this rank, the number of ranks) of a run on `mesh`."""
+        if mesh is None:
+            return 0, 1
+        if mesh.device != self.device:
+            raise ValueError(f"the mesh's device {mesh.device} is not the runner's {self.device}")
+        return mesh.rank, mesh.size
 
     def bucket_chunk(self, bucket: int, n_dev: int, batch_per_device: int) -> int:
         """(image, variant) units per launch for this resolution bucket:
@@ -490,31 +510,41 @@ class TTARunner:
         batch_per_device: int = DEFAULT_TTA_BATCH,
         progress_every: int = 0,
         vote_batch: int = DEFAULT_VOTE_BATCH,
-        max_pending: int = 32,
+        max_pending: int = DEFAULT_MAX_PENDING,
+        mesh: Optional[Mesh] = None,
     ) -> Dict[str, Dict[str, np.ndarray]]:
-        """Full-dataset TTA on one device.
+        """Full-dataset TTA on one device, or shared by the ranks of a mesh.
 
         Args:
-          items: iterable of (key, image_uint8) — e.g. WIDER rel-path stems.
+          items: iterable of (key, image_uint8) — e.g. WIDER rel-path stems;
+            on a mesh every rank passes the same items.
           batch_per_device: (image, variant) units per bucket launch.
-          vote_batch: images per batched vote launch.
+          vote_batch: images per batched vote launch, over all ranks
+            (padded up to a multiple of the ranks).
           max_pending: launches (bucket launches, then vote launches) kept
             un-fetched before the oldest is drained: it bounds the host and
             device memory held by queued results while keeping the device's
             queue that deep.  Must be positive.
-        Returns {key: {'bboxes': (N, 4), 'scores': (N,)}}.
+          mesh: the ranks to share the run with (dan_tpu_torch.parallel);
+            None runs every launch on this runner's device.
+        Returns {key: {'bboxes': (N, 4), 'scores': (N,)}}: every image's, on
+        every rank.
 
         Units are grouped by (bucket, canvas) so that each group runs at one
-        input shape, flushed in chunks of bucket_chunk; a short last chunk
-        is padded by repeating its first unit.  Each image's canvas is
-        copied to the device once and shared by all of its variants.
+        input shape, flushed in chunks of bucket_chunk, ranks x the units of
+        one launch; rank r launches the r-th block of each chunk, a short
+        block padded by repeating its first unit.  Each image's canvas is
+        copied to a rank's device once, when that rank runs one of its
+        units, and shared by them.
         """
         if max_pending <= 0:
             raise ValueError(f"max_pending must be positive, got {max_pending}")
-        n_dev = 1
+        rank, n_dev = self._ranks(mesh)
         cfg = self.config
         # unit: (key, variant, h, w, device-resident canvas, vote slot).
         groups: Dict[Tuple[int, int], list] = {}
+        # per_key[key][slot]: a variant's kept detections (boxes, scores,
+        # valid), the valid rows only: _pack_vote_rows keeps no others.
         per_key: Dict[str, list] = {}
         pending: collections.deque = collections.deque()  # (part, _Fetch)
         n_images = 0
@@ -525,17 +555,18 @@ class TTARunner:
             part, fetch = pending.popleft()
             boxes, scores, valid = self._unpack(fetch.numpy())
             for i, (key, v, slot) in enumerate(part):
-                gate = variant_gate(boxes[i], v, cfg.tta.gate_measure)
-                per_key[key][slot] = (boxes[i], scores[i], valid[i] & gate)
+                keep = valid[i] & variant_gate(boxes[i], v, cfg.tta.gate_measure)
+                per_key[key][slot] = (boxes[i][keep], scores[i][keep], keep[keep])
 
         def flush(group_key):
             nonlocal n_bucket_launches
             bucket, _ = group_key
             units = groups.pop(group_key, [])
             chunk = self.bucket_chunk(bucket, n_dev, batch_per_device)
-            for start in range(0, len(units), chunk):
-                part = units[start : start + chunk]
-                pad = chunk - len(part)
+            per_rank = chunk // n_dev
+            for start in range(rank * per_rank, len(units), chunk):
+                part = units[start : start + per_rank]
+                pad = per_rank - len(part)
                 padded = part + [part[0]] * pad
                 out = self._run_bucket(
                     bucket,
@@ -558,15 +589,24 @@ class TTARunner:
             plan = list(plan_variant_buckets(h, w, cfg))
             per_key[key] = [None] * len(plan)
             canvas_size = canvas_bucket(max(h, w), cfg.tta.buckets)
-            canvas_dev = self._to_device(image, canvas_size)  # one copy per image
+            # Which rank runs each unit: the block of its place in its chunk.
+            units, added, mine = [], collections.Counter(), False
             for (v, bucket, _), slot in zip(plan, vote_order(plan)):
-                n_variants += 1
                 gk = (bucket, canvas_size)
+                chunk = self.bucket_chunk(bucket, n_dev, batch_per_device)
+                place = (len(groups.get(gk, ())) + added[gk]) % chunk
+                added[gk] += 1
+                mine |= place // (chunk // n_dev) == rank
+                units.append((gk, v, slot, chunk))
+            # One copy per image, by the ranks that run one of its units.
+            canvas_dev = self._to_device(image, canvas_size) if mine else None
+            for gk, v, slot, chunk in units:
+                n_variants += 1
                 groups.setdefault(gk, []).append((key, v, h, w, canvas_dev, slot))
-                if len(groups[gk]) >= self.bucket_chunk(bucket, n_dev, batch_per_device):
+                if len(groups[gk]) >= chunk:
                     flush(gk)
             n_images += 1
-            if progress_every and n_images % progress_every == 0:
+            if progress_every and rank == 0 and n_images % progress_every == 0:
                 import resource
                 import sys
 
@@ -577,12 +617,20 @@ class TTARunner:
             flush(gk)
         while pending:
             drain_oldest()
+        if n_dev > 1:  # every rank gets every variant's rows
+            ours = [(k, slot, d) for k, dets in per_key.items()
+                    for slot, d in enumerate(dets) if d is not None]
+            for theirs in gather_objects(ours, mesh):
+                for k, slot, d in theirs:
+                    per_key[k][slot] = d
 
         # Per-image fusion: batched bbox-vote in fixed (vote_chunk, R)
-        # launches, the last chunk padded with empty images (all-invalid
-        # rows vote to nothing), fetches deferred at most max_pending deep.
+        # launches, rank r voting the r-th share of each chunk, the last
+        # share padded with empty images (all-invalid rows vote to
+        # nothing), fetches deferred at most max_pending deep.
         results: Dict[str, Dict[str, np.ndarray]] = {}
         vchunk = self._vote_chunk(n_dev, vote_batch)
+        per_rank = vchunk // n_dev
         keys = list(per_key)
         vote_pending: collections.deque = collections.deque()  # (keys, _Fetch)
         n_vote_launches = 0
@@ -595,26 +643,29 @@ class TTARunner:
                 results[k] = {"bboxes": vb[i][keep], "scores": vs[i][keep]}
 
         empty = (np.zeros((0, 4), np.float32), np.zeros(0, np.float32), np.zeros(0, bool))
-        for start in range(0, len(keys), vchunk):
-            ks = keys[start : start + vchunk]
+        for start in range(rank * per_rank, len(keys), vchunk):
+            ks = keys[start : start + per_rank]
             packed = [
                 tuple(np.concatenate([d[j] for d in per_key[k]]) for j in range(3))
                 if per_key[k] else empty
                 for k in ks
             ]
-            packed += [empty] * (vchunk - len(ks))
+            packed += [empty] * (per_rank - len(ks))
             vote_pending.append((ks, self._run_vote(*self._pack_vote_rows(packed))))
             n_vote_launches += 1
             while len(vote_pending) > max_pending:
                 drain_vote()
         while vote_pending:
             drain_vote()
-        # One count per bucket / vote launch: the dispatch counts that
-        # tta_batch and vote_batch trade against.
+        if n_dev > 1:
+            for theirs in gather_objects(results, mesh):
+                results.update(theirs)
+        # One count per bucket / vote launch of this rank: the dispatch
+        # counts that tta_batch and vote_batch trade against.
         self.last_run_stats = {
             "images": n_images,
             "variants": n_variants,
             "bucket_launches": n_bucket_launches,
             "vote_launches": n_vote_launches,
         }
-        return results
+        return {k: results[k] for k in keys}

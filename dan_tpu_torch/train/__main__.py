@@ -1,10 +1,18 @@
 """Train the detector with the PyTorch port (counterpart of
 scripts/train.py), on one device: the first CUDA card, or the CPU with
---device cpu (without a card and without that flag it raises).
+--device cpu (without a card and without that flag it raises).  Under
+torchrun it trains data-parallel, one rank a device (cuda:LOCAL_RANK, NCCL;
+--device cpu takes gloo), --batch_size being the global batch:
 
     python -m dan_tpu_torch.train --synthetic --steps 100 --model_dir /tmp/smoke
     python -m dan_tpu_torch.train --wider_root /data/widerface --model_dir /tmp/run
     python -m dan_tpu_torch.train ... --resume      # continue the newest checkpoint
+    torchrun --nproc_per_node 4 -m dan_tpu_torch.train --synthetic --model_dir /tmp/dp
+    torchrun --nproc_per_node 2 -m dan_tpu_torch.train ... --device cpu
+
+A resumed run, in either branch, sees the batches that the uninterrupted
+run would have seen from the restored step on.  Rank 0 logs and writes the
+checkpoints; every rank restores them.
 
 From random init the reference recipe (lr 1e-3, no warm-up, no clip)
 diverges within a few steps, so a --synthetic run defaults to
@@ -15,6 +23,7 @@ saves nothing.  Metrics go to stderr and to <model_dir>/train_metrics.jsonl.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -25,7 +34,9 @@ import time
 
 from dan_tpu_torch.config import default_config
 from dan_tpu_torch.ckpt import train_state as ckpt
+from dan_tpu_torch.data.pipeline import device_prefetch
 from dan_tpu_torch.device import resolve_device
+from dan_tpu_torch.parallel.mesh import place_replicated, shard_batch, torchrun_mesh
 from dan_tpu_torch.train.loop import create_train_state, train_step
 
 
@@ -44,7 +55,8 @@ def parse_args(argv=None):
     ap.add_argument("--checkpoint_every", type=int, default=None)
     ap.add_argument("--log_every", type=int, default=None)
     ap.add_argument("--device", default=None,
-                    help="torch device; default: the first CUDA card")
+                    help="torch device; default: the first CUDA card (under torchrun "
+                    "cuda:LOCAL_RANK); cpu under torchrun runs the ranks on gloo")
     return ap.parse_args(argv)
 
 
@@ -69,16 +81,18 @@ def make_config(args):
     return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **overrides))
 
 
-def batches(args, cfg, start: int):
-    """Host batches for steps start, start+1, ...; synthetic batch i is
-    seeded with seed + i, so a resumed run sees the batches it would have
-    seen without the interruption."""
+def batches(args, cfg, start: int, mesh=None):
+    """Host batches (this rank's rows of each global batch) for steps
+    start, start+1, ...; synthetic batch i is seeded with seed + i and the
+    WIDER pipeline starts at step `start`, so a resumed run sees the
+    batches it would have seen without the interruption."""
     if args.synthetic:
         from dan_tpu_torch.data.synthetic import synthetic_batch
 
         i = start
         while True:
-            yield synthetic_batch(cfg, cfg.train.batch_size, seed=args.seed + i)
+            batch = synthetic_batch(cfg, cfg.train.batch_size, seed=args.seed + i)
+            yield batch if mesh is None else shard_batch(batch, mesh)
             i += 1
     else:
         from dan_tpu_torch.data.pipeline import TrainPipeline
@@ -86,7 +100,11 @@ def batches(args, cfg, start: int):
 
         records = load_split(args.wider_root, "train")
         print(f"loaded {len(records)} train images", file=sys.stderr)
-        yield from TrainPipeline(records, cfg, seed=args.seed)
+        yield from TrainPipeline(
+            records, cfg, seed=args.seed, start_step=start,
+            rank=mesh.rank if mesh else 0, num_ranks=mesh.size if mesh else 1,
+        )
+
 
 
 def main(argv=None) -> int:
@@ -94,44 +112,59 @@ def main(argv=None) -> int:
     if not args.synthetic and not args.wider_root:
         raise SystemExit("pass --synthetic or --wider_root")
     cfg = make_config(args)
+    mesh = torchrun_mesh(cfg.mesh, args.device)
+    try:
+        return train(args, cfg, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def train(args, cfg, mesh) -> int:
     total_steps = args.steps or cfg.train.total_steps
     log_every = args.log_every or cfg.train.log_every
-    device = resolve_device(args.device)
-    print(f"device: {device}", file=sys.stderr)
+    device = mesh.device if mesh else resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0  # logs and writes
+    say = (lambda msg: print(msg, file=sys.stderr)) if lead else (lambda msg: None)
+    say(f"device: {device}" + (f", {mesh.size} ranks on {mesh.backend}" if mesh else ""))
 
     state = create_train_state(cfg, args.seed, device)
+    if mesh is not None:
+        place_replicated(state, mesh)
     if args.resume and ckpt.latest_step(args.model_dir) is not None:
         ckpt.restore(args.model_dir, state)
-        print(f"resumed from step {state.step}", file=sys.stderr)
+        say(f"resumed from step {state.step}")
 
-    os.makedirs(args.model_dir, exist_ok=True)
+    if lead:
+        os.makedirs(args.model_dir, exist_ok=True)
     t0 = time.time()
     t_last, n_last = time.perf_counter(), 0
-    data = batches(args, cfg, state.step)
-    with open(os.path.join(args.model_dir, "train_metrics.jsonl"), "a") as log:
+    data = device_prefetch(batches(args, cfg, state.step, mesh), device)
+    log_path = os.path.join(args.model_dir, "train_metrics.jsonl")
+    with open(log_path, "a") if lead else contextlib.nullcontext() as log:
         while state.step < total_steps:
-            metrics = train_step(state, next(data))
+            metrics = train_step(state, next(data), mesh=mesh)
             n_last += 1
             step = state.step
             if step % log_every == 0:
                 rec = {k: float(v) for k, v in metrics.items()}  # waits for the device
-                if not math.isfinite(rec["loss"]):
-                    print(
+                if not math.isfinite(rec["loss"]):  # the same on every rank
+                    say(
                         f"FATAL: non-finite loss at step {step}: training diverged. "
                         "From random init pass --warmup_steps 50 --grad_clip 10 "
-                        "(or a lower --lr).",
-                        file=sys.stderr,
+                        "(or a lower --lr)."
                     )
                     return 6
                 now = time.perf_counter()
                 rec["images_per_sec"] = n_last * cfg.train.batch_size / (now - t_last)
                 t_last, n_last = now, 0
-                log.write(json.dumps({"step": step, "time": round(time.time() - t0, 3), **rec}) + "\n")
-                log.flush()
-                print(f"step {step} " + " ".join(f"{k}={v:.5g}" for k, v in rec.items()),
-                      file=sys.stderr)
+                if lead:
+                    log.write(json.dumps({"step": step, "time": round(time.time() - t0, 3),
+                                          **rec}) + "\n")
+                    log.flush()
+                say(f"step {step} " + " ".join(f"{k}={v:.5g}" for k, v in rec.items()))
             if step % cfg.train.checkpoint_every == 0 or step == total_steps:
-                print(f"saving {ckpt.save(args.model_dir, step, state)}", file=sys.stderr)
+                say(f"saving {ckpt.save(args.model_dir, step, state, mesh)}")
     return 0
 
 

@@ -4,11 +4,13 @@ smooth-L1 on the positives (counterpart of dan_tpu/train/loss.py).
 Per image, the negatives are ranked by their CE loss and the hnm_ratio x
 #positives hardest are kept (hnm_min_negatives when an image has no
 positive); ties go to the lower anchor index.  The total is cls + alpha *
-loc, both normalised by the batch's positive count.
+loc, both normalised by the batch's positive count: under data
+parallelism the GLOBAL batch's, which the caller passes as `total_pos`, so
+that the ranks' losses (and gradients) sum to the one-device step's.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,25 +41,20 @@ def _select_topk_desc(values: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return sel & (k[:, None] > 0)
 
 
-def detection_loss(
-    cls_logits: torch.Tensor,
-    loc_preds: torch.Tensor,
-    cls_targets: torch.Tensor,
-    loc_targets: torch.Tensor,
-    config: TrainConfig,
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """cls_logits (B, A, 2) f32, loc_preds (B, A, 4) f32, cls_targets (B, A)
-    in {-1 ignore, 0 bg, 1 face}, loc_targets (B, A, 4) -> (total loss,
-    metrics {loss, cls_loss, loc_loss, num_pos, num_neg_selected}), all
-    0-d float32 tensors on the logits' device."""
-    positive = cls_targets == 1
-    negative = cls_targets == 0
+def class_ce(cls_logits: torch.Tensor, cls_targets: torch.Tensor) -> torch.Tensor:
+    """(B, A) softmax cross-entropy of each anchor against its label
+    (ignored anchors against background; the loss masks them out)."""
     labels = cls_targets.clamp_min(0)
-
     log_probs = F.log_softmax(cls_logits, dim=-1)
-    ce = -torch.where(labels == 1, log_probs[..., 1], log_probs[..., 0])
+    return -torch.where(labels == 1, log_probs[..., 1], log_probs[..., 0])
 
-    num_pos = positive.sum(dim=1)  # (B,)
+
+def hard_negatives(ce: torch.Tensor, cls_targets: torch.Tensor, config: TrainConfig) -> torch.Tensor:
+    """(B, A) mask of the negatives each image keeps: its hnm_ratio x
+    #positives hardest by `ce` (hnm_min_negatives when it has none), ties
+    to the lower anchor index."""
+    negative = cls_targets == 0
+    num_pos = (cls_targets == 1).sum(dim=1)  # (B,)
     # 3:1 negatives per positive; the floor only for images with none.
     wanted = torch.where(
         num_pos > 0,
@@ -66,20 +63,43 @@ def detection_loss(
     )
     num_neg_keep = torch.minimum(wanted, negative.sum(dim=1))
     neg_ce = torch.where(negative, ce.detach(), -torch.inf)
-    neg_selected = negative & _select_topk_desc(neg_ce, num_neg_keep)
+    return negative & _select_topk_desc(neg_ce, num_neg_keep)
 
-    total_pos = num_pos.sum().float().clamp_min(1.0)
-    cls_loss = torch.where(positive | neg_selected, ce, 0.0).sum() / total_pos
+
+def detection_loss(
+    cls_logits: torch.Tensor,
+    loc_preds: torch.Tensor,
+    cls_targets: torch.Tensor,
+    loc_targets: torch.Tensor,
+    config: TrainConfig,
+    total_pos: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """cls_logits (B, A, 2) f32, loc_preds (B, A, 4) f32, cls_targets (B, A)
+    in {-1 ignore, 0 bg, 1 face}, loc_targets (B, A, 4) -> (total loss,
+    metrics {loss, cls_loss, loc_loss, num_pos, num_neg_selected}), all
+    0-d float32 tensors on the logits' device.
+
+    total_pos: the positives of the global batch (a 0-d tensor) when these
+    rows are one rank's share; None: these rows' own.  The losses are
+    divided by max(total_pos, 1) and `num_pos` reports total_pos; the other
+    metrics are these rows' shares, which sum over the ranks."""
+    positive = cls_targets == 1
+    ce = class_ce(cls_logits, cls_targets)
+    neg_selected = hard_negatives(ce, cls_targets, config)
+
+    pos = positive.sum().float() if total_pos is None else total_pos.float()
+    norm = pos.clamp_min(1.0)
+    cls_loss = torch.where(positive | neg_selected, ce, 0.0).sum() / norm
 
     loc_l1 = smooth_l1(loc_preds - loc_targets).sum(dim=-1)
-    loc_loss = torch.where(positive, loc_l1, 0.0).sum() / total_pos
+    loc_loss = torch.where(positive, loc_l1, 0.0).sum() / norm
 
     total = cls_loss + config.loc_loss_weight * loc_loss
     metrics = {
         "loss": total.detach(),
         "cls_loss": cls_loss.detach(),
         "loc_loss": loc_loss.detach(),
-        "num_pos": num_pos.sum().float(),
+        "num_pos": pos,
         "num_neg_selected": neg_selected.sum().float(),
     }
     return total, metrics

@@ -47,8 +47,11 @@ def is_decayed(name: str) -> bool:
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (float32 tensors)."""
-    norms = torch.stack(torch._foreach_norm(grads))
+    """sqrt of the sum of squares of every element (float32 tensors).
+    Each tensor is summed in its contiguous layout: autograd may hand the
+    same gradient to two data-parallel ranks in different layouts, and a
+    norm summed in another order would clip the replicas apart."""
+    norms = torch.stack(torch._foreach_norm([g.contiguous() for g in grads]))
     return torch.sqrt(torch.sum(norms * norms))
 
 

@@ -92,6 +92,8 @@ def test_port_and_chip_smoke_import_with_dan_tpu_and_jax_blocked():
     whose finder refuses `dan_tpu`, `jax` and `jaxlib`."""
     mods = _port_modules()
     assert "dan_tpu_torch.eval.__main__" in mods and "dan_tpu_torch.data.pipeline" in mods
+    assert {"dan_tpu_torch.parallel.mesh", "dan_tpu_torch.parallel.spawn",
+            "dan_tpu_torch.tools.dryrun_multichip"} <= set(mods)
     code = (
         "import importlib, importlib.abc, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"

@@ -28,3 +28,42 @@ def test_the_iou_sources_share_one_header():
         assert "-fmad=false" in _cuda_build._flags(name)
     for name in ("phase_pool", "conv12_wgrad"):
         assert len(_cuda_build.sources(name)) == 1
+
+
+def test_two_processes_building_one_source_leave_one_whole_library(tmp_path):
+    """Ranks that find a library missing at once each compile it to a file
+    of their own and rename it into place: the library under the target
+    name is always whole, and nothing else is left behind.  A stand-in
+    nvcc writes 4 MB slowly, so the two builds overlap."""
+    import subprocess
+    import sys
+
+    bin_dir = tmp_path / "cuda" / "bin"
+    bin_dir.mkdir(parents=True)
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(
+        "#!/usr/bin/env python3\n"
+        "import sys, time\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "with open(out, 'wb') as f:\n"
+        "    for _ in range(16):\n"
+        "        f.write(b'x' * (1 << 18)); f.flush(); time.sleep(0.05)\n")
+    nvcc.chmod(0o755)
+    (tmp_path / "src").mkdir()
+    (tmp_path / "src" / "k.cu").write_text("int f();\n")
+    code = (
+        "import sys\n"
+        "from dan_tpu_torch.ops import _cuda_build as b\n"
+        f"b.CSRC, b.BUILD_DIR = {str(tmp_path / 'src')!r}, {str(tmp_path / 'build')!r}\n"
+        "b.build_all(['k'])\n"
+        "print(b.BUILDS['k'].so)\n"
+    )
+    env = dict(os.environ, CUDA_HOME=str(tmp_path / "cuda"),
+               PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    procs = [subprocess.Popen([sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for _ in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [e for _, e in outs]
+    (so,) = {o.strip() for o, _ in outs}
+    assert os.listdir(tmp_path / "build") == [os.path.basename(so)]
+    assert os.path.getsize(so) == 16 << 18
