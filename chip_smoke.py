@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Drive the PyTorch port's detect path, train step and TTA evaluation path
-on one CUDA card and check them.
+"""Drive the PyTorch port's detect path, train step, TTA evaluation path,
+data parallelism and int8 deployment on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -132,6 +132,36 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      min(cards, 4) cards with the same checks and images/s against one
      card, or one line saying why it did not run.
 
+ 16. int8 deployment (dan_tpu_torch/quant.py): calibrate on 8 bench images
+     and quantize the random-init detector; print the int8 kernel's ptxas
+     registers, spills and shared memory; hold the int8 convolution kernel
+     (csrc/conv_i8.cu) against its plain version at each of the forward's 18
+     layer shapes at batch 2, 640x640, on the s8 inputs of a real forward --
+     the s32 sum, the float32 and bf16 taps and the s8 output bit-identical,
+     and a second run bit-identical -- and on: batch 1; the unpacked path of
+     a 37x53 input (every body layer); an all-zero input; +-127 saturation
+     at fc6 (|acc| = 127 * 127 * 4608); a ragged M (63 pixels) and N (8
+     channels); each output mode alone.  The fused relu + quantize kernel
+     (csrc/quantize_i8.cu) against its plain version on the conv1_1' output
+     in bf16 and float32 and on pool1 of the odd input;
+ 17. the int8 bench path at batch 128 (normalize -> QuantizedDetector ->
+     postprocess_batch) beside the bf16 one, CUDA events after warm-up:
+     img/s, peak memory, the int8 logits' relative L2 against bf16; the
+     counts of the main path (every count set to 0 just before, read just
+     after) must be 18 conv_i8, 1 quantize_i8 and 1 NMS launch a step, every
+     NMS row on the tile scan; a profiler breakdown of one forward of each;
+     then each of the 18 convolutions at the bench shape beside its bound,
+     its plain version, torch._int_mm over its im2col (the yardstick,
+     checked equal to the kernel's s32 sum on its first chunk) and cuDNN's
+     bf16 convolution of the same shape; and the quantize kernel's time;
+ 18. `python -m dan_tpu_torch.tools.smoke_e2e --int8`'s main() at its
+     defaults (300 steps at batch 8, 640x640, then 24 held-out synthetic
+     images): the reference's gates (hard AP >= 0.5, int8 hard AP >= bf16
+     hard AP - 0.02) must pass; prints both APs, train img/s, the trained
+     model's NMS load (kept boxes an image, tiles a row) on the int8 and the
+     bf16 path, and the TTA AP and vote tiles on the same images (printed,
+     not gated).
+
 Phase 12's first half runs before phase 13, its real-data half after it.
 The line before the last is a JSON object describing each kernel, with the
 least time the card could take for this run's inputs (`bound_ms`); the last
@@ -169,11 +199,18 @@ from dan_tpu_torch.ops import (
     _cuda_build,
     bbox_vote_cuda,
     conv12_wgrad_cuda,
+    conv_i8_cuda,
     matching_cuda,
+    quantize_i8_cuda,
     nms_blocked_cuda,
     nms_cuda,
     phase_pool_cuda,
 )
+from dan_tpu_torch.ops.conv_i8 import conv_i8_epilogue_plain, conv_i8_plain, out_size
+from dan_tpu_torch.models.detector import compute_dtype
+from dan_tpu_torch.models.layers import max_pool
+from dan_tpu_torch.quant import QuantizedDetector, calibrate_act_scales
+from dan_tpu_torch.tools import smoke_e2e
 from dan_tpu_torch.ops.bbox_vote import bbox_vote_batched
 from dan_tpu_torch.ops.preprocess import sample_augment_batch, train_preprocess
 from dan_tpu_torch.train import __main__ as train_cli
@@ -211,6 +248,8 @@ PER_STEP = {"matcher": 1, "phase_pool_bwd": 1, "conv12_wgrad": 1}
 # The matcher's kernels: pass 1 (K3) is the first two, pass 2 (K4) the last.
 MATCHER_KERNELS = ("anchor_best_kernel", "gt_stats_kernel", "assign_kernel")
 TTA_SOURCES = ("bbox_vote", "nms_blocked")
+INT8_SOURCE = "conv_i8"
+QUANT_SOURCE = "quantize_i8"
 # (h, w) of the TTA run's images: sizes WIDER FACE has, reaching every
 # bucket class (640x480 takes the extra 2.0 scale; 1024x400 is under 0.42 MP,
 # so its 2.0 pass fills the 2048 bucket).
@@ -231,6 +270,7 @@ F32_LONE_BOXES = 0.01
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 # Phase 15: DP train steps and TTA images a leg; the tolerances of a
 # 2-rank step against one device in bf16 (the ranks' forward runs at batch
 # 16, whose convolutions may take other kernels than batch 32's): the loss
@@ -366,9 +406,13 @@ def device_ms(fn, iters, names):
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Equal bit for bit (float32 compared as int32: a NaN equals its copy)."""
-    if a.dtype == torch.float32:
-        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    """Equal bit for bit (floats compared as integers of their width: a NaN
+    equals its copy, -0 differs from +0)."""
+    if a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        as_int = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return torch.equal(a.view(as_int), b.view(as_int))
     return torch.equal(a, b)
 
 
@@ -533,7 +577,7 @@ def main() -> int:
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     _cuda_build.build_all(["nms"] + [src for _, src, _ in TRAIN_KERNELS.values()]
-                          + list(TTA_SOURCES))
+                          + list(TTA_SOURCES) + [INT8_SOURCE, QUANT_SOURCE])
     secs = _cuda_build.BUILDS["nms"].seconds
     log(f"phase 2: built all CUDA sources in {time.perf_counter() - t0:.3f} s; "
         f"{KERNEL_SOURCE} " + (f"in {secs:.3f} s" if secs is not None else "was already built"))
@@ -828,6 +872,13 @@ def main() -> int:
     # -- 15. data parallel ---------------------------------------------------
     dp_launches = phase15(cfg, tcfg, dev, smi)
 
+    # -- 16-18. int8 deployment -------------------------------------------------
+    det8, qdet, images8, i8_err, quant_err = phase16(cfg, dev)
+    i8 = phase17(cfg, dev, smi, det8, qdet, images8)
+    del det8, qdet, images8
+    torch.cuda.empty_cache()
+    phase18(dev, smi)
+
     n_rows, n_box = BATCH, post.pre_nms_topk
     # NMS: 20 bytes a box in, its rank out; for every selected box an IoU, a
     # threshold test and (the input need not be sorted) an argmax compare
@@ -907,6 +958,26 @@ def main() -> int:
          "bound_ms": tta_bounds["blocked"][0], "bound_by": tta_bounds["blocked"][1],
          "dependent_steps": tta_bounds["blocked"][2], "library_ms": None},
     ]
+    kernels.append(
+        {"name": "conv_i8", "route": "cuda", "source": f"dan_tpu_torch/csrc/{INT8_SOURCE}.cu",
+         "replaces": I8_REPLACES, "launches": i8["launches"],
+         "max_abs_err": max(i8_err, i8["err"]),
+         "ms": i8["ms"], "plain_ms": i8["plain"], "bound_ms": i8["bound"],
+         "bound_by": i8["bound_by"], "library_ms": i8["library"], "cudnn_bf16_ms": i8["cudnn"],
+         "ms_covers": f"the {I8_PER_FORWARD} convolutions of one int8 forward at batch {BATCH}, "
+                      "640x640, each timed alone; library_ms is torch._int_mm over each "
+                      "layer's im2col; bound_ms counts conv1_2' as the 3x3 conv it computes "
+                      "(the packed 2x2 form's zero taps left out)",
+         "launches_per_forward": i8["launches"] // i8["iters"],
+         "bench_ms": i8["ms_i8"], "bench_bf16_ms": i8["ms_bf"]})
+    kernels.append(
+        {"name": "quantize_i8", "route": "cuda", "source": f"dan_tpu_torch/csrc/{QUANT_SOURCE}.cu",
+         "replaces": "dan_tpu/quant.py:383-394 (no TPU kernel: XLA's fused relu + "
+                     "_quantize_act of conv1_1')",
+         "launches": i8["quant"]["launches"],
+         "max_abs_err": max(quant_err, i8["quant"]["err"]), "ms": i8["quant"]["ms"],
+         "plain_ms": i8["quant"]["plain"], "bound_ms": i8["quant"]["bound"][0],
+         "bound_by": i8["quant"]["bound"][1], "library_ms": None})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1122,6 +1193,12 @@ def phase10(cfg, dev, smi):
     log(f"  split: H2D + preprocess + match {split[:, 0].mean():.3f} ms, forward + backward "
         f"{split[:, 1].mean():.3f} ms, optimizer {split[:, 2].mean():.3f} ms; between steps "
         f"{gaps.mean():.3f} ms; peak device memory {peak:.2f} GiB")
+    t0 = time.perf_counter()
+    for b in fresh:
+        sample_augment_batch(b["seed"], cfg.preprocess)
+    log(f"  the augmentation draws on the host (sample_augment_batch, part of H2D + preprocess):"
+        f" {(time.perf_counter() - t0) * 1e3 / len(fresh):.3f} ms a batch of {TRAIN_BATCH} "
+        f"(host clock, mean of {len(fresh)})")
     log(f"  last step: {' '.join(f'{k}={v:.5g}' for k, v in m.items())}")
     if not all(np.isfinite(v) for v in m.values()):
         raise AssertionError("non-finite metrics")
@@ -2078,6 +2155,440 @@ def phase15(cfg, tcfg, dev, smi):
     if check.failed:
         raise AssertionError("phase 15: " + "; ".join(check.failed))
     return {"train": [r["launches"] for r in r2], "tta": [r["launches"] for r in t2]}
+
+
+
+# ---------------------------------------------------------------------------
+# int8 deployment: phases 16-18
+# ---------------------------------------------------------------------------
+
+# The 18 int8 convolutions of one forward: the packed conv1_2', then the body.
+I8_PER_FORWARD = 18
+CALIB_IMAGES = 8
+I8_REPLACES = "dan_tpu/quant.py:126 (no TPU kernel: XLA's s8 conv + the fused epilogue)"
+
+
+def i8_layers(qdet):
+    """(name, QuantConv) of the int8 convolutions in forward order."""
+    return [("conv1_2", qdet.conv12)] + list(qdet.body.items())
+
+
+def check_i8(x, k, deq, bias, inv, stride, dilation, pad, what, modes=False) -> int:
+    """The int8 kernel against its plain version on the same CUDA tensors:
+    the s32 sum, the float32 and bf16 taps and the s8 output bit-identical,
+    a second run bit-identical, and (modes) each output asked for alone the
+    same as together.  Returns max |acc|."""
+    acc = conv_i8_plain(x, k, stride, dilation, pad)
+    tap32, q = conv_i8_epilogue_plain(acc, deq, bias, inv, torch.float32)
+    run = lambda dt, **kw: conv_i8_cuda.conv_i8(  # noqa: E731
+        x, k, deq, bias, inv, stride, dilation, pad, dt, **kw)
+    a = run(torch.float32, with_acc=True)
+    b = run(torch.bfloat16)
+    again = run(torch.float32, with_acc=True)
+    torch.cuda.synchronize()
+    ok = (same_bits(a.acc, acc) and same_bits(a.tap, tap32)
+          and torch.equal(b.tap.view(torch.int16), tap32.to(torch.bfloat16).view(torch.int16))
+          and (q is None or (torch.equal(a.q, q) and torch.equal(b.q, q)))
+          and same_bits(again.acc, a.acc) and same_bits(again.tap, a.tap)
+          and (q is None or torch.equal(again.q, a.q)))
+    if modes:
+        alone = [conv_i8_cuda.conv_i8(x, k, deq, bias, None, stride, dilation, pad,
+                                      torch.float32).tap,
+                 conv_i8_cuda.conv_i8(x, k, deq, bias, None, stride, dilation, pad,
+                                      torch.bfloat16).tap,
+                 conv_i8_cuda.conv_i8(x, k, deq, bias, None, stride, dilation, pad,
+                                      with_acc=True).acc]
+        torch.cuda.synchronize()
+        ok = ok and same_bits(alone[0], a.tap) and torch.equal(alone[1], b.tap)
+        ok = ok and same_bits(alone[2], a.acc)
+        if inv is not None:
+            q_alone = conv_i8_cuda.conv_i8(x, k, deq, bias, inv, stride, dilation, pad).q
+            ok = ok and torch.equal(q_alone, a.q)
+    amax = int(acc.abs().max()) if acc.numel() else 0
+    err = max(int((a.acc.long() - acc.long()).abs().max()),
+              float((a.tap - tap32).abs().max())) if acc.numel() else 0
+    if not ok:
+        raise AssertionError(f"phase 16: conv_i8 kernel != plain on {what}")
+    sat = "" if q is None else (f", s8 at 127: {float((q == 127).float().mean()):.4f}, "
+                                f"at 0: {float((q == 0).float().mean()):.4f}")
+    log(f"  conv_i8 == plain bit for bit ({'each output mode alone too, ' if modes else ''}"
+        f"twice): {what}: x {tuple(x.shape)} k {tuple(k.shape)} stride {stride} dilation "
+        f"{dilation} pad {pad}, max |acc| {amax}{sat}")
+    return err
+
+
+def check_i8_layer(layer, q8, what, modes=False) -> int:
+    return check_i8(q8, layer.kq, layer.deq, layer.bias, layer.inv_next, layer.stride,
+                    layer.dilation, layer.padding_for(q8), what, modes)
+
+
+def check_quant(y, inv, what) -> int:
+    """The quantize kernel against its plain version: identical int8, and a
+    second run identical.  Returns max |kernel - plain|."""
+    want = quantize_i8_cuda.quantize_i8_plain(y, inv)
+    got = quantize_i8_cuda.quantize_i8(y, inv)
+    again = quantize_i8_cuda.quantize_i8(y, inv)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(again, got)):
+        raise AssertionError(f"quantize_i8 kernel != plain on {what}: "
+                             f"{int((got != want).sum())} of {got.numel()} differ")
+    log(f"  quantize_i8 == plain bit for bit (twice): {what}: y {tuple(y.shape)} {y.dtype}, "
+        f"s8 at 127: {float((got == 127).float().mean()):.4f}, at 0: "
+        f"{float((got == 0).float().mean()):.4f}")
+    return int((got.int() - want.int()).abs().max())
+
+
+def top_kernels(fn, n=10):
+    """The n CUDA kernels with the most device time in one call of fn()
+    (torch.profiler, after a warm call) -> ([(name, ms)], total ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"), key=lambda r: -r[1])
+    return rows[:n], sum(ms for _, ms in rows)
+
+
+def phase16(cfg, dev):
+    """The int8 kernels against their plain versions on the card.  Returns
+    the detector, the quantized detector and the bench images for phase 17,
+    and the largest difference from plain of conv_i8 and of quantize_i8."""
+    for src in (INT8_SOURCE, QUANT_SOURCE):
+        for line in _cuda_build.ptxas_summary(src):
+            log(f"  ptxas ({src}.cu): {line}")
+    log(f"  conv_i8 kernel: {conv_i8_cuda.smem_bytes()} bytes of dynamic shared memory a block "
+        "(the 4-stage ring of 128 x 64-byte A and B tiles), 256 threads")
+    secs = _cuda_build.BUILDS[INT8_SOURCE].seconds
+    size = cfg.model.image_size
+    det = Detector.from_random(SEED, cfg, dev)
+    rng = np.random.default_rng(SEED)
+    images_u8 = torch.from_numpy(
+        rng.integers(0, 255, (BATCH, size, size, 3), dtype=np.uint8)).to(dev)
+    dt = compute_dtype(cfg.model)
+    with torch.inference_mode():
+        x = normalize_image(images_u8[:CALIB_IMAGES].float(), cfg.preprocess).to(dt)
+    t0 = time.perf_counter()
+    scales = calibrate_act_scales(det.model, [x], cfg.model)
+    qdet = QuantizedDetector(det.model, scales).to(dev).eval()
+    torch.cuda.synchronize()
+    log(f"phase 16: csrc/conv_i8.cu " + (f"built in {secs:.3f} s" if secs is not None
+                                         else "was already built")
+        + f"; calibrated on {CALIB_IMAGES} bench images and quantized in "
+        f"{time.perf_counter() - t0:.3f} s")
+    try:
+        pooled = torch.nn.functional.max_pool2d(
+            torch.zeros((1, 8, 4, 4), dtype=torch.int8, device=dev), 2)
+        log(f"  F.max_pool2d takes int8 on the card ({pooled.dtype}); quant.max_pool_i8 "
+            "takes the max of four strided views all the same (one form for both devices)")
+    except RuntimeError as e:
+        log(f"  F.max_pool2d refuses int8 on the card ({str(e).splitlines()[0]}); "
+            "quant.max_pool_i8 takes the max of four strided views")
+    record, errs, q_errs = {}, [], []
+    with torch.inference_mode():
+        qdet.backbone(x[:2], record)
+        for name, layer in i8_layers(qdet):
+            errs.append(check_i8_layer(layer, record[name], f"{name} at batch 2, {size}x{size}"))
+        errs.append(check_i8_layer(qdet.body["conv3_1"], record["conv3_1"][:1].contiguous(),
+                                   "conv3_1 at batch 1"))
+        # The fused relu + quantize on the conv1_1' output, in bf16 and float32.
+        xn = x[:2].permute(0, 3, 1, 2)
+        o1_pre = nhwc(torch.nn.functional.conv2d(torch.nn.functional.pad(xn, (1, 2, 1, 2)),
+                                                 qdet.k1p.to(dt), qdet.b1.to(dt), stride=2))
+        q_errs.append(check_quant(o1_pre, qdet.inv_conv1_2, "conv1_1' output at batch 2"))
+        q_errs.append(check_quant(o1_pre.float(), qdet.inv_conv1_2,
+                                  "conv1_1' output at batch 2, float32"))
+        if not torch.equal(quantize_i8_cuda.quantize_i8(o1_pre, qdet.inv_conv1_2),
+                           record["conv1_2"]):
+            raise AssertionError("phase 16: the forward's conv1_2' input is not the quantize "
+                                 "of the conv1_1' output")
+        # An odd input: conv1 in the compute dtype, pool, quantize (no packed conv1_2').
+        odd = {}
+        qdet.backbone(x[:1, :37, :53], odd)
+        if "conv1_2" in odd or odd["conv2_1"].shape != (1, 19, 27, 64):
+            raise AssertionError(f"phase 16: the 37x53 input did not take the unpacked path: "
+                                 f"{ {k: tuple(v.shape) for k, v in odd.items()} }")
+        for name, layer in qdet.body.items():
+            errs.append(check_i8_layer(layer, odd[name],
+                                       f"{name} on the unpacked path of a 37x53 input"))
+        pool1 = nhwc(max_pool(qdet.conv1_2(qdet.conv1_1(x[:1, :37, :53].permute(0, 3, 1, 2)))))
+        q_errs.append(check_quant(pool1, qdet.inv_conv2_1, "pool1 of the 37x53 input"))
+        # An all-zero input, and each output mode alone.
+        errs.append(check_i8_layer(qdet.body["conv4_3"], torch.zeros_like(record["conv4_3"]),
+                                   "conv4_3 on an all-zero input", modes=True))
+        errs.append(check_i8_layer(qdet.body["conv4_3"], record["conv4_3"], "conv4_3",
+                                   modes=True))
+        # Saturation: x = 127 everywhere, k = +-127, so |acc| = 127 * 127 * 4608 inside.
+        fc6 = qdet.body["fc6"]
+        xs = torch.full_like(record["fc6"], 127)
+        ks = torch.full_like(fc6.kq, 127)
+        ks[1::2] = -127
+        errs.append(check_i8(xs, ks, fc6.deq, fc6.bias, fc6.inv_next, 1, fc6.dilation,
+                             fc6.padding_for(xs), "fc6 saturated (+-127)"))
+        # A ragged M (63 pixels) and N (8 channels), each output mode alone.
+        g = torch.Generator(device=dev).manual_seed(16)
+        xr = torch.randint(-127, 128, (1, 7, 9, 32), generator=g, device=dev).to(torch.int8)
+        kr = torch.randint(-127, 128, (8, 3, 3, 32), generator=g, device=dev).to(torch.int8)
+        v = lambda lo, hi: torch.empty(8, device=dev).uniform_(lo, hi, generator=g)  # noqa: E731
+        errs.append(check_i8(xr, kr, v(1e-4, 1e-3), v(-1, 1), v(1, 10), 1, 1, (1, 1, 1, 1),
+                             "ragged M = 63, N = 8", modes=True))
+    return det, qdet, images_u8, max(errs), max(q_errs)
+
+
+def im2col_i8(q8, kh, kw, stride, dilation, pad):
+    """(B, H, W, Ci) int8 -> the (B*Ho*Wo, kh*kw*Ci) int8 im2col, taps in
+    the kernel's (ky, kx, ci) order."""
+    pt, pb, pl, pr = pad
+    xp = torch.nn.functional.pad(q8, (0, 0, pl, pr, pt, pb))
+    ho = out_size(q8.shape[1], kh, stride, dilation, pt, pb)
+    wo = out_size(q8.shape[2], kw, stride, dilation, pl, pr)
+    cols = [xp[:, ky * dilation: ky * dilation + (ho - 1) * stride + 1: stride,
+               kx * dilation: kx * dilation + (wo - 1) * stride + 1: stride]
+            for ky in range(kh) for kx in range(kw)]
+    return torch.cat(cols, dim=-1).reshape(-1, kh * kw * q8.shape[3])
+
+
+def time_i8_layer(name, layer, q8, tap_dtype, smi, packed=False):
+    """One layer of the int8 forward at the bench shape: the kernel with the
+    forward's outputs, held bit for bit against the plain version (batch
+    chunks of 16) over the whole batch, its bound, the plain version's
+    time, torch._int_mm over the layer's im2col (chunks of 2^22 rows, the
+    yardstick; the port never calls it) and cuDNN's bf16 conv of the same
+    shape.  `packed`: the layer is the packed 2x2 conv1_2', whose bound
+    counts the work of the 3x3 conv it computes (9 of its 16 taps a phase
+    are zero by construction)."""
+    _, kh, kw, ci = layer.kq.shape
+    co = layer.kq.shape[0]
+    pad = layer.padding_for(q8)
+    inv = layer.inv_next
+    run = lambda: conv_i8_cuda.conv_i8(q8, layer.kq, layer.deq, layer.bias, inv,  # noqa: E731
+                                       layer.stride, layer.dilation, pad, tap_dtype)
+    out = run()
+    torch.cuda.synchronize()
+    ms = cuda_ms(run, 5)
+    b, ho, wo, _ = out.tap.shape if out.tap is not None else out.q.shape
+    m, kdim = b * ho * wo, kh * kw * ci
+    dense_ops = 2 * m * co * kdim
+    # conv1_2' at (2H, 2W): a 3x3 conv of Ci/4 -> Co/4 channels.
+    ops = 2 * b * 4 * q8.shape[1] * q8.shape[2] * (co // 4) * 9 * (ci // 4) if packed else dense_ops
+    out_bytes = m * co * ((2 if tap_dtype is not None else 0) + (1 if inv is not None else 0))
+    bnd = bound(q8.numel() + layer.kq.numel() + 12 * co + out_bytes, ops, PEAK_INT8)
+
+    def plain(i):
+        acc = conv_i8_plain(q8[i:i + 16], layer.kq, layer.stride, layer.dilation, pad)
+        return conv_i8_epilogue_plain(acc, layer.deq, layer.bias, inv, tap_dtype)
+
+    err = 0.0
+    for i in range(0, b, 16):
+        tap, q = plain(i)
+        if not ((tap is None or same_bits(out.tap[i:i + 16], tap))
+                and (q is None or same_bits(out.q[i:i + 16], q))):
+            raise AssertionError(f"phase 17: conv_i8 != plain on {name} at batch {b}, images "
+                                 f"{i}..{min(i + 16, b) - 1}")
+        if tap is not None:
+            err = max(err, float((out.tap[i:i + 16].float() - tap.float()).abs().max()))
+        if q is not None:
+            err = max(err, float((out.q[i:i + 16].int() - q.int()).abs().max()))
+    del tap, q
+    plain_ms = cuda_ms(lambda: [plain(i) for i in range(0, b, 16)], 1)
+    a = im2col_i8(q8, kh, kw, layer.stride, layer.dilation, pad)
+    bmat = layer.kq.reshape(co, kdim).t()
+    rows = 2**22
+    nb = min(b, -(-rows // (ho * wo)))
+    acc0 = conv_i8_cuda.conv_i8(q8[:nb], layer.kq, layer.deq, layer.bias, None, layer.stride,
+                                layer.dilation, pad, with_acc=True).acc.reshape(-1, co)[:rows]
+    chunk0 = torch._int_mm(a[:acc0.shape[0]], bmat)
+    if not torch.equal(chunk0, acc0):
+        raise AssertionError(f"phase 17: torch._int_mm on the im2col of {name} != the "
+                             "kernel's s32 sum")
+    del chunk0, acc0
+    lib_ms = cuda_ms(lambda: [torch._int_mm(a[i:i + rows], bmat) for i in range(0, m, rows)], 3)
+    del a
+    xb = torch.nn.functional.pad(q8.permute(0, 3, 1, 2).to(torch.bfloat16),
+                                 (pad[2], pad[3], pad[0], pad[1]))
+    xb = xb.contiguous(memory_format=torch.channels_last)
+    wb = layer.kq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    conv = lambda: torch.nn.functional.conv2d(xb, wb, stride=layer.stride,  # noqa: E731
+                                              dilation=layer.dilation)
+    conv()
+    cudnn_ms = cuda_ms(conv, 5)
+    del xb, out
+    work = (f"{ops / 1e12:.3f} T operations of the 3x3 conv it computes ({dense_ops / 1e12:.3f} T "
+            f"counting the packed form's zero taps, bound {dense_ops / PEAK_INT8 * 1e3:.4f} ms)"
+            if packed else f"{ops / 1e12:.3f} T operations")
+    log(f"  {name}: ({b}, {q8.shape[1]}, {q8.shape[2]}, {ci}) -> ({ho}, {wo}, {co}), K {kdim}: "
+        f"== plain bit for bit over all {b} images; kernel {ms:.4f} ms = "
+        f"{ops / ms / 1e9:.1f} TOPS of {work}, bound {bnd[0]:.4f} ms ({bnd[1]}), plain "
+        f"{plain_ms:.3f} ms, torch._int_mm {lib_ms:.4f} ms, cuDNN bf16 {cudnn_ms:.4f} ms ({smi})")
+    return {"ms": ms, "bound": bnd, "plain": plain_ms, "library": lib_ms, "cudnn": cudnn_ms,
+            "ops": ops, "err": err}
+
+
+def phase17(cfg, dev, smi, det, qdet, images_u8):
+    """The int8 bench path at batch 128 beside the bf16 one, counted; each
+    int8 kernel at the bench shapes held against its plain version."""
+    post, size = cfg.postprocess, cfg.model.image_size
+    anchors = det.anchors
+    nms_paths = []
+
+    def step(model):
+        with torch.inference_mode():
+            x = normalize_image(images_u8.float(), cfg.preprocess)
+            cls, loc = model(x)
+            out = postprocess_batch(cls, loc, anchors, cfg.anchors, post,
+                                    float(size), float(size))
+            nms_paths.append(nms_cuda.LAST_PATHS)
+            return out, cls, loc
+
+    for _ in range(2):
+        step(qdet)
+        step(det.model)
+    torch.cuda.synchronize()
+    iters = 10
+    # The main path, counted: every count set to 0 just before, read just after.
+    conv_i8_cuda.LAUNCHES = 0
+    quantize_i8_cuda.LAUNCHES = 0
+    nms_cuda.LAUNCHES = 0
+    nms_paths.clear()
+    torch.cuda.reset_peak_memory_stats()
+    ms_i8 = cuda_ms(lambda: step(qdet), iters)
+    peak_i8 = torch.cuda.max_memory_allocated() / 2**30
+    launches = {"conv_i8": conv_i8_cuda.LAUNCHES, "quantize_i8": quantize_i8_cuda.LAUNCHES,
+                "nms": nms_cuda.LAUNCHES}
+    rows = torch.cat(nms_paths)
+    torch.cuda.reset_peak_memory_stats()
+    ms_bf = cuda_ms(lambda: step(det.model), iters)
+    peak_bf = torch.cuda.max_memory_allocated() / 2**30
+    if launches != {"conv_i8": I8_PER_FORWARD * iters, "quantize_i8": iters, "nms": iters}:
+        raise AssertionError(f"phase 17: launches in {iters} int8 bench steps {launches}, "
+                             f"expected {I8_PER_FORWARD} conv_i8, 1 quantize_i8 and 1 NMS a step")
+    if not bool(rows.all()):
+        raise AssertionError(f"phase 17: {int((rows == 0).sum())} of {rows.numel()} NMS rows "
+                             "of the int8 bench steps took the argmax loop")
+    out_q, cls_q, loc_q = step(qdet)
+    out_f, cls_f, loc_f = step(det.model)
+    torch.cuda.synchronize()
+    for out in (out_q, out_f):
+        if not (torch.isfinite(out["bboxes"]).all() and torch.isfinite(out["scores"]).all()):
+            raise AssertionError("phase 17: non-finite bench-path output")
+    if not (torch.isfinite(cls_q).all() and torch.isfinite(loc_q).all()):
+        raise AssertionError("phase 17: non-finite int8 logits")
+    e_cls, e_loc = rel_l2(cls_q, cls_f), rel_l2(loc_q, loc_f)
+    n_q, n_f = out_q["valid"].sum(dim=1), out_f["valid"].sum(dim=1)
+    with torch.inference_mode():
+        x = normalize_image(images_u8.float(), cfg.preprocess)
+        fwd_q = cuda_ms(lambda: qdet(x), 5)
+        fwd_f = cuda_ms(lambda: det.model(x), 5)
+    log(f"phase 17: int8 bench path batch {BATCH} at {size}x{size}: {ms_i8:.3f} ms/batch = "
+        f"{BATCH / ms_i8 * 1e3:.1f} img/s, peak {peak_i8:.2f} GiB; bf16 {ms_bf:.3f} ms/batch = "
+        f"{BATCH / ms_bf * 1e3:.1f} img/s, peak {peak_bf:.2f} GiB; int8 / bf16 = "
+        f"{ms_bf / ms_i8:.3f}x img/s ({smi})")
+    log(f"  forward alone: int8 {fwd_q:.3f} ms, bf16 {fwd_f:.3f} ms; launches in {iters} int8 "
+        f"steps: conv_i8 {launches['conv_i8']}, quantize_i8 {launches['quantize_i8']}, NMS "
+        f"{launches['nms']}, all {rows.numel()} NMS "
+        f"rows on the tile scan; int8 logits vs bf16 rel L2 cls {e_cls:.4e} loc {e_loc:.4e}; "
+        f"valid detections an image int8 {int(n_q.min())}..{int(n_q.max())}, bf16 "
+        f"{int(n_f.min())}..{int(n_f.max())}")
+    del out_q, out_f, cls_q, loc_q, cls_f, loc_f
+    with torch.inference_mode():
+        for label, model in (("int8", qdet), ("bf16", det.model)):
+            top, total = top_kernels(lambda: model(x))
+            log(f"  profiler, one {label} forward: {total:.3f} ms of device kernel time; top: "
+                + "; ".join(f"{name[:70]} {ms:.3f}" for name, ms in top))
+        # The fused relu + quantize at the bench shape.
+        dt = compute_dtype(cfg.model)
+        xn = x.to(dt).permute(0, 3, 1, 2)
+        o1_pre = nhwc(torch.nn.functional.conv2d(torch.nn.functional.pad(xn, (1, 2, 1, 2)),
+                                                 qdet.k1p.to(dt), qdet.b1.to(dt), stride=2))
+        inv = qdet.inv_conv1_2
+        q_err = check_quant(o1_pre, inv, f"conv1_1' output at batch {BATCH}, {size}x{size}")
+        qt = turns(lambda: quantize_i8_cuda.quantize_i8(o1_pre, inv),
+                   lambda: quantize_i8_cuda.quantize_i8_plain(o1_pre, inv))
+        qb = bound(o1_pre.numel() * (o1_pre.element_size() + 1) + inv.numel() * 4,
+                   2 * o1_pre.numel(), PEAK_F32)
+        log(f"phase 17: quantize_i8 at {tuple(o1_pre.shape)} {o1_pre.dtype}: kernel "
+            f"{qt['kernel']:.4f} ms, plain {qt['plain']:.3f} ms, bound {qb[0]:.4f} ms ({qb[1]}) "
+            f"({smi})")
+        del o1_pre, xn
+    # Each layer at the bench shape, on its own inputs from one int8 forward.
+    record = {}
+    with torch.inference_mode():
+        qdet.backbone(x, record)
+        del x
+        dt = compute_dtype(cfg.model)
+        taps = {name for name, _, _, is_tap, _ in qdet.plan if is_tap}
+        log(f"phase 17: the {I8_PER_FORWARD} int8 convolutions at batch {BATCH}, {size}x{size}:")
+        layers = {name: time_i8_layer(name, layer, record.pop(name),
+                                      dt if name in taps else None, smi,
+                                      packed=name == "conv1_2")
+                  for name, layer in i8_layers(qdet)}
+    tot = {k: sum(v[k] for v in layers.values())
+           for k in ("ms", "plain", "cudnn", "ops", "library")}
+    tot["err"] = max(v["err"] for v in layers.values())
+    by_ops = sum(v["bound"][0] for v in layers.values() if v["bound"][1] == "operations")
+    tot["bound"] = sum(v["bound"][0] for v in layers.values())
+    tot["bound_by"] = "operations" if by_ops >= tot["bound"] / 2 else "bytes"
+    log(f"  sum of the {I8_PER_FORWARD}: kernel {tot['ms']:.3f} ms "
+        f"({tot['ops'] / tot['ms'] / 1e9:.1f} TOPS for {tot['ops'] / 1e12:.2f} T operations), "
+        f"bound {tot['bound']:.3f} ms ({tot['bound_by']}), plain {tot['plain']:.1f} ms, "
+        f"torch._int_mm {tot['library']:.3f} ms, cuDNN bf16 {tot['cudnn']:.3f} ms ({smi})")
+    return {"launches": launches["conv_i8"], "iters": iters, "ms_i8": ms_i8, "ms_bf": ms_bf,
+            "quant": {"launches": launches["quantize_i8"], "ms": qt["kernel"],
+                      "plain": qt["plain"], "bound": qb, "err": q_err}, **tot}
+
+
+def phase18(dev, smi):
+    """scripts/smoke_e2e.py's recipe through the port's tool, with --int8,
+    and the trained model's NMS and vote load."""
+    t0 = time.perf_counter()
+    run = smoke_e2e.run(smoke_e2e.parse_args(["--int8"]))
+    rc = smoke_e2e.gates(run)
+    aps = run["aps"]
+    base, q = aps["bfloat16"], aps["int8"]
+    log(f"phase 18: smoke_e2e (300 steps at batch 8, 640x640, bf16, --int8) rc {rc} in "
+        f"{time.perf_counter() - t0:.1f} s; train {run['train_img_s']:.1f} img/s (host clock, "
+        f"with the host's synthetic batches) ({smi})")
+    log(f"  AP on 24 held-out images: bf16 easy {base['easy']:.4f} medium {base['medium']:.4f} "
+        f"hard {base['hard']:.4f}; int8 easy {q['easy']:.4f} medium {q['medium']:.4f} hard "
+        f"{q['hard']:.4f}; int8 - bf16 hard {q['hard'] - base['hard']:+.4f} (gates: hard >= "
+        f"{smoke_e2e.MIN_HARD_AP}, int8 >= bf16 - {smoke_e2e.MAX_INT8_DROP})")
+    det = run["detector"]
+    items = run["eval_set"]
+    load = {}
+    for mode in ("int8", "bf16"):
+        kept, tiles = [], []
+        for _, img in items:
+            kept.append(len(det.detect(img)["scores"]))
+            tiles.append(int(nms_cuda.LAST_TILES.max()))
+        load[mode] = (kept, tiles)
+        det.dequantize()
+    for mode, (kept, tiles) in load.items():
+        log(f"  trained model's NMS load ({mode}, detect() at B = 1, no score threshold): kept "
+            f"boxes an image {min(kept)}..{max(kept)} (mean {np.mean(kept):.1f}), tiles a row "
+            f"{min(tiles)}..{max(tiles)}")
+    det.warmup_tta([im.shape[:2] for _, im in items], 16, 128)
+    t0 = time.perf_counter()
+    res = det.detect_tta_dataset(items, 16, 128)
+    torch.cuda.synchronize()
+    tta_s = time.perf_counter() - t0
+    vote_tiles = bbox_vote_cuda.LAST_TILES
+    preds = {k: np.concatenate([v["bboxes"], v["scores"][:, None]], axis=-1).astype(np.float64)
+             for k, v in res.items()}
+    tta_aps = evaluate_widerface(preds, run["gts"])
+    log(f"  TTA (detect_tta_dataset, bf16) on the same images, printed, not gated: easy "
+        f"{tta_aps['easy']:.4f} medium {tta_aps['medium']:.4f} hard {tta_aps['hard']:.4f} in "
+        f"{tta_s:.3f} s; kept boxes an image {min(len(v['scores']) for v in res.values())}.."
+        f"{max(len(v['scores']) for v in res.values())}; the last vote launch's tiles a row "
+        f"{int(vote_tiles.min())}..{int(vote_tiles.max())}")
+    if rc != 0 or not (base["hard"] >= smoke_e2e.MIN_HARD_AP
+                       and q["hard"] >= base["hard"] - smoke_e2e.MAX_INT8_DROP):
+        raise AssertionError(f"phase 18: smoke_e2e failed the reference's gates (rc {rc}): "
+                             f"bf16 hard {base['hard']:.4f}, int8 hard {q['hard']:.4f}")
+    return {"aps": aps, "tta_aps": tta_aps}
 
 
 if __name__ == "__main__":

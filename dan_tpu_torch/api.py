@@ -5,6 +5,7 @@ detection dict out.
     out = det.detect(image_rgb_uint8)          # (H, W, 3), any size
     out["bboxes"], out["scores"]               # pixels of the input image
     out = det.detect_tta(image_rgb_uint8)      # pyramid + flip + bbox-vote
+    det.quantize_int8(calib_images)            # int8 body from now on (quant.py)
 
 Every constructor takes `device`; the default is the first CUDA card, and
 without one it raises unless `device="cpu"` is passed.
@@ -14,13 +15,16 @@ of config.tta.buckets that holds it), squash-resized on the device to the
 network input, run through the model, decoded, filtered and NMS'd, and its
 boxes are scaled back to the image's own pixels.  On a CUDA device the NMS
 is the CUDA kernel of ops/nms_cuda.py, and the TTA path's fusion the one of
-ops/bbox_vote_cuda.py.
+ops/bbox_vote_cuda.py.  After `quantize_int8` the detect path runs the
+int8 body of quant.py (its convolutions the kernel of ops/conv_i8_cuda.py);
+the TTA path stays in the compute dtype.
 
 `warmup_tta` and `detect_tta_dataset` take a `mesh` (dan_tpu_torch.parallel)
 to share a dataset over ranks; each rank builds its Detector on mesh.device.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -32,10 +36,11 @@ from dan_tpu_torch.ckpt.bridge import params_from_jax
 from dan_tpu_torch.ckpt.train_state import load_model_weights
 from dan_tpu_torch.device import resolve_device
 from dan_tpu_torch.eval.tta import TTARunner
-from dan_tpu_torch.models.detector import DANDetector
+from dan_tpu_torch.models.detector import DANDetector, compute_dtype
 from dan_tpu_torch.ops.postprocess import postprocess_batch
 from dan_tpu_torch.ops.squash import eval_preprocess
 from dan_tpu_torch.parallel.mesh import Mesh
+from dan_tpu_torch.quant import QuantizedDetector, calibrate_act_scales
 
 
 class Detector:
@@ -45,6 +50,8 @@ class Detector:
         self.config = config
         self.device = resolve_device(device)
         self._tta_runner: Optional[TTARunner] = None
+        self._quant: Optional[QuantizedDetector] = None
+        self._tta_quant_warned = False
         self.model = model.to(self.device).eval()
         size = config.model.image_size
         self.anchors = generate_anchors(config.anchors, size, size, self.device)
@@ -104,6 +111,28 @@ class Detector:
                 return b
         return -(-m // 128) * 128  # round up to 128 for outsized inputs
 
+    @staticmethod
+    def _pack_canvases(images, c: int):
+        """Images, each into the top-left of a (c, c) uint8 canvas ->
+        (canvases (B, c, c, 3), heights (B,), widths (B,) float32)."""
+        n = len(images)
+        canvases = np.zeros((n, c, c, 3), np.uint8)
+        hs = np.zeros((n,), np.float32)
+        ws = np.zeros((n,), np.float32)
+        for i, im in enumerate(images):
+            h, w = im.shape[:2]
+            canvases[i, :h, :w] = im
+            hs[i], ws[i] = h, w
+        return canvases, hs, ws
+
+    def _preprocess(self, canv: torch.Tensor, h_t: torch.Tensor, w_t: torch.Tensor):
+        """(B, C, C, 3) uint8 canvases on the device -> normalized network
+        inputs (B, S, S, 3) float32."""
+        size, prep = self.config.model.image_size, self.config.preprocess
+        return torch.stack(
+            [eval_preprocess(canv[i], h_t[i], w_t[i], size, prep) for i in range(len(canv))]
+        )
+
     @torch.inference_mode()
     def _detect_canvases(self, canvases: np.ndarray, hs: np.ndarray, ws: np.ndarray):
         """(B, C, C, 3) uint8 canvases + true extents -> batched detection
@@ -114,13 +143,9 @@ class Detector:
         canv = torch.from_numpy(canvases).to(dev)
         h_t = torch.from_numpy(hs).to(dev)
         w_t = torch.from_numpy(ws).to(dev)
-        imgs = torch.stack(
-            [
-                eval_preprocess(canv[i], h_t[i], w_t[i], size, cfg.preprocess)
-                for i in range(len(canvases))
-            ]
-        )
-        cls_logits, loc_preds = self.model(imgs)
+        imgs = self._preprocess(canv, h_t, w_t)
+        model = self._quant if self._quant is not None else self.model
+        cls_logits, loc_preds = model(imgs)
         det = postprocess_batch(
             cls_logits, loc_preds, self.anchors, cfg.anchors,
             cfg.postprocess, float(size), float(size),
@@ -151,17 +176,10 @@ class Detector:
         c = self._canvas_for(
             max(im.shape[0] for im in images), max(im.shape[1] for im in images)
         )
-        n = len(images)
-        canvases = np.zeros((n, c, c, 3), np.uint8)
-        hs = np.zeros((n,), np.float32)
-        ws = np.zeros((n,), np.float32)
-        for i, im in enumerate(images):
-            h, w = im.shape[:2]
-            canvases[i, :h, :w] = im
-            hs[i], ws[i] = h, w
-        det = {k: v.cpu().numpy() for k, v in self._detect_canvases(canvases, hs, ws).items()}
+        det = {k: v.cpu().numpy()
+               for k, v in self._detect_canvases(*self._pack_canvases(images, c)).items()}
         out = []
-        for i in range(n):
+        for i in range(len(images)):
             keep = det["valid"][i]
             if score_threshold is not None:
                 keep = keep & (det["scores"][i] >= score_threshold)
@@ -170,13 +188,57 @@ class Detector:
 
     def warmup(self, buckets=None) -> None:
         """Run one detect per canvas bucket on a blank canvas, so that the
-        first request pays no kernel build or library autotuning."""
+        first request pays no kernel build or library autotuning (on the
+        int8 path after quantize_int8)."""
         for c in buckets or self.config.tta.buckets:
             self._detect_canvases(
                 np.zeros((1, c, c, 3), np.uint8),
                 np.full((1,), c, np.float32),
                 np.full((1,), c, np.float32),
             )
+
+    # -- int8 deployment -------------------------------------------------------
+
+    @torch.inference_mode()
+    def quantize_int8(self, calib_images, batch_size: int = 8) -> Dict[str, np.ndarray]:
+        """Post-training-quantize the detect path to an int8 body (quant.py).
+
+        calib_images: (H, W, 3) uint8 or float RGB images representative of
+        the deployment (8-64 is typical for absmax calibration).  Each goes
+        through the detect path's own preprocess, in batches of batch_size
+        (a short last batch repeats its last image: duplicates leave an
+        absmax unchanged).  Returns the activation scales.  detect(),
+        detect_batch() and warmup() run the int8 body from the next call on;
+        the TTA path stays in the compute dtype and detect_tta() warns once.
+        Call again to re-calibrate, dequantize() to go back."""
+        imgs = [self._check_image(im) for im in calib_images]
+        if not imgs:
+            raise ValueError("quantize_int8 needs at least one calibration image")
+        c = self._canvas_for(max(im.shape[0] for im in imgs), max(im.shape[1] for im in imgs))
+        dt = compute_dtype(self.config.model)
+
+        def batches():
+            for i in range(0, len(imgs), batch_size):
+                chunk = imgs[i : i + batch_size]
+                chunk = chunk + [chunk[-1]] * (batch_size - len(chunk))
+                canv, hs, ws = (torch.from_numpy(a).to(self.device)
+                                for a in self._pack_canvases(chunk, c))
+                yield self._preprocess(canv, hs, ws).to(dt)
+
+        scales = calibrate_act_scales(self.model, batches(), self.config.model)
+        self._quant = QuantizedDetector(self.model, scales).to(self.device).eval()
+        self._tta_quant_warned = False
+        return scales
+
+    def dequantize(self) -> None:
+        """Back to the compute-dtype detect path after quantize_int8()."""
+        self._quant = None
+
+    def _warn_tta_quant(self) -> None:
+        if self._quant is not None and not self._tta_quant_warned:
+            warnings.warn("Detector is int8-quantized but the TTA path always runs in the "
+                          "compute dtype (accuracy mode); detect()/detect_batch() stay int8.")
+            self._tta_quant_warned = True
 
     # -- test-time augmentation ------------------------------------------------
 
@@ -197,6 +259,7 @@ class Detector:
         --vote_batch; None = TTARunner's defaults) and the mesh the dataset
         run will take.  Returns the number of shapes warmed
         (TTARunner.warmup)."""
+        self._warn_tta_quant()
         return self._get_tta_runner().warmup(
             sizes,
             batch_per_device=(
@@ -215,6 +278,7 @@ class Detector:
         accuracy-mode eval path), same detection dict as detect().  The
         TTARunner is cached on the Detector; for dataset-scale work use
         detect_tta_dataset / warmup_tta."""
+        self._warn_tta_quant()
         out = self._get_tta_runner().detect_tta(self._check_image(image))
         if score_threshold is not None:
             keep = out["scores"] >= score_threshold

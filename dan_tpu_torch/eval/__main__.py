@@ -6,6 +6,7 @@ the CPU with --device cpu.
     python -m dan_tpu_torch.eval --wider_root /data/widerface --ckpt /path/run \\
         --output_dir /tmp/preds [--gt_mats /data/eval_tools/ground_truth]
     python -m dan_tpu_torch.eval --score_only --pred_dir /tmp/preds ...
+    python -m dan_tpu_torch.eval --wider_root ... --no_tta --int8 --calib 16
     torchrun --nproc_per_node 4 -m dan_tpu_torch.eval --wider_root ... --output_dir ...
 
 Under torchrun every rank (cuda:LOCAL_RANK on NCCL, or the CPU on gloo with
@@ -15,6 +16,10 @@ scores AP.
 
 --ckpt is a checkpoint of `python -m dan_tpu_torch.train` (one step file or
 a model_dir); without it the weights are random and a warning says so.
+--int8 (with --no_tta) quantizes the detect path first
+(Detector.quantize_int8), calibrated on the first --calib images; under
+torchrun every rank calibrates on the same images, so the ranks stay
+replicas.
 Progress and statistics go to stderr; the last line of stdout is
 
     WIDER FACE <split> AP  easy=...  medium=...  hard=...
@@ -54,6 +59,12 @@ def parse_args(argv=None):
     ap.add_argument("--max_pending", type=int, default=TTARunner.DEFAULT_MAX_PENDING,
                     help="launches kept un-fetched before the oldest is drained "
                     "(TTARunner.run_dataset max_pending)")
+    ap.add_argument("--int8", action="store_true",
+                    help="post-training-quantize the detect path to an int8 body "
+                    "(Detector.quantize_int8) before evaluating; requires --no_tta "
+                    "(the TTA path runs in the compute dtype)")
+    ap.add_argument("--calib", type=int, default=8,
+                    help="with --int8: calibrate the activation scales on the first N images")
     ap.add_argument("--limit", type=int, default=None, help="eval first N images")
     ap.add_argument("--score_only", action="store_true",
                     help="skip inference, read --pred_dir")
@@ -162,6 +173,15 @@ def infer(args, records, mesh=None):
         det = Detector.from_random(device=device)
     print(f"device: {det.device}" + (f", rank {mesh.rank} of {mesh.size} on {mesh.backend}"
                                      if mesh else ""), file=sys.stderr)
+    if args.int8:
+        from dan_tpu_torch.data.widerface import load_image_rgb
+
+        n_cal = max(1, min(args.calib, len(records)))
+        t_q = time.time()
+        det.quantize_int8([load_image_rgb(r.path) for r in records[:n_cal]],
+                          batch_size=min(n_cal, 8))
+        print(f"[int8] calibrated on {n_cal} images + quantized in {time.time() - t_q:.1f}s",
+              file=sys.stderr)
     t0 = time.time()
     if args.no_tta:
         share = records if mesh is None else records[mesh.rank::mesh.size]
@@ -201,6 +221,8 @@ def main(argv=None) -> int:
     else:
         if not records:
             ap.error("--wider_root is required unless --score_only")
+        if args.int8 and not args.no_tta:
+            ap.error("--int8 requires --no_tta (the TTA path runs in the compute dtype)")
         mesh = torchrun_mesh(default_config().mesh, args.device)
         try:
             predictions = infer(args, records, mesh)

@@ -39,6 +39,8 @@ EXTRA_FLAGS = {
     "matching": ("-fmad=false",),
     "bbox_vote": ("-fmad=false",),
     "nms_blocked": ("-fmad=false",),
+    "conv_i8": ("-fmad=false",),
+    "quantize_i8": ("-fmad=false",),
 }
 
 

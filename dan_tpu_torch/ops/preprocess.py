@@ -9,8 +9,9 @@ package and applies them with two matrix products.  `F.interpolate` has no
 way to clamp at a region narrower than its input.
 
 The train stage takes its random numbers as data (`AugmentDraws`, seven
-scalars an image, drawn on the host by `sample_augment`), so that a test
-can hand the port the JAX package's own draws.  Divisions by a constant
+scalars an image, drawn on the host by `sample_augment_batch` from each image's
+seed with the JAX package's generator, ops/threefry.py), so the port draws
+the JAX package's numbers and a test can also hand it any others.  Divisions by a constant
 divide by a tensor: on a CUDA tensor PyTorch turns `x / 255.0` into a
 multiplication by the rounded reciprocal, which is not IEEE division.
 """
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from dan_tpu_torch.config import PreprocessConfig
+from dan_tpu_torch.ops import threefry
 
 
 def normalize_image(x: torch.Tensor, cfg: PreprocessConfig) -> torch.Tensor:
@@ -144,9 +146,9 @@ REFERENCE_ORDERINGS = (
 
 
 class AugmentDraws(NamedTuple):
-    """The random draws of the train preprocess: Python scalars for one
-    image (`sample_augment`), (B,) CPU tensors for a batch
-    (`sample_augment_batch`)."""
+    """The random draws of the train preprocess: (B,) CPU tensors for a
+    batch (`sample_augment_batch`), or scalars for one image (`stack_draws`
+    makes a batch of those)."""
 
     delta_b: object  # brightness delta
     f_sat: object  # saturation factor
@@ -155,25 +157,6 @@ class AugmentDraws(NamedTuple):
     on: object  # colour distortion applied
     order: object  # index into REFERENCE_ORDERINGS ('reference' order only)
     flip: object  # horizontal flip
-
-
-def sample_augment(generator: torch.Generator, cfg: PreprocessConfig) -> AugmentDraws:
-    """One image's draws, from the same distributions as the JAX package's
-    jax.random calls (which give other numbers from the same seed)."""
-    u = torch.rand(7, generator=generator, dtype=torch.float64).tolist()
-
-    def uniform(x, lo, hi):
-        return float(np.float32(lo + (hi - lo) * x))
-
-    return AugmentDraws(
-        delta_b=uniform(u[1], -cfg.brightness_max_delta, cfg.brightness_max_delta),
-        f_sat=uniform(u[2], *cfg.saturation_range),
-        delta_h=uniform(u[3], -cfg.hue_max_delta, cfg.hue_max_delta),
-        f_con=uniform(u[4], *cfg.contrast_range),
-        on=u[0] < cfg.color_distort_prob,
-        order=min(int(u[5] * len(REFERENCE_ORDERINGS)), len(REFERENCE_ORDERINGS) - 1),
-        flip=u[6] < cfg.flip_prob,
-    )
 
 
 def stack_draws(draws: Sequence[AugmentDraws]) -> AugmentDraws:
@@ -189,10 +172,33 @@ def stack_draws(draws: Sequence[AugmentDraws]) -> AugmentDraws:
 
 
 def sample_augment_batch(seeds, cfg: PreprocessConfig) -> AugmentDraws:
-    """The draws of a batch, image b's from a generator seeded with
-    seeds[b] (the host batch's `seed` entry)."""
-    return stack_draws(
-        [sample_augment(torch.Generator().manual_seed(int(s)), cfg) for s in seeds]
+    """The draws of a batch, image b's from seeds[b] (the host batch's
+    `seed` entry): the numbers the JAX package draws from
+    jax.random.PRNGKey(seed) (dan_tpu/train/loop.py and ops/preprocess.py's
+    train_preprocess_one / color_distort).  The key splits into colour and
+    flip keys, the colour key into the gate and four strengths (and the
+    ordering in 'reference' order), through the numpy threefry of
+    ops/threefry.py, one hash a draw for the whole batch."""
+    keys = threefry.prng_key(np.asarray(seeds, np.int64).reshape(-1))
+    k_color, k_flip = threefry.split(keys)
+    if cfg.color_distort_order == "reference":
+        k_gate, k1, k2, k3, k4, k_order = threefry.split(k_color, 6)
+        order = threefry.randint(k_order, 0, len(REFERENCE_ORDERINGS))
+    else:
+        k_gate, k1, k2, k3, k4 = threefry.split(k_color, 5)
+        order = np.zeros(np.shape(keys[1]), np.int64)
+
+    def uniform(k, lo, hi):
+        return torch.from_numpy(threefry.uniform(k, lo, hi))
+
+    return AugmentDraws(
+        delta_b=uniform(k1, -cfg.brightness_max_delta, cfg.brightness_max_delta),
+        f_sat=uniform(k2, *cfg.saturation_range),
+        delta_h=uniform(k3, -cfg.hue_max_delta, cfg.hue_max_delta),
+        f_con=uniform(k4, *cfg.contrast_range),
+        on=torch.from_numpy(threefry.bernoulli(k_gate, cfg.color_distort_prob)),
+        order=torch.from_numpy(order),
+        flip=torch.from_numpy(threefry.bernoulli(k_flip, cfg.flip_prob)),
     )
 
 

@@ -28,7 +28,8 @@ place: the model's parameters, the momentum buffers and the step count.
 The host batch is the train-pipeline contract of dan_tpu/data/synthetic.py
 and dan_tpu/data/pipeline.py (numpy arrays: canvas, crop_x0, crop_y0,
 crop_size, boxes, mask, seed).  The per-image augmentation draws are taken
-on the host from generators seeded with the batch's `seed`.
+on the host from the batch's `seed`, as the JAX package's
+jax.random.PRNGKey(seed) draws them (ops/threefry.py).
 """
 from __future__ import annotations
 

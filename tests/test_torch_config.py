@@ -94,6 +94,9 @@ def test_port_and_chip_smoke_import_with_dan_tpu_and_jax_blocked():
     assert "dan_tpu_torch.eval.__main__" in mods and "dan_tpu_torch.data.pipeline" in mods
     assert {"dan_tpu_torch.parallel.mesh", "dan_tpu_torch.parallel.spawn",
             "dan_tpu_torch.tools.dryrun_multichip"} <= set(mods)
+    assert {"dan_tpu_torch.quant", "dan_tpu_torch.ops.conv_i8", "dan_tpu_torch.ops.conv_i8_cuda",
+            "dan_tpu_torch.ops.quantize_i8_cuda", "dan_tpu_torch.ops.threefry",
+            "dan_tpu_torch.tools.smoke_e2e"} <= set(mods)
     code = (
         "import importlib, importlib.abc, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"

@@ -131,6 +131,23 @@ def test_cli_no_tta_on_the_mini_fixture(tmp_path):
     assert len(written) == 2 and all(p.shape[1] == 5 for p in written.values())
 
 
+def test_cli_int8_on_the_mini_fixture(tmp_path):
+    """--int8 calibrates on the first --calib images, then evaluates the
+    int8 detect path (the plain int8 convolution on the CPU)."""
+    proc = _cli("--wider_root", FIX, "--output_dir", str(tmp_path / "out"), "--limit", "2",
+                "--no_tta", "--int8", "--calib", "2", "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "[int8] calibrated on 2 images" in proc.stderr
+    assert proc.stdout.strip().splitlines()[-1].startswith("WIDER FACE val AP  easy=")
+    written = port_writer.load_detection_dir(str(tmp_path / "out"))
+    assert len(written) == 2 and all(p.shape[1] == 5 for p in written.values())
+
+
+def test_cli_int8_requires_no_tta():
+    proc = _cli("--wider_root", FIX, "--limit", "1", "--int8", "--device", "cpu", timeout=300)
+    assert proc.returncode == 2 and "--int8 requires --no_tta" in proc.stderr
+
+
 def test_cli_usage_errors(tmp_path):
     proc = _cli("--device", "cpu", timeout=300)
     assert proc.returncode != 0 and "--wider_root is required" in proc.stderr
