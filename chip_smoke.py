@@ -140,8 +140,12 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      the s32 sum, the float32 and bf16 taps and the s8 output bit-identical,
      and a second run bit-identical -- and on: batch 1; the unpacked path of
      a 37x53 input (every body layer); an all-zero input; +-127 saturation
-     at fc6 (|acc| = 127 * 127 * 4608); a ragged M (63 pixels) and N (8
-     channels); each output mode alone.  The fused relu + quantize kernel
+     at fc6 (|acc| = 127 * 127 * 4608); a ragged M (63 pixels) and N (64
+     channels in a 128-channel tile); each output mode alone; the packed
+     conv1_2' with its phase max in one launch against the plain conv +
+     phase_max_i8 (its plan without the zero taps); conv2_1 launched again
+     after conv4_3's plan, bit-identical to its first launch; a layer on a
+     second card where the host has one.  The fused relu + quantize kernel
      (csrc/quantize_i8.cu) against its plain version on the conv1_1' output
      in bf16 and float32 and on pool1 of the odd input;
  17. the int8 bench path at batch 128 (normalize -> QuantizedDetector ->
@@ -150,17 +154,22 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      counts of the main path (every count set to 0 just before, read just
      after) must be 18 conv_i8, 1 quantize_i8 and 1 NMS launch a step, every
      NMS row on the tile scan; a profiler breakdown of one forward of each;
-     then each of the 18 convolutions at the bench shape beside its bound,
-     its plain version, torch._int_mm over its im2col (the yardstick,
-     checked equal to the kernel's s32 sum on its first chunk) and cuDNN's
-     bf16 convolution of the same shape; and the quantize kernel's time;
+     then each of the 18 convolutions at the bench shape, as the forward
+     launches it (conv1_2' with its phase max), bit for bit against plain
+     over all 128 images, with its plan, beside its bound, its plain
+     version, torch._int_mm over its im2col (the yardstick, checked equal
+     to the kernel's s32 sum on its first chunk), cuDNN's bf16 convolution
+     of the same shape and the earlier mma.sync design's time (PERF.md);
+     the sum of the 18; and
+     the quantize kernel's time;
  18. `python -m dan_tpu_torch.tools.smoke_e2e --int8`'s main() at its
      defaults (300 steps at batch 8, 640x640, then 24 held-out synthetic
      images): the reference's gates (hard AP >= 0.5, int8 hard AP >= bf16
      hard AP - 0.02) must pass; prints both APs, train img/s, the trained
      model's NMS load (kept boxes an image, tiles a row) on the int8 and the
      bf16 path, and the TTA AP and vote tiles on the same images (printed,
-     not gated).
+     not gated); the trained model's int8 detections through the kernel must
+     equal those with the plain conv in its place.
 
 Phase 12's first half runs before phase 13, its real-data half after it.
 The line before the last is a JSON object describing each kernel, with the
@@ -209,7 +218,8 @@ from dan_tpu_torch.ops import (
 from dan_tpu_torch.ops.conv_i8 import conv_i8_epilogue_plain, conv_i8_plain, out_size
 from dan_tpu_torch.models.detector import compute_dtype
 from dan_tpu_torch.models.layers import max_pool
-from dan_tpu_torch.quant import QuantizedDetector, calibrate_act_scales
+from dan_tpu_torch import quant
+from dan_tpu_torch.quant import QuantizedDetector, calibrate_act_scales, phase_max_i8
 from dan_tpu_torch.tools import smoke_e2e
 from dan_tpu_torch.ops.bbox_vote import bbox_vote_batched
 from dan_tpu_torch.ops.preprocess import sample_augment_batch, train_preprocess
@@ -965,7 +975,8 @@ def main() -> int:
          "ms": i8["ms"], "plain_ms": i8["plain"], "bound_ms": i8["bound"],
          "bound_by": i8["bound_by"], "library_ms": i8["library"], "cudnn_bf16_ms": i8["cudnn"],
          "ms_covers": f"the {I8_PER_FORWARD} convolutions of one int8 forward at batch {BATCH}, "
-                      "640x640, each timed alone; library_ms is torch._int_mm over each "
+                      "640x640, each timed alone as the forward launches it (conv1_2' with "
+                      "the phase max fused); library_ms is torch._int_mm over each "
                       "layer's im2col; bound_ms counts conv1_2' as the 3x3 conv it computes "
                       "(the packed 2x2 form's zero taps left out)",
          "launches_per_forward": i8["launches"] // i8["iters"],
@@ -2166,6 +2177,17 @@ def phase15(cfg, tcfg, dev, smi):
 I8_PER_FORWARD = 18
 CALIB_IMAGES = 8
 I8_REPLACES = "dan_tpu/quant.py:126 (no TPU kernel: XLA's s8 conv + the fused epilogue)"
+# The earlier design's times (mma.sync m16n8k32 fed by a cp.async ring) at
+# batch 128, 640x640, from PERF.md section 6, printed beside this kernel's;
+# its conv1_2' wrote the packed output and left the phase max to a separate
+# pass.
+MMA_SYNC_SUM_MS = 84.585
+MMA_SYNC_LAYER_MS = {
+    "conv1_2": 16.929, "conv2_1": 5.697, "conv2_2": 9.307, "conv3_1": 4.926, "conv3_2": 8.691,
+    "conv3_3": 9.403, "conv4_1": 4.712, "conv4_2": 8.155, "conv4_3": 8.198, "conv5_1": 2.204,
+    "conv5_2": 1.991, "conv5_3": 2.076, "fc6": 1.015, "fc7": 0.360, "conv6_1": 0.0945,
+    "conv6_2": 0.110, "conv7_1": 0.0365, "conv7_2": 0.0683,
+}
 
 
 def i8_layers(qdet):
@@ -2260,8 +2282,9 @@ def phase16(cfg, dev):
     for src in (INT8_SOURCE, QUANT_SOURCE):
         for line in _cuda_build.ptxas_summary(src):
             log(f"  ptxas ({src}.cu): {line}")
-    log(f"  conv_i8 kernel: {conv_i8_cuda.smem_bytes()} bytes of dynamic shared memory a block "
-        "(the 4-stage ring of 128 x 64-byte A and B tiles), 256 threads")
+    log("  conv_i8 kernel: 384 threads (a TMA producer warp's warpgroup, two wgmma consumer "
+        "warpgroups); each launch's plan (tile, k-steps, ring, shared memory) is printed "
+        "with its layer in phase 17")
     secs = _cuda_build.BUILDS[INT8_SOURCE].seconds
     size = cfg.model.image_size
     det = Detector.from_random(SEED, cfg, dev)
@@ -2328,14 +2351,82 @@ def phase16(cfg, dev):
         ks[1::2] = -127
         errs.append(check_i8(xs, ks, fc6.deq, fc6.bias, fc6.inv_next, 1, fc6.dilation,
                              fc6.padding_for(xs), "fc6 saturated (+-127)"))
-        # A ragged M (63 pixels) and N (8 channels), each output mode alone.
+        # A ragged M (63 pixels) and N, each output mode alone.  The kernel
+        # takes Ci % 64 == 0 and Co % 64 == 0, so the ragged N is 64 channels
+        # of a 128-channel tile (the mma.sync design took 32 and 8).
         g = torch.Generator(device=dev).manual_seed(16)
-        xr = torch.randint(-127, 128, (1, 7, 9, 32), generator=g, device=dev).to(torch.int8)
-        kr = torch.randint(-127, 128, (8, 3, 3, 32), generator=g, device=dev).to(torch.int8)
-        v = lambda lo, hi: torch.empty(8, device=dev).uniform_(lo, hi, generator=g)  # noqa: E731
+        xr = torch.randint(-127, 128, (1, 7, 9, 64), generator=g, device=dev).to(torch.int8)
+        kr = torch.randint(-127, 128, (64, 3, 3, 64), generator=g, device=dev).to(torch.int8)
+        v = lambda lo, hi: torch.empty(64, device=dev).uniform_(lo, hi, generator=g)  # noqa: E731
         errs.append(check_i8(xr, kr, v(1e-4, 1e-3), v(-1, 1), v(1, 10), 1, 1, (1, 1, 1, 1),
-                             "ragged M = 63, N = 8", modes=True))
+                             "ragged M = 63 in a 128-pixel tile, N = 64 in a 128-channel tile",
+                             modes=True))
+        errs.append(check_i8_phase(qdet.conv12, record["conv1_2"],
+                                   f"the packed conv1_2' + phase max at batch 2, {size}x{size}"))
+        errs.append(check_i8_relaunch(qdet, record))
+    check_i8_second_card(qdet, record)
     return det, qdet, images_u8, max(errs), max(q_errs)
+
+
+def check_i8_phase(layer, q8, what) -> int:
+    """The fused conv1_2' + phase max (one launch) against the plain conv,
+    its epilogue and quant.phase_max_i8, bit for bit, twice; the plan must
+    have left out the packed form's zero taps (9 k-steps a group)."""
+    pad = layer.padding_for(q8)
+    acc = conv_i8_plain(q8, layer.kq, 1, 1, pad)
+    _, q_all = conv_i8_epilogue_plain(acc, layer.deq, layer.bias, layer.inv_next)
+    want = phase_max_i8(q_all, q_all.shape[3] // 4)
+    got = layer(q8)[1]
+    plan = conv_i8_cuda.LAST_PLAN
+    again = layer(q8)[1]
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(again, got)):
+        raise AssertionError(f"phase 16: fused conv_i8 phase max != plain on {what}: "
+                             f"{int((got != want).sum())} of {want.numel()} differ")
+    if not (plan.phase_max and len(plan.steps) == 4 * 9):
+        raise AssertionError(f"phase 16: the phase-max plan kept the zero taps: {plan.describe()}")
+    log(f"  conv_i8 phase max == conv_i8_plain + epilogue + phase_max_i8 bit for bit (twice): "
+        f"{what}: pool1 {tuple(got.shape)}; {plan.describe()}")
+    return int((got.int() - want.int()).abs().max())
+
+
+def check_i8_relaunch(qdet, record) -> int:
+    """conv2_1, then conv4_3 (another plan: tile, slice, N tile and ring),
+    then conv2_1 again: the third launch equals the first bit for bit, so
+    nothing of one launch's plan or attribute stays behind for the next."""
+    first = qdet.body["conv2_1"](record["conv2_1"])[1]
+    plan1 = conv_i8_cuda.LAST_PLAN
+    qdet.body["conv4_3"](record["conv4_3"], torch.bfloat16)
+    plan2 = conv_i8_cuda.LAST_PLAN
+    third = qdet.body["conv2_1"](record["conv2_1"])[1]
+    torch.cuda.synchronize()
+    if plan1 == plan2 or conv_i8_cuda.LAST_PLAN != plan1 or not torch.equal(first, third):
+        raise AssertionError("phase 16: conv2_1 launched after conv4_3's plan differs from "
+                             "its first launch")
+    log(f"  conv2_1 ({plan1.describe()}) after conv4_3 ({plan2.describe()}): bit-identical "
+        "to its first launch")
+    return 0
+
+
+def check_i8_second_card(qdet, record) -> None:
+    """The kernel's shared-memory attribute belongs to a device: a layer on
+    cuda:1 after cuda:0 must launch and agree bit for bit."""
+    if torch.cuda.device_count() < 2:
+        log(f"  second-card check not run: this host has {torch.cuda.device_count()} CUDA "
+            "device (the attribute is set on every launch, so a second card cannot find it "
+            "unset)")
+        return
+    layer = qdet.body["conv3_2"]
+    q8 = record["conv3_2"]
+    want = layer(q8)[1]
+    dev1 = torch.device("cuda", 1)
+    got = conv_i8_cuda.conv_i8(q8.to(dev1), layer.kq.to(dev1), layer.deq.to(dev1),
+                               layer.bias.to(dev1), layer.inv_next.to(dev1), 1, 1,
+                               layer.padding_for(q8)).q
+    torch.cuda.synchronize(dev1)
+    if not torch.equal(got.to(want.device), want):
+        raise AssertionError("phase 16: conv_i8 on cuda:1 != cuda:0")
+    log("  conv3_2 on cuda:1 after cuda:0: launched and bit-identical")
 
 
 def im2col_i8(q8, kh, kw, stride, dilation, pad):
@@ -2357,29 +2448,38 @@ def time_i8_layer(name, layer, q8, tap_dtype, smi, packed=False):
     chunks of 16) over the whole batch, its bound, the plain version's
     time, torch._int_mm over the layer's im2col (chunks of 2^22 rows, the
     yardstick; the port never calls it) and cuDNN's bf16 conv of the same
-    shape.  `packed`: the layer is the packed 2x2 conv1_2', whose bound
-    counts the work of the 3x3 conv it computes (9 of its 16 taps a phase
-    are zero by construction)."""
+    shape.  `packed`: the layer is the packed 2x2 conv1_2', launched as the
+    forward launches it, with the phase max (its output is pool1, held
+    against the plain conv + epilogue + phase_max_i8); its bound counts the
+    work of the 3x3 conv it computes (9 of its 16 taps a phase are zero by
+    construction, and the plan leaves them out); the yardsticks compute the
+    conv alone."""
     _, kh, kw, ci = layer.kq.shape
     co = layer.kq.shape[0]
     pad = layer.padding_for(q8)
     inv = layer.inv_next
     run = lambda: conv_i8_cuda.conv_i8(q8, layer.kq, layer.deq, layer.bias, inv,  # noqa: E731
-                                       layer.stride, layer.dilation, pad, tap_dtype)
+                                       layer.stride, layer.dilation, pad, tap_dtype,
+                                       phase_max=packed)
     out = run()
+    plan = conv_i8_cuda.LAST_PLAN
+    out_shape = tuple((out.q if out.q is not None else out.tap).shape)
     torch.cuda.synchronize()
     ms = cuda_ms(run, 5)
-    b, ho, wo, _ = out.tap.shape if out.tap is not None else out.q.shape
+    b = q8.shape[0]
+    ho = out_size(q8.shape[1], kh, layer.stride, layer.dilation, pad[0], pad[1])
+    wo = out_size(q8.shape[2], kw, layer.stride, layer.dilation, pad[2], pad[3])
     m, kdim = b * ho * wo, kh * kw * ci
     dense_ops = 2 * m * co * kdim
     # conv1_2' at (2H, 2W): a 3x3 conv of Ci/4 -> Co/4 channels.
     ops = 2 * b * 4 * q8.shape[1] * q8.shape[2] * (co // 4) * 9 * (ci // 4) if packed else dense_ops
-    out_bytes = m * co * ((2 if tap_dtype is not None else 0) + (1 if inv is not None else 0))
+    out_bytes = sum(t.numel() * t.element_size() for t in (out.tap, out.q) if t is not None)
     bnd = bound(q8.numel() + layer.kq.numel() + 12 * co + out_bytes, ops, PEAK_INT8)
 
     def plain(i):
         acc = conv_i8_plain(q8[i:i + 16], layer.kq, layer.stride, layer.dilation, pad)
-        return conv_i8_epilogue_plain(acc, layer.deq, layer.bias, inv, tap_dtype)
+        tap, q = conv_i8_epilogue_plain(acc, layer.deq, layer.bias, inv, tap_dtype)
+        return (tap, phase_max_i8(q, co // 4)) if packed else (tap, q)
 
     err = 0.0
     for i in range(0, b, 16):
@@ -2418,12 +2518,17 @@ def time_i8_layer(name, layer, q8, tap_dtype, smi, packed=False):
     cudnn_ms = cuda_ms(conv, 5)
     del xb, out
     work = (f"{ops / 1e12:.3f} T operations of the 3x3 conv it computes ({dense_ops / 1e12:.3f} T "
-            f"counting the packed form's zero taps, bound {dense_ops / PEAK_INT8 * 1e3:.4f} ms)"
+            f"counting the packed form's zero taps, bound {dense_ops / PEAK_INT8 * 1e3:.4f} ms), "
+            f"with the phase max: pool1 {out_shape}"
             if packed else f"{ops / 1e12:.3f} T operations")
+    before = MMA_SYNC_LAYER_MS[name]
     log(f"  {name}: ({b}, {q8.shape[1]}, {q8.shape[2]}, {ci}) -> ({ho}, {wo}, {co}), K {kdim}: "
         f"== plain bit for bit over all {b} images; kernel {ms:.4f} ms = "
-        f"{ops / ms / 1e9:.1f} TOPS of {work}, bound {bnd[0]:.4f} ms ({bnd[1]}), plain "
-        f"{plain_ms:.3f} ms, torch._int_mm {lib_ms:.4f} ms, cuDNN bf16 {cudnn_ms:.4f} ms ({smi})")
+        f"{ops / ms / 1e9:.1f} TOPS of {work}, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+        f"{bnd[0] / ms:.0%} of it; plain {plain_ms:.3f} ms, torch._int_mm {lib_ms:.4f} ms, "
+        f"cuDNN bf16 {cudnn_ms:.4f} ms, the mma.sync design {before} ms "
+        f"({'conv alone' if packed else 'same work'}, PERF.md) ({smi})")
+    log(f"    plan: {plan.describe()}")
     return {"ms": ms, "bound": bnd, "plain": plain_ms, "library": lib_ms, "cudnn": cudnn_ms,
             "ops": ops, "err": err}
 
@@ -2494,6 +2599,7 @@ def phase17(cfg, dev, smi, det, qdet, images_u8):
         f"valid detections an image int8 {int(n_q.min())}..{int(n_q.max())}, bf16 "
         f"{int(n_f.min())}..{int(n_f.max())}")
     del out_q, out_f, cls_q, loc_q, cls_f, loc_f
+    time_user_int8(det, images_u8, x, fwd_q, smi)
     with torch.inference_mode():
         for label, model in (("int8", qdet), ("bf16", det.model)):
             top, total = top_kernels(lambda: model(x))
@@ -2535,10 +2641,66 @@ def phase17(cfg, dev, smi, det, qdet, images_u8):
     log(f"  sum of the {I8_PER_FORWARD}: kernel {tot['ms']:.3f} ms "
         f"({tot['ops'] / tot['ms'] / 1e9:.1f} TOPS for {tot['ops'] / 1e12:.2f} T operations), "
         f"bound {tot['bound']:.3f} ms ({tot['bound_by']}), plain {tot['plain']:.1f} ms, "
-        f"torch._int_mm {tot['library']:.3f} ms, cuDNN bf16 {tot['cudnn']:.3f} ms ({smi})")
+        f"torch._int_mm {tot['library']:.3f} ms, cuDNN bf16 {tot['cudnn']:.3f} ms; the mma.sync "
+        f"design {MMA_SYNC_SUM_MS} ms (PERF.md; its conv1_2' without the phase max) ({smi})")
+    slower = [n for n, v in layers.items() if v["ms"] > v["library"]]
+    log(f"  layers where the kernel is slower than torch._int_mm on the im2col: "
+        f"{', '.join(slower) if slower else 'none'}; int8 bench path "
+        f"{BATCH / ms_i8 * 1e3:.1f} img/s beside bf16's {BATCH / ms_bf * 1e3:.1f} in this run")
     return {"launches": launches["conv_i8"], "iters": iters, "ms_i8": ms_i8, "ms_bf": ms_bf,
             "quant": {"launches": launches["quantize_i8"], "ms": qt["kernel"],
                       "plain": qt["plain"], "bound": qb, "err": q_err}, **tot}
+
+
+def time_user_int8(det, images_u8, x, fwd_q, smi):
+    """The int8 path as users reach it: Detector.quantize_int8 (which builds
+    its QuantizedDetector in inference mode) on the calibration images, then
+    its forward on the card's clock beside phase 16's QuantizedDetector, and
+    detect_batch of the bench batch and detect() of one image on the host's
+    clock, int8 beside bf16."""
+    imgs = list(images_u8.cpu().numpy())
+    t0 = time.perf_counter()
+    det.quantize_int8(imgs[:CALIB_IMAGES], batch_size=CALIB_IMAGES)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        model = det._quant
+        model(x)
+        fwd_user = cuda_ms(lambda: model(x), 5)
+    out = {}
+    for mode in ("int8", "bf16"):
+        det.detect_batch(imgs)
+        det.detect(imgs[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            det.detect_batch(imgs)
+        batch_ms = (time.perf_counter() - t0) / 3 * 1e3
+        lat = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            det.detect(imgs[0])
+            lat.append((time.perf_counter() - t0) * 1e3)
+        out[mode] = (batch_ms, float(np.median(lat)), min(lat))
+        det.dequantize()
+    log(f"  through Detector.quantize_int8 ({CALIB_IMAGES} calibration images, {quant_s:.3f} s): "
+        f"int8 forward {fwd_user:.3f} ms at batch {BATCH} (phase 16's QuantizedDetector "
+        f"{fwd_q:.3f} ms, card's clock) ({smi})")
+    for mode, (batch_ms, med, lo) in out.items():
+        log(f"  {mode}: detect_batch of the {BATCH} bench images {batch_ms:.3f} ms = "
+            f"{BATCH / batch_ms * 1e3:.1f} img/s; detect() of one {images_u8.shape[1]}x"
+            f"{images_u8.shape[2]} image median {med:.3f} ms, min {lo:.3f} ms (host clock, "
+            f"3 and 10 calls)")
+
+
+def plain_conv_i8(x, k, deq, bias, inv_next=None, stride=1, dilation=1, padding=(0, 0, 0, 0),
+                  tap_dtype=None, with_acc=False, phase_max=False):
+    """conv_i8's plain version on the card (quant.py's conv, swapped in)."""
+    acc = conv_i8_plain(x, k, stride, dilation, padding)
+    tap, q = conv_i8_epilogue_plain(acc, deq, bias, inv_next, tap_dtype)
+    if phase_max:
+        q = phase_max_i8(q, k.shape[0] // 4)
+    return conv_i8_cuda.ConvI8Out(tap, q, acc if with_acc else None)
 
 
 def phase18(dev, smi):
@@ -2558,6 +2720,23 @@ def phase18(dev, smi):
         f"{smoke_e2e.MIN_HARD_AP}, int8 >= bf16 - {smoke_e2e.MAX_INT8_DROP})")
     det = run["detector"]
     items = run["eval_set"]
+    # The trained model's int8 detections through the kernel against the same
+    # forward with the plain conv (f64 im2col + epilogue + phase_max_i8) in
+    # its place: identical on every held-out image, so the int8 AP above is
+    # the int8 model's, whatever kernel computes it.
+    kern = [det.detect(img, score_threshold=0.05) for _, img in items]
+    real_conv = quant.conv_i8
+    quant.conv_i8 = plain_conv_i8
+    try:
+        ref = [det.detect(img, score_threshold=0.05) for _, img in items]
+    finally:
+        quant.conv_i8 = real_conv
+    if not all(np.array_equal(a["bboxes"], b["bboxes"]) and np.array_equal(a["scores"], b["scores"])
+               for a, b in zip(kern, ref)):
+        raise AssertionError("phase 18: the trained model's int8 detections differ between the "
+                             "kernel and the plain conv")
+    log(f"  the trained model's int8 detections (score >= 0.05) through conv_i8 == through the "
+        f"plain conv on all {len(items)} held-out images")
     load = {}
     for mode in ("int8", "bf16"):
         kept, tiles = [], []

@@ -4,6 +4,7 @@ path of ops/conv_i8_cuda.py and, on the card, the oracle it is held to.
 
     acc = conv_i8_plain(x_q, k_q, stride, dilation, padding)   # int32, exact
     tap, q = conv_i8_epilogue_plain(acc, deq, bias, inv_next, tap_dtype)
+    pool1 = phase_max_i8(q, co)        # the packed conv1_2''s phase max
 
 Layouts are the kernel's: x_q int8 NHWC (B, H, W, Ci), k_q int8 (Co, kh,
 kw, Ci), the result (B, Ho, Wo, Co); padding is (top, bottom, left, right)
@@ -134,3 +135,13 @@ def conv_i8_epilogue_plain(
     if inv_next is not None:
         q = torch.round(y * inv_next).clamp_(-127, 127).to(torch.int8)
     return tap, q
+
+
+def phase_max_i8(q_all: torch.Tensor, co: int) -> torch.Tensor:
+    """pool1 on the requantized packed conv1_2' output (B, H+1, W+1, 4*co)
+    int8: the max over the four pixel phases, phase (py, px) in channel
+    group py*2+px at spatial offset (py, px)."""
+    hh, ww = q_all.shape[1] - 1, q_all.shape[2] - 1
+    s = [q_all[:, py:py + hh, px:px + ww, g * co:(g + 1) * co]
+         for g, (py, px) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1)))]
+    return torch.maximum(torch.maximum(s[0], s[1]), torch.maximum(s[2], s[3])).contiguous()

@@ -21,7 +21,8 @@ The scheme is the JAX package's, symmetric and per channel on both sides:
     and quantize one pass, ops/quantize_i8_cuda.py) and quantizes the
     packed 2x2 conv1_2' (its own dequant vector `k2_deq`; bias
     and the next scale tiled x4 and shared by the four phase groups, so the
-    phase max can run on the requantized int8); odd sizes take conv1 in the
+    phase max can run on the requantized int8, inside the conv's own launch:
+    `conv_i8(..., phase_max=True)` writes pool1); odd sizes take conv1 in the
     compute dtype, then the pool, then quantize;
   * LFPN, L2Norm and the heads stay in the compute dtype: the
     `QuantizedDetector` reuses the float model's own submodules.
@@ -47,8 +48,8 @@ from dan_tpu_torch.config import ModelConfig
 from dan_tpu_torch.models.detector import DANDetector, compute_dtype
 from dan_tpu_torch.models.layers import max_pool
 from dan_tpu_torch.models.vgg import TAP_NAMES, VGG_BLOCKS, nhwc, phase_pool
-from dan_tpu_torch.ops.conv_i8 import Padding, same_padding_2d
-from dan_tpu_torch.ops.conv_i8_cuda import conv_i8
+from dan_tpu_torch.ops.conv_i8 import Padding, phase_max_i8, same_padding_2d  # noqa: F401
+from dan_tpu_torch.ops.conv_i8_cuda import conv_i8, packed_zeros_hold
 from dan_tpu_torch.ops.quantize_i8_cuda import quantize_i8
 
 
@@ -111,16 +112,6 @@ def max_pool_i8(q: torch.Tensor) -> torch.Tensor:
     m = torch.maximum(torch.maximum(q[:, 0::2, 0::2], q[:, 0::2, 1::2]),
                       torch.maximum(q[:, 1::2, 0::2], q[:, 1::2, 1::2]))
     return m.contiguous()
-
-
-def phase_max_i8(q_all: torch.Tensor, co: int) -> torch.Tensor:
-    """pool1 on the requantized packed conv1_2' output (B, H+1, W+1, 4*co)
-    int8: the max over the four pixel phases, phase (py, px) in channel
-    group py*2+px at spatial offset (py, px)."""
-    hh, ww = q_all.shape[1] - 1, q_all.shape[2] - 1
-    s = [q_all[:, py:py + hh, px:px + ww, g * co:(g + 1) * co]
-         for g, (py, px) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1)))]
-    return torch.maximum(torch.maximum(s[0], s[1]), torch.maximum(s[2], s[3])).contiguous()
 
 
 def _packed(config: ModelConfig, h: int, w: int) -> bool:
@@ -238,11 +229,17 @@ def quantize_detector_params(
 
 class QuantConv(nn.Module):
     """One int8 conv: the kernel and its epilogue vectors as buffers.
-    inv_next None: the last conv, which emits only its tap."""
+    inv_next None: the last conv, which emits only its tap.  phase_max: the
+    packed conv1_2', whose next input is pool1, its phase max (one launch);
+    its kernel's packed zeros are checked here, once."""
 
     def __init__(self, kq, deq, bias, inv_next, stride=1, dilation=1,
-                 padding: Optional[Padding] = None):
+                 padding: Optional[Padding] = None, phase_max: bool = False):
         super().__init__()
+        if phase_max and not packed_zeros_hold(kq):
+            raise ValueError("phase_max takes a packed conv1_2' kernel: zero wherever "
+                             "models/vgg.py::pack_conv_kernel_2x2_phase leaves zeros")
+        self.phase_max = phase_max
         self.register_buffer("kq", kq)
         self.register_buffer("deq", deq)
         self.register_buffer("bias", bias)
@@ -258,7 +255,7 @@ class QuantConv(nn.Module):
     def forward(self, q8: torch.Tensor, tap_dtype: Optional[torch.dtype] = None):
         """int8 NHWC input -> (tap (NHWC, tap_dtype) or None, int8 next input or None)."""
         out = conv_i8(q8, self.kq, self.deq, self.bias, self.inv_next, self.stride,
-                      self.dilation, self.padding_for(q8), tap_dtype)
+                      self.dilation, self.padding_for(q8), tap_dtype, phase_max=self.phase_max)
         return out.tap, out.q
 
 
@@ -280,7 +277,7 @@ class QuantizedDetector(nn.Module):
         self.register_buffer("inv_conv1_2", inv["conv1_2"])
         self.register_buffer("inv_conv2_1", inv["conv2_1"])
         self.conv12 = QuantConv(c1["k2q"], c1["k2_deq"], c1["b2"].repeat(4),
-                                inv["conv2_1"].repeat(4), padding=(1, 1, 1, 1))
+                                inv["conv2_1"].repeat(4), padding=(1, 1, 1, 1), phase_max=True)
         self.body = nn.ModuleDict()
         for (name, stride, dilation, _, _), nxt in zip(self.plan, self.plan[1:] + [None]):
             lw = qp["body"][name]
@@ -301,8 +298,7 @@ class QuantizedDetector(nn.Module):
             q8 = quantize_i8(nhwc(o1_pre), self.inv_conv1_2)  # relu fused in
             if record is not None:
                 record["conv1_2"] = q8
-            _, q_all = self.conv12(q8)
-            return phase_max_i8(q_all, q_all.shape[3] // 4)
+            return self.conv12(q8)[1]
         y = max_pool(self.conv1_2(self.conv1_1(x)))
         return quantize_i8(nhwc(y), self.inv_conv2_1)
 

@@ -233,6 +233,12 @@ def test_conv_i8_wrapper_checks_its_arguments():
         conv_i8_cuda.conv_i8(x, k, v, v)
     with pytest.raises(ValueError, match="CUDA tensors"):
         conv_i8_cuda._launch(x, k, v, v, v, 1, 1, (1, 1, 1, 1), None, False)
+    # What the kernel takes (its plan raises; the launch builds the plan first).
+    with pytest.raises(ValueError, match="Ci % 64 == 0 and Co % 64 == 0"):
+        conv_i8_cuda.plan(1, 4, 4, 32, 8, 3, 3, 1, 1, (1, 1, 1, 1))
+    with pytest.raises(ValueError, match="phase_max"):
+        conv_i8_cuda.conv_i8(x, k, v, v, None, padding=(1, 1, 1, 1), with_acc=True,
+                             phase_max=True)
     # Non-integral float results are refused: an inexact algorithm raises.
     from dan_tpu_torch.ops.conv_i8 import _integral
     with pytest.raises(AssertionError, match="not integral"):
