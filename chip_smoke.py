@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """Drive the PyTorch port's detect path, train step, TTA evaluation path,
-data parallelism and int8 deployment on one CUDA card and check them.
+data parallelism, int8 deployment and checkpoint loading on one CUDA card
+and check them.
 
     python3 chip_smoke.py
 
@@ -169,7 +170,31 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      model's NMS load (kept boxes an image, tiles a row) on the int8 and the
      bf16 path, and the TTA AP and vote tiles on the same images (printed,
      not gated); the trained model's int8 detections through the kernel must
-     equal those with the plain conv in its place.
+     equal those with the plain conv in its place.  smoke_e2e runs under
+     torch.use_deterministic_algorithms: it runs twice, and the two trained
+     models (every parameter, the last loss, every AP) must be identical;
+     the train step is timed by default, with the upsample's slice gradient
+     alone, with that and cuDNN's deterministic choice, and under the mode,
+     at batch 8 and 32, and the kernels the mode adds are listed;
+ 19. checkpoint loading (dan_tpu_torch/ckpt/): (a) a seeded full-width
+     detector written as a TF V2 bundle (the port's export_tf_checkpoint),
+     an .npz and a .pt (the convert CLI's main(), --strict); each loaded by
+     Detector.from_checkpoint with every tensor bit-identical to the source,
+     and detect() on 3 images of different sizes and detect_batch() of 4
+     from each, boxes and scores bit-identical to the source detector's,
+     counted (K2 and K1 launches > 0, every row on the tile scan); the
+     bundle's write and read seconds and the CRC-32C rate (host numbers);
+     (b) a VGG-16 classifier-shaped bundle from the port's writer (13 convs,
+     fc6 (25088, 4096), fc7 (4096, 4096), int64 global_step, a Momentum
+     slot): the non-strict import places exactly the 30 backbone leaves,
+     fc6/fc7 the [::4] subsample, the heads, LFPN, L2Norm and conv6/7 left
+     at init, and strict raises; (c) `python -m dan_tpu_torch.train`'s main()
+     with --synthetic --warm_start <bundle> --steps 2 --batch_size 32 and
+     the synthetic recipe's --warmup_steps 50 --grad_clip 10 (the weights are
+     random):
+     exit 0, K3 + K4, K5 and K6 once a step (counted), the first step's
+     loss equal to train_step's on the source weights and the same batch,
+     and a --resume run continuing from its step-2 checkpoint.
 
 Phase 12's first half runs before phase 13, its real-data half after it.
 The line before the last is a JSON object describing each kernel, with the
@@ -197,7 +222,17 @@ from dan_tpu_torch.api import Detector
 from dan_tpu_torch.box.anchors import generate_anchors
 from dan_tpu_torch.box.iou import iou_one_to_many, pairwise_iou
 from dan_tpu_torch.box.matching import MatchTargets, match_anchors
+from dan_tpu_torch.ckpt import convert as ckpt_convert
 from dan_tpu_torch.ckpt import train_state as ckpt
+from dan_tpu_torch.ckpt.bridge import params_to_jax
+from dan_tpu_torch.ckpt.crc32c import crc32c
+from dan_tpu_torch.ckpt.load import load_params, save_npz
+from dan_tpu_torch.ckpt.tf_bundle import shard_path, write_bundle
+from dan_tpu_torch.ckpt.tf_import import (
+    export_tf_checkpoint,
+    import_tf_checkpoint,
+    load_tf_checkpoint,
+)
 from dan_tpu_torch.models.detector import DANDetector
 from dan_tpu_torch.models.vgg import phase_pool_with_winner, nhwc
 from dan_tpu_torch.eval import __main__ as eval_cli
@@ -217,6 +252,7 @@ from dan_tpu_torch.ops import (
 )
 from dan_tpu_torch.ops.conv_i8 import conv_i8_epilogue_plain, conv_i8_plain, out_size
 from dan_tpu_torch.models.detector import compute_dtype
+from dan_tpu_torch.models import layers, lfpn
 from dan_tpu_torch.models.layers import max_pool
 from dan_tpu_torch import quant
 from dan_tpu_torch.quant import QuantizedDetector, calibrate_act_scales, phase_max_i8
@@ -889,6 +925,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase18(dev, smi)
 
+    # -- 19. checkpoint loading ------------------------------------------------
+    ck = phase19(cfg, dev, smi)
+
     n_rows, n_box = BATCH, post.pre_nms_topk
     # NMS: 20 bytes a box in, its rank out; for every selected box an IoU, a
     # threshold test and (the input need not be sorted) an argmax compare
@@ -906,13 +945,15 @@ def main() -> int:
          "plain_ms": ms["plain"], "bound_ms": b_nms[0],
          "bound_by": b_nms[1], "dependent_steps": int(nms_tiles.max()),
          "kept": int(kept_rows.max()), "library_ms": None,
-         "launches_dp_ranks": [r["nms"] for r in dp_launches["tta"]]},
+         "launches_dp_ranks": [r["nms"] for r in dp_launches["tta"]],
+         "launches_ckpt": ck["nms_batched"]},
         {"name": "greedy_nms_rank (B=1)", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "dan_tpu/ops/nms_pallas.py:34", "launches": launches_one,
          "max_abs_err": err_1, "ms": ms["kernel1"], "argmax_loop_ms": ms["argmax1"],
          "argmax_loop_swapped_ms": ms["swapped1"],
          "plain_ms": ms["plain1"], "bound_ms": b_nms1[0], "bound_by": b_nms1[1],
-         "dependent_steps": int(nms_tiles[0]), "kept": int(kept_rows[0]), "library_ms": None},
+         "dependent_steps": int(nms_tiles[0]), "kept": int(kept_rows[0]), "library_ms": None,
+         "launches_ckpt": ck["nms_one"]},
     ]
     for name, (_, src, replaces) in TRAIN_KERNELS.items():
         entry = {
@@ -920,7 +961,8 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
             "ms": train_ms[name]["kernel"], "plain_ms": train_ms[name]["plain"],
             "library_ms": train_ms[name].get("library"),
-            "launches_dp_ranks": [r[name] for r in dp_launches["train"]]}
+            "launches_dp_ranks": [r[name] for r in dp_launches["train"]],
+            "launches_ckpt": ck["train"][name]}
         if name == "conv12_wgrad":
             plan = train_bounds["conv12_wgrad tiling"]
             seg = conv12_wgrad_cuda.SEGMENT
@@ -2703,21 +2745,125 @@ def plain_conv_i8(x, k, deq, bias, inv_next=None, stride=1, dilation=1, padding=
     return conv_i8_cuda.ConvI8Out(tap, q, acc if with_acc else None)
 
 
+def device_split(fn):
+    """Device ms of one call of fn() (torch.profiler, after a warm call), by
+    CUDA kernel and by the aten op that launched it -> ({kernel: ms}, {op: ms})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by = {"CUDA": {}, "CPU": {}}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0 and e.device_type.name in by:
+            d = by[e.device_type.name]
+            d[e.key] = d.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    return by["CUDA"], by["CPU"]
+
+
+def time_deterministic(dev, smi):
+    """The train step's cost of smoke_e2e's deterministic mode, and of its
+    parts: ms a step at batch 8 (smoke_e2e's) and 32, by default; with the
+    LFPN upsample's gradient taken by models/layers.py::_Upsample2x (the slice
+    sums the mode uses) and nothing else changed; that with
+    torch.backends.cudnn.deterministic on; under deterministic(); and under it
+    with PyTorch's fill of new tensors on (the mode's default).  Each is timed
+    twice, in the order given and then in reverse.  At batch 32, the kernels
+    and the aten ops whose device time the mode adds over the slice gradient
+    with cuDNN deterministic (torch.profiler, one step each)."""
+    @contextlib.contextmanager
+    def adjoint(cudnn_deterministic=False):
+        prev = lfpn.upsample2x, torch.backends.cudnn.deterministic
+        lfpn.upsample2x = layers._Upsample2x.apply
+        torch.backends.cudnn.deterministic = cudnn_deterministic
+        try:
+            yield
+        finally:
+            lfpn.upsample2x, torch.backends.cudnn.deterministic = prev
+
+    @contextlib.contextmanager
+    def with_fill():
+        with smoke_e2e.deterministic():
+            torch.utils.deterministic.fill_uninitialized_memory = True
+            yield
+
+    modes = {"default": contextlib.nullcontext, "slice gradient": adjoint,
+             "+ cudnn.deterministic": functools.partial(adjoint, True),
+             "deterministic()": smoke_e2e.deterministic, "with the fill": with_fill}
+    out, split = {}, {}
+    for batch in (8, TRAIN_BATCH):
+        cfg = train_config(default_config())
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, batch_size=batch))
+        batches = [synthetic_batch(cfg, batch, seed=500 + i) for i in range(8)]
+
+        def steps(profile=False):
+            state = create_train_state(cfg, SEED, dev)
+            for b in batches[:2]:
+                train_step(state, b)
+            torch.cuda.synchronize()
+            if profile:
+                return device_split(lambda: train_step(state, batches[2]))
+            return cuda_ms(lambda: [train_step(state, b) for b in batches[2:]], 1) / 6
+
+        t = out[batch] = {name: [] for name in modes}
+        for name in list(modes) + list(modes)[::-1]:
+            with modes[name]():
+                t[name].append(steps())
+        if batch == TRAIN_BATCH:
+            for name in ("+ cudnn.deterministic", "deterministic()"):
+                with modes[name]():
+                    split[name] = steps(profile=True)
+    log("phase 18: train step ms (CUDA events, mean of 6 after 2; each timed twice, in this order "
+        "and back) " + " / ".join(modes) + ": " + "; ".join(
+            f"batch {b}: " + " / ".join(f"{v[0]:.3f}, {v[1]:.3f}" for v in t.values())
+            for b, t in out.items()) + f" ({smi})")
+    narrow, mode = split["+ cudnn.deterministic"], split["deterministic()"]
+    for i, what in enumerate(("kernels", "aten ops")):
+        diff = sorted(((mode[i].get(k, 0.0) - narrow[i].get(k, 0.0), k)
+                       for k in set(mode[i]) | set(narrow[i])), reverse=True)
+        log(f"  batch {TRAIN_BATCH}, one step's device time (profiler): slice gradient + cudnn."
+            f"deterministic {sum(narrow[i].values()):.3f} ms, deterministic() "
+            f"{sum(mode[i].values()):.3f} ms; the {what} the mode adds most to: "
+            + "; ".join(f"{k[:90]} {d:+.3f} ms" for d, k in diff[:6]))
+    return out
+
+
 def phase18(dev, smi):
     """scripts/smoke_e2e.py's recipe through the port's tool, with --int8,
     and the trained model's NMS and vote load."""
-    t0 = time.perf_counter()
-    run = smoke_e2e.run(smoke_e2e.parse_args(["--int8"]))
-    rc = smoke_e2e.gates(run)
+    runs = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        run = smoke_e2e.run(smoke_e2e.parse_args(["--int8"]))
+        rc = smoke_e2e.gates(run)
+        aps = run["aps"]
+        base, q = aps["bfloat16"], aps["int8"]
+        log(f"phase 18: smoke_e2e run {i + 1} (300 steps at batch 8, 640x640, bf16, --int8, "
+            f"deterministic mode) rc {rc} in {time.perf_counter() - t0:.1f} s; train "
+            f"{run['train_img_s']:.1f} img/s (host clock, with the host's synthetic batches) "
+            f"({smi})")
+        log(f"  AP on 24 held-out images: bf16 easy {base['easy']!r} medium {base['medium']!r} "
+            f"hard {base['hard']!r}; int8 easy {q['easy']!r} medium {q['medium']!r} hard "
+            f"{q['hard']!r}; int8 - bf16 hard {q['hard'] - base['hard']:+.4f} (gates: hard >= "
+            f"{smoke_e2e.MIN_HARD_AP}, int8 >= bf16 - {smoke_e2e.MAX_INT8_DROP})")
+        runs.append(run)
+    # The two runs must train the same model: every parameter and every AP
+    # identical (smoke_e2e runs under torch.use_deterministic_algorithms).
+    weights = [r["detector"].model.state_dict() for r in runs]
+    differ = [k for k in weights[0] if not torch.equal(weights[0][k], weights[1][k])]
+    if differ or runs[0]["aps"] != runs[1]["aps"] or runs[0]["loss"] != runs[1]["loss"]:
+        raise AssertionError(f"phase 18: two smoke_e2e runs trained different models: "
+                             f"{len(differ)} of {len(weights[0])} tensors differ "
+                             f"({differ[:4]}), APs {runs[0]['aps']} and {runs[1]['aps']}")
+    log(f"  runs 1 and 2: all {len(weights[0])} parameter tensors, the last loss "
+        f"({runs[0]['loss']!r}) and every AP identical")
+    time_deterministic(dev, smi)
+    run = runs[0]
     aps = run["aps"]
     base, q = aps["bfloat16"], aps["int8"]
-    log(f"phase 18: smoke_e2e (300 steps at batch 8, 640x640, bf16, --int8) rc {rc} in "
-        f"{time.perf_counter() - t0:.1f} s; train {run['train_img_s']:.1f} img/s (host clock, "
-        f"with the host's synthetic batches) ({smi})")
-    log(f"  AP on 24 held-out images: bf16 easy {base['easy']:.4f} medium {base['medium']:.4f} "
-        f"hard {base['hard']:.4f}; int8 easy {q['easy']:.4f} medium {q['medium']:.4f} hard "
-        f"{q['hard']:.4f}; int8 - bf16 hard {q['hard'] - base['hard']:+.4f} (gates: hard >= "
-        f"{smoke_e2e.MIN_HARD_AP}, int8 >= bf16 - {smoke_e2e.MAX_INT8_DROP})")
+    del runs, weights
     det = run["detector"]
     items = run["eval_set"]
     # The trained model's int8 detections through the kernel against the same
@@ -2768,6 +2914,243 @@ def phase18(dev, smi):
         raise AssertionError(f"phase 18: smoke_e2e failed the reference's gates (rc {rc}): "
                              f"bf16 hard {base['hard']:.4f}, int8 hard {q['hard']:.4f}")
     return {"aps": aps, "tta_aps": tta_aps}
+
+
+# ---------------------------------------------------------------------------
+# checkpoint loading: phase 19
+# ---------------------------------------------------------------------------
+
+# VGG-16 classifier layers (slim names vgg_16/convN/convN_M): the 13 convs.
+VGG_CONVS = tuple(f"conv{b}_{i}" for b, n in ((1, 2), (2, 2), (3, 3), (4, 3), (5, 3))
+                  for i in range(1, n + 1))
+CKPT_REQUESTS = ((480, 640), (720, 1280), (300, 200))
+CKPT_BATCH = ((640, 640), (500, 375), (1024, 768), (100, 160))
+
+
+def same_detections(a, b) -> bool:
+    return all(np.array_equal(x["bboxes"], y["bboxes"]) and np.array_equal(x["scores"], y["scores"])
+               for x, y in zip(a, b))
+
+
+def phase19a(cfg, dev, smi, d):
+    """Write a seeded full-width detector as a TF bundle, an .npz and (through
+    the convert CLI) a .pt; load each with Detector.from_checkpoint and serve
+    from it.  Returns (the bundle's prefix, the source weights on the CPU,
+    the K2 and K1 launches of the loaded detectors' detect / detect_batch)."""
+    src = Detector.from_random(SEED + 19, cfg, dev)
+    sd = src.model.state_dict()
+    tree = params_to_jax(sd)
+    n_bytes = sum(v.numel() * v.element_size() for v in sd.values())
+    prefix = os.path.join(d, "dan.ckpt")
+    t0 = time.perf_counter()
+    export_tf_checkpoint(tree, prefix)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_params(prefix, cfg, verbose=False)
+    read_s = time.perf_counter() - t0
+    data = np.fromfile(shard_path(prefix, 0, 1), dtype=np.uint8)
+    t0 = time.perf_counter()
+    crc32c(data)
+    crc_s = time.perf_counter() - t0
+    log(f"phase 19: TF bundle of the default config's detector ({len(sd)} tensors, "
+        f"{n_bytes / 1e6:.1f} MB; data file {data.size / 1e6:.1f} MB): write {write_s:.3f} s, "
+        f"read + CRC check + import {read_s:.3f} s; CRC-32C alone {crc_s:.3f} s = "
+        f"{data.size / crc_s / 1e9:.3f} GB/s (host numbers of the card's host, numpy, one "
+        f"thread) ({smi})")
+    del data
+    if sorted(loaded) != sorted(sd) or not all(torch.equal(loaded[k], sd[k].cpu()) for k in sd):
+        raise AssertionError("phase 19: the TF bundle's tensors differ from the source's")
+    npz = os.path.join(d, "dan.npz")
+    save_npz(tree, npz)
+    pt = os.path.join(d, "dan.pt")
+    rc = ckpt_convert.main(["--tf_ckpt", prefix, "--out", pt, "--strict"])
+    if rc != 0:
+        raise AssertionError(f"phase 19: the convert CLI exited {rc}")
+    del tree, loaded
+    req = [np.random.default_rng(SEED + 190 + i).integers(0, 255, hw + (3,), dtype=np.uint8)
+           for i, hw in enumerate(CKPT_REQUESTS)]
+    batch = [np.random.default_rng(SEED + 195 + i).integers(0, 255, hw + (3,), dtype=np.uint8)
+             for i, hw in enumerate(CKPT_BATCH)]
+    want_one = [src.detect(im) for im in req]
+    want_batch = src.detect_batch(batch)
+    check_dets(want_one, req, cfg.postprocess.max_detections)
+    dets = {}
+    for fmt, path in (("TF bundle", prefix), ("npz", npz), ("pt (convert CLI)", pt)):
+        t0 = time.perf_counter()
+        dets[fmt] = Detector.from_checkpoint(path, cfg, dev)
+        secs = time.perf_counter() - t0
+        got = dets[fmt].model.state_dict()
+        bad = [k for k in sd if not torch.equal(got[k], sd[k])]
+        if bad or sorted(got) != sorted(sd):
+            raise AssertionError(f"phase 19: {fmt}: {len(bad)} tensors differ from the "
+                                 f"source ({bad[:4]})")
+        log(f"  {fmt} {os.path.basename(path)}: Detector.from_checkpoint {secs:.3f} s (host "
+            f"clock, to the card); all {len(sd)} tensors bit-identical to the source")
+    # The main path, counted: every count set to 0 just before, read just after.
+    nms_cuda.LAUNCHES = 0
+    rows = []
+    got_one = {}
+    for fmt, det in dets.items():
+        got_one[fmt] = []
+        for im in req:
+            got_one[fmt].append(det.detect(im))
+            rows.append(nms_cuda.LAST_PATHS)
+    k2 = nms_cuda.LAUNCHES
+    got_batch = {}
+    for fmt, det in dets.items():
+        got_batch[fmt] = det.detect_batch(batch)
+        rows.append(nms_cuda.LAST_PATHS)
+    k1 = nms_cuda.LAUNCHES - k2
+    rows = torch.cat(rows)
+    for fmt in dets:
+        if not (same_detections(got_one[fmt], want_one)
+                and same_detections(got_batch[fmt], want_batch)):
+            raise AssertionError(f"phase 19: detections of the {fmt} detector differ from the "
+                                 "source detector's")
+    if k1 == 0 or k2 == 0 or not bool(rows.all()):
+        raise AssertionError(f"phase 19: NMS launches {k2} at B = 1 and {k1} batched, "
+                             f"{int((rows == 0).sum())} rows off the tile scan")
+    log(f"  detect() on {[im.shape[:2] for im in req]} and detect_batch() of 4 from each: boxes "
+        f"and scores bit-identical to the source detector's "
+        f"({[len(x['scores']) for x in want_one]} and "
+        f"{[len(x['scores']) for x in want_batch]} detections); NMS launches {k2} at B = 1 "
+        f"(K2), {k1} batched (K1); all {rows.numel()} rows on the tile scan")
+    sd_cpu = {k: v.cpu() for k, v in sd.items()}
+    del src, dets, sd
+    torch.cuda.empty_cache()
+    return prefix, sd_cpu, {"nms_one": k2, "nms_batched": k1}
+
+
+def phase19b(cfg, d):
+    """A VGG-16 classifier-shaped bundle from the port's writer (13 convs,
+    fc6 (25088, 4096) and fc7 (4096, 4096) dense, global_step int64, one
+    momentum slot): a non-strict import places the 30 backbone leaves, fc6
+    and fc7 subsampled; the rest is reported missing; strict raises."""
+    model_tree = params_to_jax(DANDetector(cfg.model).state_dict())
+    rng = np.random.default_rng(SEED + 191)
+    tensors = {}
+    for name in VGG_CONVS:
+        kernel = model_tree["backbone"][name]["kernel"]
+        tensors[f"vgg_16/conv{name[4]}/{name}/weights"] = rng.standard_normal(
+            kernel.shape, dtype=np.float32)
+        tensors[f"vgg_16/conv{name[4]}/{name}/biases"] = rng.standard_normal(
+            kernel.shape[-1:], dtype=np.float32)
+    fc6 = rng.standard_normal((25088, 4096), dtype=np.float32)
+    fc7 = rng.standard_normal((4096, 4096), dtype=np.float32)
+    b6, b7 = (rng.standard_normal(4096, dtype=np.float32) for _ in range(2))
+    tensors.update({"vgg_16/fc6/weights": fc6, "vgg_16/fc6/biases": b6,
+                    "vgg_16/fc7/weights": fc7, "vgg_16/fc7/biases": b7,
+                    "global_step": np.int64(1_000_000),
+                    "vgg_16/conv1/conv1_1/weights/Momentum":
+                        np.zeros_like(tensors["vgg_16/conv1/conv1_1/weights"])})
+    prefix = os.path.join(d, "vgg_16.ckpt")
+    t0 = time.perf_counter()
+    write_bundle(prefix, tensors)
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(shard_path(prefix, 0, 1))
+    t0 = time.perf_counter()
+    rep = import_tf_checkpoint(prefix, cfg.model)
+    read_s = time.perf_counter() - t0
+    want = {("backbone", n, leaf) for n in VGG_CONVS + ("fc6", "fc7") for leaf in ("kernel", "bias")}
+    everything = {f"{g}/{n}/{leaf}" for g, layers in model_tree.items()
+                  for n, leaves in layers.items() for leaf in leaves}
+    left = everything - {"/".join(t) for t in want}
+    if rep.placed != want or rep.unmapped or rep.mismatched or set(rep.missing) != left:
+        raise AssertionError(f"phase 19: classifier import placed {len(rep.placed)}, unmapped "
+                             f"{rep.unmapped}, mismatched {rep.mismatched}, missing "
+                             f"{len(rep.missing)}")
+    kinds = sorted({m.split("/")[0] if m.startswith(("heads", "lfpn", "l2norm"))
+                    else m.split("/")[1] for m in rep.missing})
+    if not all(k in ("heads", "lfpn", "l2norm") or k.startswith(("conv6_", "conv7_"))
+               for k in kinds):
+        raise AssertionError(f"phase 19: missing leaves outside heads/LFPN/L2Norm/conv6-7: {kinds}")
+    bb = rep.params["backbone"]
+    expect = {
+        "fc6/kernel": fc6.reshape(7, 7, 512, 4096)[np.ix_([0, 3, 6], [0, 3, 6], np.arange(512),
+                                                          np.arange(0, 4096, 4))],
+        "fc6/bias": b6[::4], "fc7/kernel": fc7[::4, ::4][None, None], "fc7/bias": b7[::4]}
+    for key, value in expect.items():
+        layer, leaf = key.split("/")
+        if not np.array_equal(bb[layer][leaf], value):
+            raise AssertionError(f"phase 19: {key} is not the [::4] subsample of the classifier's")
+    for name in VGG_CONVS:
+        if not np.array_equal(bb[name]["kernel"], tensors[f"vgg_16/conv{name[4]}/{name}/weights"]):
+            raise AssertionError(f"phase 19: {name} was not placed as written")
+    try:
+        load_tf_checkpoint(prefix, cfg.model, strict=True, verbose=False)
+    except ValueError as e:
+        strict_msg = str(e)
+    else:
+        raise AssertionError("phase 19: a strict import of the classifier bundle did not raise")
+    log(f"phase 19: VGG-16 classifier bundle ({len(tensors)} tensors, {size / 1e6:.1f} MB; write "
+        f"{write_s:.3f} s, read + import {read_s:.3f} s, host clock): placed exactly the "
+        f"{len(rep.placed)} backbone leaves (fc6 {tuple(bb['fc6']['kernel'].shape)} and fc7 "
+        f"{tuple(bb['fc7']['kernel'].shape)} the [::4] subsample), {len(rep.missing)} left at "
+        f"init ({', '.join(kinds)}), global_step and the Momentum slot skipped; strict: "
+        f"\"{strict_msg}\"")
+    for f in os.listdir(d):
+        if f.startswith("vgg_16.ckpt"):
+            os.remove(os.path.join(d, f))
+
+
+def phase19c(prefix, sd_cpu, dev, d):
+    """The train CLI warm-started from the bundle: 2 steps at batch 32, the
+    first loss against train_step on the source weights; then --resume."""
+    model_dir = os.path.join(d, "warm")
+    # The source weights are random, which the reference recipe (no warm-up,
+    # no clip: what --warm_start keeps) does not train from: its loss grows
+    # by orders of magnitude a step.  So the runs take the synthetic recipe
+    # explicitly.
+    args = ["--synthetic", "--warm_start", prefix, "--steps", "2", "--batch_size",
+            str(TRAIN_BATCH), "--model_dir", model_dir, "--log_every", "1",
+            "--checkpoint_every", "1", "--warmup_steps", "50", "--grad_clip", "10"]
+    bare = train_cli.make_config(train_cli.parse_args(
+        ["--synthetic", "--warm_start", prefix, "--model_dir", model_dir]))
+    if (bare.train.warmup_steps, bare.train.grad_clip_norm) != (0, 0.0):
+        raise AssertionError("phase 19: --warm_start took the random-init recipe's defaults")
+    # The main path, counted: every count set to 0 just before, read just after.
+    for mod, _, _ in TRAIN_KERNELS.values():
+        mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rc = train_cli.main(args)
+    secs = time.perf_counter() - t0
+    launches = {name: mod.LAUNCHES for name, (mod, _, _) in TRAIN_KERNELS.items()}
+    with open(os.path.join(model_dir, "train_metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    cfg = train_cli.make_config(train_cli.parse_args(args))
+    state = create_train_state(cfg, 0, dev)
+    state.model.load_state_dict(sd_cpu)
+    ref = float(train_step(state, synthetic_batch(cfg, TRAIN_BATCH, seed=0))["loss"])
+    del state
+    rc2 = train_cli.main(args[:4] + ["3"] + args[5:] + ["--resume"])
+    with open(os.path.join(model_dir, "train_metrics.jsonl")) as f:
+        steps = [json.loads(line)["step"] for line in f]
+    log(f"phase 19: python -m dan_tpu_torch.train main() --warm_start <the bundle> --steps 2 "
+        f"--batch_size {TRAIN_BATCH} --warmup_steps 50 --grad_clip 10: rc {rc} in {secs:.1f} s "
+        f"(host clock); without the two flags --warm_start keeps the reference recipe (warm-up "
+        f"0, clip 0); losses {[r['loss'] for r in logged]}; first step's loss "
+        f"{logged[0]['loss']!r} against train_step on the source weights {ref!r}; train kernel "
+        f"launches {launches}")
+    log(f"  then --steps 3 --resume --warm_start: rc {rc2}, logged steps {steps}, latest "
+        f"checkpoint {ckpt.latest_step(model_dir)}")
+    if rc != 0 or [r["step"] for r in logged] != [1, 2]:
+        raise AssertionError(f"phase 19: the warm-started train CLI exited {rc}")
+    if launches != {name: 2 * n for name, n in PER_STEP.items()}:
+        raise AssertionError(f"phase 19: train kernel launches {launches} in 2 steps")
+    if logged[0]["loss"] != ref:
+        raise AssertionError("phase 19: the warm-started first step's loss is not the source "
+                             "weights' loss on the same batch")
+    if rc2 != 0 or steps != [1, 2, 3] or ckpt.latest_step(model_dir) != 3:
+        raise AssertionError("phase 19: --resume did not continue the step-2 checkpoint")
+    return launches
+
+
+def phase19(cfg, dev, smi):
+    with tempfile.TemporaryDirectory() as d:
+        prefix, sd_cpu, launches = phase19a(cfg, dev, smi, d)
+        phase19b(cfg, d)
+        launches["train"] = phase19c(prefix, sd_cpu, dev, d)
+    return launches
 
 
 if __name__ == "__main__":

@@ -2,6 +2,7 @@
 detection dict out.
 
     det = Detector.from_random(seed=0)         # on the first CUDA card
+    det = Detector.from_checkpoint(path)       # TF1 prefix, .npz, .pt or model_dir
     out = det.detect(image_rgb_uint8)          # (H, W, 3), any size
     out["bboxes"], out["scores"]               # pixels of the input image
     out = det.detect_tta(image_rgb_uint8)      # pyramid + flip + bbox-vote
@@ -33,7 +34,7 @@ import torch
 from dan_tpu_torch.config import DANConfig, default_config
 from dan_tpu_torch.box.anchors import generate_anchors
 from dan_tpu_torch.ckpt.bridge import params_from_jax
-from dan_tpu_torch.ckpt.train_state import load_model_weights
+from dan_tpu_torch.ckpt.load import load_params
 from dan_tpu_torch.device import resolve_device
 from dan_tpu_torch.eval.tta import TTARunner
 from dan_tpu_torch.models.detector import DANDetector, compute_dtype
@@ -78,15 +79,27 @@ class Detector:
         return cls(model, config, device)
 
     @classmethod
+    def from_checkpoint(
+        cls, path: str, config: Optional[DANConfig] = None, device=None
+    ) -> "Detector":
+        """Weights from a checkpoint of any format that ckpt/load.py reads:
+        a TF1 prefix (non-strict: uncovered leaves keep the port's init), a
+        JAX-layout .npz, a .pt of the train or convert CLI, or a train
+        model_dir (its newest step).  Loaded on the CPU, then moved to the
+        device once."""
+        config = config or default_config()
+        device = resolve_device(device)
+        model = DANDetector(config.model)
+        model.load_state_dict(load_params(path, config))
+        return cls(model, config, device)
+
+    @classmethod
     def from_train_checkpoint(
         cls, path: str, config: Optional[DANConfig] = None, device=None
     ) -> "Detector":
         """Weights from a checkpoint of `python -m dan_tpu_torch.train`: one
-        step file or a model_dir (its newest step)."""
-        config = config or default_config()
-        model = DANDetector(config.model)
-        model.load_state_dict(load_model_weights(path))
-        return cls(model, config, device)
+        step file or a model_dir (its newest step); from_checkpoint."""
+        return cls.from_checkpoint(path, config, device)
 
     # -- inference -----------------------------------------------------------
 

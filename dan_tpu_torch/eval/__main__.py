@@ -14,8 +14,10 @@ Under torchrun every rank (cuda:LOCAL_RANK on NCCL, or the CPU on gloo with
 mesh; with --no_tta every N-th image), and rank 0 writes the txt files and
 scores AP.
 
---ckpt is a checkpoint of `python -m dan_tpu_torch.train` (one step file or
-a model_dir); without it the weights are random and a warning says so.
+--ckpt is any checkpoint that Detector.from_checkpoint reads: a TF1
+prefix, a JAX-layout .npz (scripts/export_params_npz.py makes one from an
+orbax checkpoint), a .pt of the train or convert CLI, or a train model_dir
+(its newest step); without it the weights are random and a warning says so.
 --int8 (with --no_tta) quantizes the detect path first
 (Detector.quantize_int8), calibrated on the first --calib images; under
 torchrun every rank calibrates on the same images, so the ranks stay
@@ -46,7 +48,8 @@ def parse_args(argv=None):
                     help="torch device; default: the first CUDA card")
     ap.add_argument("--wider_root", required=False)
     ap.add_argument("--ckpt", default=None,
-                    help="checkpoint of dan_tpu_torch.train: a step file or a model_dir")
+                    help="weights: a TF1 checkpoint prefix, a JAX-layout .npz, a .pt of "
+                    "the train or convert CLI, or a train model_dir")
     ap.add_argument("--output_dir", default=None)
     ap.add_argument("--split", default="val")
     ap.add_argument("--gt_mats", default=None, help="official eval_tools/ground_truth dir")
@@ -167,7 +170,7 @@ def infer(args, records, mesh=None):
 
     device = mesh.device if mesh else args.device
     if args.ckpt:
-        det = Detector.from_train_checkpoint(args.ckpt, device=device)
+        det = Detector.from_checkpoint(args.ckpt, device=device)
     else:
         print("WARNING: random weights", file=sys.stderr)
         det = Detector.from_random(device=device)

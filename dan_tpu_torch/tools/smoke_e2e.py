@@ -10,6 +10,10 @@ The default config trains at 640x640 from random weights with the
 synthetic runs' recipe (warm-up 50 steps, global-norm clip 10) on
 `synthetic_batch(cfg, batch, seed=i)`, then runs Detector.detect(score
 threshold 0.05) over eval_n images drawn from np.random.default_rng(10_000).
+The whole run is reproducible: it runs under deterministic() --
+torch.use_deterministic_algorithms(True) with cuDNN's autotuner off, so
+two runs on one card train the same model bit for bit (the LFPN's
+upsample then takes a gradient without atomic adds, models/layers.py).
 --int8 also quantizes the trained detector (Detector.quantize_int8, 8 more
 held-out images for calibration) and scores the int8 detect path the same
 way.  The reference's gates: exit 1 if the hard AP is under 0.5, or, with
@@ -25,12 +29,15 @@ size).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
 import sys
 import time
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from dan_tpu_torch.api import Detector
 from dan_tpu_torch.config import DANConfig, default_config
@@ -56,11 +63,49 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+@contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms(True) and cuDNN's autotuner off,
+    restored on exit.  The mode refuses cuBLAS unless CUBLAS_WORKSPACE_CONFIG
+    is set: it is set here (unless the environment sets it) and unset again
+    on exit.  cuBLAS reads it once, at a process's first cuBLAS call, so it
+    sizes the workspace only where nothing called cuBLAS before (as in
+    `python -m dan_tpu_torch.tools.smoke_e2e`); elsewhere it only satisfies
+    the mode's check.  The mode's filling of every new uninitialized tensor
+    is turned off: no kernel of the port reads memory it has not written,
+    and the fill costs about 5 % of a train step on an H100 (chip_smoke.py
+    phase 18 times the modes)."""
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    if env is None:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    fill = torch.utils.deterministic
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.backends.cudnn.benchmark, fill.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+    fill.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch.backends.cudnn.benchmark = prev[2]
+        fill.fill_uninitialized_memory = prev[3]
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+
+
 def run(args, config: Optional[DANConfig] = None) -> Dict:
     """Train, then evaluate (and with args.int8 quantize and evaluate
     again) -> {'train_s', 'train_img_s', 'loss', 'aps': {tag: {'easy',
     'medium', 'hard'}}, 'tag', 'int8'}, and, unless the training diverged,
-    'detector', 'eval_set' [(key, image)] and 'gts' {key: boxes}."""
+    'detector', 'eval_set' [(key, image)] and 'gts' {key: boxes}.  Runs
+    under deterministic()."""
+    with deterministic():
+        return _run(args, config)
+
+
+def _run(args, config: Optional[DANConfig] = None) -> Dict:
     base = config or default_config()
     cfg = dataclasses.replace(base, train=dataclasses.replace(
         base.train, batch_size=args.batch, learning_rate=args.lr, grad_clip_norm=10.0,

@@ -7,6 +7,7 @@ torchrun it trains data-parallel, one rank a device (cuda:LOCAL_RANK, NCCL;
     python -m dan_tpu_torch.train --synthetic --steps 100 --model_dir /tmp/smoke
     python -m dan_tpu_torch.train --wider_root /data/widerface --model_dir /tmp/run
     python -m dan_tpu_torch.train ... --resume      # continue the newest checkpoint
+    python -m dan_tpu_torch.train ... --warm_start /path/model.ckpt   # start from weights
     torchrun --nproc_per_node 4 -m dan_tpu_torch.train --synthetic --model_dir /tmp/dp
     torchrun --nproc_per_node 2 -m dan_tpu_torch.train ... --device cpu
 
@@ -14,11 +15,18 @@ A resumed run, in either branch, sees the batches that the uninterrupted
 run would have seen from the restored step on.  Rank 0 logs and writes the
 checkpoints; every rank restores them.
 
+--warm_start takes the weights from a checkpoint of any format that
+Detector.from_checkpoint reads (a TF1 prefix, a JAX-layout .npz, a .pt or a
+model_dir; ckpt/load.py), with momentum zero and the step at 0; under
+torchrun every rank loads the same file onto its own device.  --resume wins
+when model_dir already holds a checkpoint.
+
 From random init the reference recipe (lr 1e-3, no warm-up, no clip)
-diverges within a few steps, so a --synthetic run defaults to
---warmup_steps 50 --grad_clip 10, as scripts/train.py does; explicit flags
-win.  A non-finite loss at a logging step aborts with exit code 6 and
-saves nothing.  Metrics go to stderr and to <model_dir>/train_metrics.jsonl.
+diverges within a few steps, so a --synthetic run without --warm_start
+defaults to --warmup_steps 50 --grad_clip 10, as scripts/train.py does;
+explicit flags win.  A non-finite loss at a logging step aborts with exit
+code 6 and saves nothing.  Metrics go to stderr and to
+<model_dir>/train_metrics.jsonl.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import time
 
 from dan_tpu_torch.config import default_config
 from dan_tpu_torch.ckpt import train_state as ckpt
+from dan_tpu_torch.ckpt.load import load_params
 from dan_tpu_torch.data.pipeline import device_prefetch
 from dan_tpu_torch.device import resolve_device
 from dan_tpu_torch.parallel.mesh import place_replicated, shard_batch, torchrun_mesh
@@ -48,6 +57,9 @@ def parse_args(argv=None):
     ap.add_argument("--batch_size", type=int, default=None)
     ap.add_argument("--synthetic", action="store_true", help="synthetic data")
     ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--warm_start", default=None,
+                    help="initial weights: a TF1 checkpoint prefix, .npz, .pt or model_dir "
+                    "(momentum zero, step 0); --resume wins when model_dir has a checkpoint")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--grad_clip", type=float, default=None)
@@ -63,7 +75,7 @@ def parse_args(argv=None):
 def make_config(args):
     cfg = default_config()
     overrides = {}
-    if args.synthetic:
+    if args.synthetic and not args.warm_start:
         if args.warmup_steps is None:
             overrides["warmup_steps"] = 50
         if args.grad_clip is None:
@@ -134,6 +146,9 @@ def train(args, cfg, mesh) -> int:
     if args.resume and ckpt.latest_step(args.model_dir) is not None:
         ckpt.restore(args.model_dir, state)
         say(f"resumed from step {state.step}")
+    elif args.warm_start:
+        state.model.load_state_dict(load_params(args.warm_start, cfg, verbose=lead))
+        say(f"warm-started from {args.warm_start}")
 
     if lead:
         os.makedirs(args.model_dir, exist_ok=True)

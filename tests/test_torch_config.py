@@ -87,9 +87,15 @@ def _port_modules():
     return sorted(names + ["dan_tpu_torch", "chip_smoke"])
 
 
+# What the port and chip_smoke.py must not import: the JAX package, JAX, and
+# what the card's host lacks (TensorFlow, orbax, google_crc32c, protobuf).
+BLOCKED = ("dan_tpu", "jax", "jaxlib", "tensorflow", "orbax", "google_crc32c", "google.protobuf")
+
+
 def test_port_and_chip_smoke_import_with_dan_tpu_and_jax_blocked():
     """Every module of the port and chip_smoke.py import in an interpreter
-    whose finder refuses `dan_tpu`, `jax` and `jaxlib`."""
+    whose finder refuses `dan_tpu`, `jax`, `jaxlib`, `tensorflow`, `orbax`,
+    `google_crc32c` and `google.protobuf`, and none of them is loaded."""
     mods = _port_modules()
     assert "dan_tpu_torch.eval.__main__" in mods and "dan_tpu_torch.data.pipeline" in mods
     assert {"dan_tpu_torch.parallel.mesh", "dan_tpu_torch.parallel.spawn",
@@ -97,16 +103,20 @@ def test_port_and_chip_smoke_import_with_dan_tpu_and_jax_blocked():
     assert {"dan_tpu_torch.quant", "dan_tpu_torch.ops.conv_i8", "dan_tpu_torch.ops.conv_i8_cuda",
             "dan_tpu_torch.ops.quantize_i8_cuda", "dan_tpu_torch.ops.threefry",
             "dan_tpu_torch.tools.smoke_e2e"} <= set(mods)
+    assert {"dan_tpu_torch.ckpt.crc32c", "dan_tpu_torch.ckpt.tf_bundle",
+            "dan_tpu_torch.ckpt.tf_import", "dan_tpu_torch.ckpt.load",
+            "dan_tpu_torch.ckpt.convert"} <= set(mods)
     code = (
         "import importlib, importlib.abc, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('dan_tpu', 'jax', 'jaxlib'):\n"
+        f"        if any(name == b or name.startswith(b + '.') for b in {BLOCKED!r}):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('dan_tpu', 'jax', 'jaxlib'))\n"
+        f"bad = sorted(m for m in sys.modules\n"
+        f"             if any(m == b or m.startswith(b + '.') for b in {BLOCKED!r}))\n"
         "assert not bad, bad\n"
         "print('blocked-import-ok', len(sys.modules))\n"
     )
@@ -172,6 +182,30 @@ def test_clis_raise_without_a_card(module, tmp_path):
     }[module]
     proc = subprocess.run(
         [sys.executable, "-m", module, *args], cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+
+
+def test_checkpoint_entry_points_need_the_card_or_the_cpu(tmp_path):
+    """Detector.from_checkpoint and the train CLI's --warm_start: the CPU on
+    request, an error without a card (before any file is read)."""
+    from dan_tpu_torch.ckpt.load import save_npz
+    from dan_tpu_torch.ckpt.bridge import params_to_jax
+
+    cfg = tiny()
+    npz = str(tmp_path / "w.npz")
+    save_npz(params_to_jax(DANDetector(cfg.model).state_dict()), npz)
+    assert Detector.from_checkpoint(npz, cfg, device="cpu").device.type == "cpu"
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Detector.from_checkpoint(npz, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Detector.from_checkpoint(str(tmp_path / "missing.npz"), cfg)
+    proc = subprocess.run(
+        [sys.executable, "-m", "dan_tpu_torch.train", "--synthetic", "--steps", "1",
+         "--warm_start", npz, "--model_dir", str(tmp_path / "run")], cwd=REPO,
         env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode != 0

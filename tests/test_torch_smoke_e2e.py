@@ -5,6 +5,8 @@ evaluation run and report their AP.  The AP of a two-step model is not
 held to the reference's gates here (the run returns 1 for it); the card
 runs the full recipe (chip_smoke.py phase 18).  The gates themselves are
 held on made-up results."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -84,3 +86,71 @@ def test_main_is_run_then_gates(monkeypatch):
     cfg = tiny()
     assert smoke_e2e.main(["--int8", "--steps", "3"], config=cfg) == 1
     assert seen["config"] is cfg and seen["args"].steps == 3 and seen["args"].int8
+
+
+def test_run_is_deterministic_and_restores_the_flags(monkeypatch):
+    """smoke_e2e runs under torch.use_deterministic_algorithms (cuDNN's
+    autotuner off, CUBLAS_WORKSPACE_CONFIG set) and puts all three back; two
+    runs train the same model."""
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    prev = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.benchmark)
+    seen = []
+    real = smoke_e2e._run
+
+    def spy(args, config=None):
+        seen.append((torch.are_deterministic_algorithms_enabled(),
+                     torch.backends.cudnn.benchmark, os.environ.get("CUBLAS_WORKSPACE_CONFIG")))
+        return real(args, config)
+
+    smoke_e2e._run = spy
+    try:
+        runs = [smoke_e2e.run(smoke_e2e.parse_args(
+            ["--steps", "2", "--batch", "2", "--eval_n", "2", "--device", "cpu"]), tiny())
+            for _ in range(2)]
+    finally:
+        smoke_e2e._run = real
+    assert seen == [(True, False, ":4096:8")] * 2
+    assert (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.benchmark) == prev
+    assert "CUBLAS_WORKSPACE_CONFIG" not in os.environ
+    a, b = (r["detector"].model.state_dict() for r in runs)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert runs[0]["aps"] == runs[1]["aps"] and runs[0]["loss"] == runs[1]["loss"]
+
+
+def _interpolate_grad(x, g):
+    """autograd's gradient of F.interpolate's 2x bilinear upsample, in float64."""
+    x = x.detach().double().requires_grad_()
+    y = torch.nn.functional.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+    return torch.autograd.grad(y, x, g.double())[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", [(5, 7), (1, 1), (4, 3)])
+def test_deterministic_upsample_gradient_equals_interpolate(dtype, hw):
+    """Under the deterministic mode upsample2x's forward is F.interpolate's,
+    bit for bit, and its gradient (sums of slices, in float32 or wider)
+    equals autograd's through F.interpolate on the same (rounded) inputs:
+    to float64 rounding in float64, and within a few units of the dtype's
+    rounding (of the gradient's scale) in float32 and bf16."""
+    from dan_tpu_torch.models.layers import upsample2x
+
+    gen = torch.Generator().manual_seed(hw[0] * 10 + hw[1])
+    x = torch.randn(2, 3, *hw, generator=gen, dtype=torch.float64).to(dtype).requires_grad_()
+    g = torch.randn(2, 3, 2 * hw[0], 2 * hw[1], generator=gen, dtype=torch.float64).to(dtype)
+    torch.use_deterministic_algorithms(True)
+    try:
+        y = upsample2x(x)
+        (got,) = torch.autograd.grad(y, x, g)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert type(y.grad_fn).__name__ == "_Upsample2xBackward"
+    assert torch.equal(y, torch.nn.functional.interpolate(
+        x.detach(), scale_factor=2, mode="bilinear", align_corners=False))
+    assert got.dtype == dtype
+    want = _interpolate_grad(x, g)
+    if dtype == torch.float64:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-13)
+    else:  # four float32 products summed, rounded once to the dtype
+        err = float((got.double() - want).abs().max())
+        unit = {torch.float32: 2.0**-23, torch.bfloat16: 2.0**-8}[dtype]
+        assert err <= 4 * unit * float(g.double().abs().max()), err
