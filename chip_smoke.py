@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Drive the PyTorch port's detect path, train step, TTA evaluation path,
-data parallelism, int8 deployment and checkpoint loading on one CUDA card
-and check them.
+data parallelism, int8 deployment, checkpoint loading and tools on one CUDA
+card and check them.
 
     python3 chip_smoke.py
 
@@ -194,14 +194,35 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      random):
      exit 0, K3 + K4, K5 and K6 once a step (counted), the first step's
      loss equal to train_step's on the source weights and the same batch,
-     and a --resume run continuing from its step-2 checkpoint.
+     and a --resume run continuing from its step-2 checkpoint;
+ 20. the tools, scripts and utils (dan_tpu_torch/tools/, utils/,
+     data/tfrecords.py), each through the entry point a user calls: (a) the
+     demo CLI on a 1024x768 JPEG with phase 19's .pt, its detections equal
+     to Detector.detect's bit for bit and printed as the reference prints
+     them, --out at the input's shape, --tta launching K1 and K8, --int8
+     the int8 kernels; (b) the train CLI, 3 steps at batch 32, with
+     --trace_dir (the trace names the matcher's, the phase-pool backward's
+     and the conv1_2' weight-grad kernels as many times as their counters
+     say), the same steps with --debug_nans timed beside the default, and a
+     NaN in one parameter under --debug_nans: a non-zero exit naming the
+     module, no checkpoint; (c) tools.profile detect at batch 128 and train
+     at batch 32, their device time an iteration beside phases 5 and 10, the
+     hand-written kernels under their own names; (d) the TFRecord roundtrip
+     of the fixture with its MB/s; (e) the fixture soak at its defaults (300
+     steps at batch 8 through the TrainPipeline, then the eval CLI with the
+     official .mat ground truth), K3-K6 once a step, and its eval CLI again
+     in process, K2 once an image; (f) make_synth_wider --n 320 and the
+     eval CLI with TTA on them, K1 and K7 equal to last_run_stats plus the
+     warm-up's one launch a shape; (g) profile_host_feed --n 64.
 
 Phase 12's first half runs before phase 13, its real-data half after it.
 The line before the last is a JSON object describing each kernel, with the
-least time the card could take for this run's inputs (`bound_ms`); the last
+least time the card could take for this run's inputs (`bound_ms`) and its
+launches in phase 20 (`launches_tools`); the last
 line is {"ok": true, "device": {...}}.  Imports no JAX and nothing of the
 JAX package.
 """
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -225,7 +246,7 @@ from dan_tpu_torch.box.matching import MatchTargets, match_anchors
 from dan_tpu_torch.ckpt import convert as ckpt_convert
 from dan_tpu_torch.ckpt import train_state as ckpt
 from dan_tpu_torch.ckpt.bridge import params_to_jax
-from dan_tpu_torch.ckpt.crc32c import crc32c
+from dan_tpu_torch.utils.crc32c import crc32c
 from dan_tpu_torch.ckpt.load import load_params, save_npz
 from dan_tpu_torch.ckpt.tf_bundle import shard_path, write_bundle
 from dan_tpu_torch.ckpt.tf_import import (
@@ -899,7 +920,7 @@ def main() -> int:
     errs, cases = phase9(tcfg, dev)
 
     # -- 10. the train step, counted ------------------------------------------
-    launches = phase10(tcfg, dev, smi)
+    launches, train_step_ms = phase10(tcfg, dev, smi)
 
     # -- 11. train kernel timing -----------------------------------------------
     train_ms, train_bounds = phase11(cases, smi)
@@ -925,8 +946,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase18(dev, smi)
 
-    # -- 19. checkpoint loading ------------------------------------------------
-    ck = phase19(cfg, dev, smi)
+    # -- 19. checkpoint loading; 20. the tools -----------------------------------
+    with tempfile.TemporaryDirectory() as d:
+        ck = phase19(cfg, dev, smi, d)
+        tools = phase20(cfg, dev, smi, d, bench_ms, train_step_ms)
 
     n_rows, n_box = BATCH, post.pre_nms_topk
     # NMS: 20 bytes a box in, its rank out; for every selected box an IoU, a
@@ -946,14 +969,14 @@ def main() -> int:
          "bound_by": b_nms[1], "dependent_steps": int(nms_tiles.max()),
          "kept": int(kept_rows.max()), "library_ms": None,
          "launches_dp_ranks": [r["nms"] for r in dp_launches["tta"]],
-         "launches_ckpt": ck["nms_batched"]},
+         "launches_ckpt": ck["nms_batched"], "launches_tools": tools["K1"]},
         {"name": "greedy_nms_rank (B=1)", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "dan_tpu/ops/nms_pallas.py:34", "launches": launches_one,
          "max_abs_err": err_1, "ms": ms["kernel1"], "argmax_loop_ms": ms["argmax1"],
          "argmax_loop_swapped_ms": ms["swapped1"],
          "plain_ms": ms["plain1"], "bound_ms": b_nms1[0], "bound_by": b_nms1[1],
          "dependent_steps": int(nms_tiles[0]), "kept": int(kept_rows[0]), "library_ms": None,
-         "launches_ckpt": ck["nms_one"]},
+         "launches_ckpt": ck["nms_one"], "launches_tools": tools["K2"]},
     ]
     for name, (_, src, replaces) in TRAIN_KERNELS.items():
         entry = {
@@ -962,7 +985,7 @@ def main() -> int:
             "ms": train_ms[name]["kernel"], "plain_ms": train_ms[name]["plain"],
             "library_ms": train_ms[name].get("library"),
             "launches_dp_ranks": [r[name] for r in dp_launches["train"]],
-            "launches_ckpt": ck["train"][name]}
+            "launches_ckpt": ck["train"][name], "launches_tools": tools[name]}
         if name == "conv12_wgrad":
             plan = train_bounds["conv12_wgrad tiling"]
             seg = conv12_wgrad_cuda.SEGMENT
@@ -991,14 +1014,15 @@ def main() -> int:
          "device_ms": tta_ms["vote"]["device"], "plain_ms": tta_ms["vote"]["plain"],
          "bound_ms": tta_bounds["vote"][0], "bound_by": tta_bounds["vote"][1],
          "dependent_steps": tta_bounds["vote"][2], "outputs": tta_bounds["vote"][3],
-         "library_ms": None, "launches_dp_ranks": [r["bbox_vote"] for r in dp_launches["tta"]]},
+         "library_ms": None, "launches_dp_ranks": [r["bbox_vote"] for r in dp_launches["tta"]],
+         "launches_tools": tools["K7"]},
         {"name": "bbox_vote (B=1)", "route": "cuda", "source": vote_src,
          "replaces": "dan_tpu/ops/bbox_vote_pallas.py:30", "launches": tta["vote_launches_one"],
          "max_abs_err": vote_err, "ms": tta_ms["vote1"]["kernel"],
          "device_ms": tta_ms["vote1"]["device"], "plain_ms": tta_ms["vote1"]["plain"],
          "bound_ms": tta_bounds["vote1"][0], "bound_by": tta_bounds["vote1"][1],
          "dependent_steps": tta_bounds["vote1"][2], "outputs": tta_bounds["vote1"][3],
-         "library_ms": None},
+         "library_ms": None, "launches_tools": tools["K8"]},
         {"name": "greedy_nms_blocked", "route": "cuda",
          "source": "dan_tpu_torch/csrc/nms_blocked.cu",
          "replaces": "dan_tpu/ops/nms_blocked_pallas.py:39",
@@ -1008,7 +1032,8 @@ def main() -> int:
                       "rank_to_result; launch_ms is the two passes alone",
          "plain_ms": tta_ms["blocked"]["plain"],
          "bound_ms": tta_bounds["blocked"][0], "bound_by": tta_bounds["blocked"][1],
-         "dependent_steps": tta_bounds["blocked"][2], "library_ms": None},
+         "dependent_steps": tta_bounds["blocked"][2], "library_ms": None,
+         "launches_tools": tools["K9"]},
     ]
     kernels.append(
         {"name": "conv_i8", "route": "cuda", "source": f"dan_tpu_torch/csrc/{INT8_SOURCE}.cu",
@@ -1022,7 +1047,8 @@ def main() -> int:
                       "layer's im2col; bound_ms counts conv1_2' as the 3x3 conv it computes "
                       "(the packed 2x2 form's zero taps left out)",
          "launches_per_forward": i8["launches"] // i8["iters"],
-         "bench_ms": i8["ms_i8"], "bench_bf16_ms": i8["ms_bf"]})
+         "bench_ms": i8["ms_i8"], "bench_bf16_ms": i8["ms_bf"],
+         "launches_tools": tools["conv_i8"]})
     kernels.append(
         {"name": "quantize_i8", "route": "cuda", "source": f"dan_tpu_torch/csrc/{QUANT_SOURCE}.cu",
          "replaces": "dan_tpu/quant.py:383-394 (no TPU kernel: XLA's fused relu + "
@@ -1030,7 +1056,8 @@ def main() -> int:
          "launches": i8["quant"]["launches"],
          "max_abs_err": max(quant_err, i8["quant"]["err"]), "ms": i8["quant"]["ms"],
          "plain_ms": i8["quant"]["plain"], "bound_ms": i8["quant"]["bound"][0],
-         "bound_by": i8["quant"]["bound"][1], "library_ms": None})
+         "bound_by": i8["quant"]["bound"][1], "library_ms": None,
+         "launches_tools": tools["quantize_i8"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1194,7 +1221,8 @@ def phase9(cfg, dev):
 
 
 def phase10(cfg, dev, smi):
-    """The train step on the card; returns each train kernel's launches."""
+    """The train step on the card; returns each train kernel's launches and
+    the mean ms of a timed step."""
     state = create_train_state(cfg, SEED, dev)
     batch = synthetic_batch(cfg, TRAIN_BATCH, seed=SEED)
     fresh = [synthetic_batch(cfg, TRAIN_BATCH, seed=100 + i) for i in range(12)]
@@ -1279,7 +1307,7 @@ def phase10(cfg, dev, smi):
         f"latest checkpoint step {last}")
     if (rc1, rc2, [r["step"] for r in logged], last) != (0, 0, [1, 2], 2):
         raise AssertionError("train CLI run or resume failed")
-    return launches
+    return launches, float(step_ms.mean())
 
 
 def profile_steps(step, batches):
@@ -3145,12 +3173,315 @@ def phase19c(prefix, sd_cpu, dev, d):
     return launches
 
 
-def phase19(cfg, dev, smi):
-    with tempfile.TemporaryDirectory() as d:
-        prefix, sd_cpu, launches = phase19a(cfg, dev, smi, d)
-        phase19b(cfg, d)
-        launches["train"] = phase19c(prefix, sd_cpu, dev, d)
+def phase19(cfg, dev, smi, d):
+    """Phase 19 in the directory d, where it leaves dan.pt for phase 20."""
+    prefix, sd_cpu, launches = phase19a(cfg, dev, smi, d)
+    phase19b(cfg, d)
+    launches["train"] = phase19c(prefix, sd_cpu, dev, d)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the tools, scripts and utils: phase 20
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+COUNTERS = {"nms": nms_cuda, "vote": bbox_vote_cuda, "blocked": nms_blocked_cuda,
+            "matcher": matching_cuda, "phase_pool_bwd": phase_pool_cuda,
+            "conv12_wgrad": conv12_wgrad_cuda, "conv_i8": conv_i8_cuda,
+            "quantize_i8": quantize_i8_cuda}
+TOOLS_STEPS = 3  # train CLI steps of phase 20b
+SOAK_N = 320  # images of phase 20f's synthetic-val soak (the documented one: 3,226)
+
+
+def is_kernel(trace_name: str, kernel: str) -> bool:
+    """Whether a profiler's kernel name ("name(args)", "void name<T>(args)",
+    "ns::name(args)" or "name") names `kernel`."""
+    import re
+
+    return re.search(rf"(?:^|[ :]){kernel}(?:[<(]|$)", trace_name) is not None
+
+
+# Every launch that counted() read in phase 20, by COUNTERS key.
+COUNTED = collections.Counter()
+
+
+def counted(fn):
+    """(fn(), every kernel's launches in it): every count set to 0 just
+    before, read just after, and added to COUNTED."""
+    for mod in COUNTERS.values():
+        mod.LAUNCHES = 0
+    out = fn()
+    c = {k: mod.LAUNCHES for k, mod in COUNTERS.items()}
+    COUNTED.update(c)
+    return out, c
+
+
+def quiet(fn):
+    """(fn(), what it printed to stdout and stderr), the two kept apart."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        res = fn()
+    return res, out.getvalue(), err.getvalue()
+
+
+def demo_lines(det_out, out_path=None):
+    lines = [f"{len(det_out['scores'])} detections"] + [
+        f"  [{b[0]:7.1f} {b[1]:7.1f} {b[2]:7.1f} {b[3]:7.1f}] {s:.3f}"
+        for b, s in zip(det_out["bboxes"], det_out["scores"])]
+    return lines + ([f"wrote {out_path}"] if out_path else [])
+
+
+def phase20a(cfg, dev, tools, d, pt):
+    """The demo CLI on a 1024x768 JPEG with phase 19's .pt: its detections
+    == Detector.detect's bit for bit, --out at the input's shape, --tta
+    (K1 + K8), --int8 (conv_i8 + quantize_i8 + K2)."""
+    import cv2
+
+    from dan_tpu_torch.data.widerface import load_image_rgb
+    from dan_tpu_torch.tools import demo
+
+    img = np.random.default_rng(SEED + 20).integers(0, 255, (768, 1024, 3), dtype=np.uint8)
+    path, drawn = os.path.join(d, "demo.jpg"), os.path.join(d, "demo_out.jpg")
+    cv2.imwrite(path, img[:, :, ::-1])
+    rgb = load_image_rgb(path)
+    base = ["--image", path, "--ckpt", pt, "--score_threshold", "0.05"]
+    (res, printed, _), plain = counted(lambda: quiet(
+        lambda: demo.run(demo.parse_args(base + ["--out", drawn]))))
+    want = Detector.from_checkpoint(pt, cfg, dev).detect(rgb, score_threshold=0.05)
+    if not same_detections([res[0]], [want]) or len(want["scores"]) == 0:
+        raise AssertionError("phase 20a: the demo's detections differ from Detector.detect's")
+    if printed.splitlines() != demo_lines(want, drawn):
+        raise AssertionError("phase 20a: the demo printed other lines than detect's detections")
+    shape = cv2.imread(drawn).shape
+    if shape != rgb.shape:
+        raise AssertionError(f"phase 20a: --out wrote {shape} for an input of {rgb.shape}")
+    (res_t, _, _), tta = counted(lambda: quiet(
+        lambda: demo.run(demo.parse_args(base + ["--tta"]))))
+    (res_8, _, err8), i8 = counted(lambda: quiet(
+        lambda: demo.run(demo.parse_args(base + ["--int8"]))))
+    log(f"phase 20a: python -m dan_tpu_torch.tools.demo on a 1024x768 JPEG with phase 19's .pt "
+        f"(score threshold 0.05): {len(want['scores'])} detections, boxes and scores "
+        f"bit-identical to Detector.detect's and printed as the reference prints them; --out "
+        f"{shape}; launches: plain {plain}; --tta {len(res_t[0]['scores'])} detections, {tta}; "
+        f"--int8 {len(res_8[0]['scores'])} detections ({err8.strip().splitlines()[-1]}), {i8}")
+    if plain["nms"] != 1 or not (tta["nms"] and tta["vote"]) or not (
+            i8["conv_i8"] and i8["quantize_i8"] and i8["nms"]):
+        raise AssertionError("phase 20a: the demo did not launch K2, K1 + K8 (--tta) or the "
+                             "int8 kernels (--int8)")
+    if not all(np.isfinite(r[0]["bboxes"]).all() for r in (res_t, res_8)):
+        raise AssertionError("phase 20a: non-finite --tta or --int8 detections")
+    tools.update({"K2": plain["nms"] + i8["nms"], "K1": tta["nms"], "K8": tta["vote"],
+                  "conv_i8": i8["conv_i8"], "quantize_i8": i8["quantize_i8"]})
+
+
+def trace_kernels(path):
+    """{kernel name: launches} of a Chrome trace's device kernels."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    want = MATCHER_KERNELS + ("phase_pool_bwd_kernel", "wgrad_kernel")
+    return {k: sum(is_kernel(n, k) for n in names) for k in want}
+
+
+def logged_step_ms(model_dir):
+    """ms a step between the first and the last logged step (host clock of
+    the train CLI's log, which reads each step's loss)."""
+    with open(os.path.join(model_dir, "train_metrics.jsonl")) as f:
+        t = [json.loads(line)["time"] for line in f]
+    return (t[-1] - t[0]) * 1e3 / (len(t) - 1)
+
+
+def phase20b(dev, smi, tools, d, pt):
+    """The train CLI: --trace_dir (the trace names K3/K4, K5 and K6 as many
+    times as they launched), --debug_nans timed beside the default, and a
+    NaN in one parameter under --debug_nans (non-zero exit naming the module,
+    no checkpoint)."""
+    from dan_tpu_torch.utils.profiling import trace_path
+
+    common = ["--synthetic", "--steps", str(TOOLS_STEPS), "--batch_size", str(TRAIN_BATCH),
+              "--log_every", "1", "--checkpoint_every", str(TOOLS_STEPS)]
+    runs = {k: os.path.join(d, f"train_{k}") for k in ("trace", "default", "debug")}
+    trace_dir = os.path.join(d, "train_trace")
+    rc, c_trace = counted(lambda: train_cli.main(
+        common + ["--model_dir", runs["trace"], "--trace_dir", trace_dir]))
+    seen = trace_kernels(trace_path(trace_dir))
+    size = os.path.getsize(trace_path(trace_dir))
+    want = {**{k: c_trace["matcher"] for k in MATCHER_KERNELS},
+            "phase_pool_bwd_kernel": c_trace["phase_pool_bwd"],
+            "wgrad_kernel": c_trace["conv12_wgrad"]}
+    log(f"phase 20b: python -m dan_tpu_torch.train main() --steps {TOOLS_STEPS} --batch_size "
+        f"{TRAIN_BATCH} --trace_dir: rc {rc}; trace {size / 1e6:.1f} MB, kernels in it {seen}; "
+        f"launch counters {c_trace}")
+    if rc != 0 or any(seen[k] != n for k, n in want.items()) or c_trace["matcher"] != TOOLS_STEPS:
+        raise AssertionError("phase 20b: the trace does not name K3/K4, K5 and K6 as many times "
+                             "as they launched")
+    # In turns: default, --debug_nans, --debug_nans, default.
+    ms, rcs, c_def, c_dbg = {"default": [], "debug": []}, [], collections.Counter(), \
+        collections.Counter()
+    for i, kind in enumerate(("default", "debug", "debug", "default")):
+        run = os.path.join(d, f"train_{kind}_{i}")
+        extra = ["--debug_nans"] if kind == "debug" else []
+        rc_i, c = counted(lambda: train_cli.main(common + ["--model_dir", run] + extra))
+        rcs.append(rc_i)
+        (c_dbg if kind == "debug" else c_def).update(c)
+        ms[kind].append(logged_step_ms(run))
+    ms_d, ms_g = np.mean(ms["default"]), np.mean(ms["debug"])
+    log(f"  the same {TOOLS_STEPS} steps in turns: default {ms['default']} ms a step, "
+        f"--debug_nans {ms['debug']} ({ms_g / ms_d:.2f}x; host clock of the log from step 1 to "
+        f"{TOOLS_STEPS}, each step reading its loss; {smi}); rc {rcs}")
+    if rcs != [0] * 4 or c_dbg != c_def:
+        raise AssertionError("phase 20b: --debug_nans changed the launches or failed a clean run")
+    sd = torch.load(pt, weights_only=True)["model"]
+    sd["backbone.conv3_1.weight"].view(-1)[0] = float("nan")
+    nan_pt, nan_dir = os.path.join(d, "nan.pt"), os.path.join(d, "train_nan")
+    torch.save({"model": sd}, nan_pt)
+    proc = subprocess.run(
+        [sys.executable, "-m", "dan_tpu_torch.train", *common[:5], "--checkpoint_every", "1",
+         "--model_dir", nan_dir, "--warm_start", nan_pt, "--debug_nans", "--warmup_steps", "50",
+         "--grad_clip", "10"],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
+        timeout=600)
+    saved = [f for f in os.listdir(nan_dir) if f.startswith("step_")] if os.path.isdir(
+        nan_dir) else []
+    last = proc.stderr.strip().splitlines()[-1] if proc.stderr.strip() else ""
+    log(f"  a NaN in backbone.conv3_1.weight under --debug_nans (a subprocess): rc "
+        f"{proc.returncode}, \"{last}\", checkpoints {saved}")
+    if proc.returncode == 0 or "backbone.conv3_1 (Conv)" not in last or saved:
+        raise AssertionError("phase 20b: --debug_nans did not stop at the poisoned module")
+    for k in ("matcher", "phase_pool_bwd", "conv12_wgrad"):
+        tools[k] += c_trace[k] + c_def[k] + c_dbg[k]
+
+
+def phase20c(dev, smi, tools, d, bench_ms, train_ms):
+    """tools.profile detect at batch 128 and train at batch 32: the device
+    time an iteration beside phases 5 and 10; the hand-written kernels by
+    name in the tables."""
+    from dan_tpu_torch.tools import profile as profile_tool
+
+    rows = {}
+    for graph, batch, phase_ms, phase in (("detect", BATCH, bench_ms, "phase 5's bench step"),
+                                          ("train", TRAIN_BATCH, train_ms,
+                                           "phase 10's train step")):
+        (ips, dev_ms, table), c = counted(lambda: profile_tool.profile(
+            graph, batch, 3, 12, os.path.join(d, f"profile_{graph}"), dev))
+        rows[graph] = [r.name for r in table]
+        log(f"phase 20c: tools.profile {graph} at batch {batch}: {ips:.1f} img/s warm (host "
+            f"clock), device kernel time {dev_ms:.3f} ms an iteration (profiler) against "
+            f"{phase} {phase_ms:.3f} ms (CUDA events; {smi}); {len(table)} rows; launches {c}")
+        if graph == "detect":
+            tools["K1"] += c["nms"]
+        else:
+            for k in ("matcher", "phase_pool_bwd", "conv12_wgrad"):
+                tools[k] += c[k]
+    named = {"detect": ("nms_rank_kernel",),
+             "train": MATCHER_KERNELS + ("phase_pool_bwd_kernel", "wgrad_kernel")}
+    for graph, kernels in named.items():
+        missing = [k for k in kernels if not any(is_kernel(n, k) for n in rows[graph])]
+        if missing:
+            raise AssertionError(f"phase 20c: {missing} not in the {graph} table")
+
+
+def phase20de(dev, smi, tools, d):
+    """The TFRecord roundtrip of the fixture with its MB/s, then the fixture
+    soak at the reference's defaults, then its eval CLI again in process,
+    counted."""
+    from dan_tpu_torch.tools import soak_fixture_e2e as soak
+
+    _, t_w, t_r, size = soak.tfrecord_roundtrip(os.path.join(d, "tfr_only"))
+    log(f"phase 20d: TFRecord roundtrip of the fixture (20 images, 4 shards, {size / 1e6:.2f} "
+        f"MB): write {t_w:.3f} s = {size / 1e6 / t_w:.1f} MB/s (cv2 decode for (h, w) "
+        f"included), read + CRC check {t_r:.3f} s = {size / 1e6 / t_r:.1f} MB/s (host "
+        f"numbers of the card's host, numpy)")
+    work = os.path.join(d, "soak")
+    res, c = counted(lambda: soak.run(soak.parse_args(["--work_dir", work])))
+    ap = [ln for ln in res["eval_stdout"].splitlines() if "AP" in ln]
+    log(f"phase 20e: python -m dan_tpu_torch.tools.soak_fixture_e2e main() at its defaults "
+        f"(300 steps, batch 8, TrainPipeline of 4 workers a producer): {res['img_s']:.1f} img/s "
+        f"(host clock, feed included; {smi}), last loss {res['loss']:.4f}; train launches "
+        f"{ {k: c[k] for k in ('matcher', 'phase_pool_bwd', 'conv12_wgrad')} }; the eval CLI "
+        f"(a subprocess): {ap}")
+    if any(c[k] != 300 for k in ("matcher", "phase_pool_bwd", "conv12_wgrad")):
+        raise AssertionError("phase 20e: the soak's train steps did not launch K3-K6 once each")
+    argv = ["--wider_root", soak.FIX, "--ckpt", res["model_dir"], "--no_tta", "--output_dir",
+            os.path.join(d, "soak_preds"), "--gt_mats",
+            os.path.join(soak.FIX, "eval_tools", "ground_truth")]
+    (rc, out, _), c_eval = counted(lambda: quiet(lambda: eval_cli.main(argv)))
+    log(f"  the same eval CLI in process: rc {rc}, {out.strip().splitlines()[-1]}; NMS "
+        f"launches {c_eval['nms']} (K2, one an image)")
+    if rc != 0 or c_eval["nms"] != 20:
+        raise AssertionError("phase 20e: the eval CLI did not launch K2 once an image")
+    for k in ("matcher", "phase_pool_bwd", "conv12_wgrad"):
+        tools[k] += c[k]
+    tools["K2"] += c_eval["nms"]
+
+
+def phase20f(dev, smi, tools, d):
+    """The synthetic-val soak at SOAK_N images: make_synth_wider, then the
+    eval CLI with TTA on; K1 and K7 counted against last_run_stats."""
+    import ast
+    import re
+
+    from dan_tpu_torch.tools import make_synth_wider
+
+    root = os.path.join(d, "synth")
+    t0 = time.perf_counter()
+    _, made, _ = quiet(lambda: make_synth_wider.main(["--out", root, "--n", str(SOAK_N)]))
+    t_make = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (rc, out, err), c = counted(lambda: quiet(lambda: eval_cli.main(
+        ["--wider_root", root, "--output_dir", os.path.join(d, "synth_preds")])))
+    secs = time.perf_counter() - t0
+    stats = ast.literal_eval(re.search(r"\[tta\] stats: (\{.*\})", err).group(1))
+    warmed = int(re.search(r"\[tta\] warmed (\d+) launch shapes", err).group(1))
+    run_line = re.search(r"\[tta\] \d+ images in .*", err).group(0)
+    log(f"phase 20f: make_synth_wider --n {SOAK_N} ({t_make:.1f} s) then python -m "
+        f"dan_tpu_torch.eval --wider_root <it> (TTA): rc {rc}, {run_line}; the CLI "
+        f"{SOAK_N / secs:.2f} images/s end to end incl. warm-up, decode and AP (host clock; "
+        f"{smi}); stats {stats}; launches K1 {c['nms']}, K7 {c['vote']} ({warmed} shapes "
+        f"warmed, one launch each); {out.strip().splitlines()[-1]}")
+    if rc != 0 or stats["images"] != SOAK_N or (c["nms"], c["vote"]) != (
+            stats["bucket_launches"] + warmed - 1, stats["vote_launches"] + 1):
+        raise AssertionError("phase 20f: K1 / K7 launches differ from last_run_stats + warm-up")
+    tools["K1"] += c["nms"]
+    tools["K7"] += c["vote"]
+
+
+def phase20g():
+    from dan_tpu_torch.tools import profile_host_feed
+
+    res, out, _ = quiet(lambda: profile_host_feed.run(profile_host_feed.parse_args(
+        ["--n", "64"])))
+    log("phase 20g: python -m dan_tpu_torch.tools.profile_host_feed --n 64 (host only, the "
+        f"card's host, {os.cpu_count()} cores):")
+    for line in out.strip().splitlines():
+        log(f"  {line}")
+    if not res["per_img_ms"] > 0:
+        raise AssertionError("phase 20g: no host feed cost")
+
+
+def phase20(cfg, dev, smi, d, bench_ms, train_ms):
+    """The tools, scripts and utils of the port (dan_tpu_torch/tools/,
+    utils/, data/tfrecords.py) on the card; returns each kernel's launches
+    in them, by kernels-line entry."""
+    import cv2
+
+    log(f"phase 20: cv2 {cv2.__version__} is on this host: every part (a)-(g) runs")
+    tools = collections.Counter()
+    COUNTED.clear()
+    pt = os.path.join(d, "dan.pt")
+    phase20a(cfg, dev, tools, d, pt)
+    phase20b(dev, smi, tools, d, pt)
+    phase20c(dev, smi, tools, d, bench_ms, train_ms)
+    phase20de(dev, smi, tools, d)
+    phase20f(dev, smi, tools, d)
+    phase20g()
+    tools["K9"] = COUNTED["blocked"]
+    if tools["K9"]:
+        raise AssertionError(f"phase 20: the blocked NMS, on no path, launched {tools['K9']} "
+                             "times on the tools' paths")
+    log(f"phase 20: launches of the tools' paths {dict(tools)}")
+    return tools
 
 
 if __name__ == "__main__":

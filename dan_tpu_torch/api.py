@@ -83,7 +83,8 @@ class Detector:
         cls, path: str, config: Optional[DANConfig] = None, device=None
     ) -> "Detector":
         """Weights from a checkpoint of any format that ckpt/load.py reads:
-        a TF1 prefix (non-strict: uncovered leaves keep the port's init), a
+        a TF1 prefix (non-strict: uncovered leaves get the JAX package's
+        PRNGKey(0) init), a
         JAX-layout .npz, a .pt of the train or convert CLI, or a train
         model_dir (its newest step).  Loaded on the CPU, then moved to the
         device once."""

@@ -7,8 +7,8 @@ scripts/convert_ckpt.py), on the host, without TensorFlow:
 The file holds {"model": state_dict}, the payload key of the train CLI's
 step files, so Detector.from_checkpoint, the eval CLI's --ckpt and the
 train CLI's --warm_start take it.  Without --strict, detector parameters
-the checkpoint does not cover keep the port's init (a warm start from the
-VGG-16 classifier); with it, any such parameter or shape mismatch fails.
+the checkpoint does not cover get the JAX package's PRNGKey(0) init (a warm
+start from the VGG-16 classifier); with it, any such parameter or shape mismatch fails.
 """
 from __future__ import annotations
 

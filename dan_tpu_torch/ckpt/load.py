@@ -17,8 +17,8 @@
 
 An orbax directory (one holding `params/` or `step_<digits>/`) is refused
 with the export command: the card host has no orbax.  Every format but a
-non-strict TF import (a warm start, whose uncovered leaves keep the port's
-init) is checked against `DANDetector(config.model)`: another
+non-strict TF import (a warm start, whose uncovered leaves get the JAX
+package's PRNGKey(0) init) is checked against `DANDetector(config.model)`: another
 architecture's checkpoint fails here, listing the missing, extra and
 mismatched names, instead of deep inside the first forward.
 """

@@ -17,7 +17,7 @@ A bundle with prefix P is `P.index` and the data shards
   * the index block maps a separator key (>= every key of its block) to
     the BlockHandle of each data block.
 
-Values are protobuf messages, decoded by the small wire-format reader below.
+Values are protobuf messages, decoded by utils/protowire.py.
 The key "" holds the BundleHeaderProto (num_shards 1, endianness 2,
 version 3); every other key a BundleEntryProto (dtype 1, shape 2, shard_id
 3, offset 4, size 5, crc32c 6 as fixed32, slices 7).  Proto3 leaves out
@@ -43,7 +43,12 @@ from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 
-from dan_tpu_torch.ckpt.crc32c import crc32c, mask, unmask
+from dan_tpu_torch.utils.crc32c import crc32c, mask, unmask
+from dan_tpu_torch.utils.protowire import WireError
+from dan_tpu_torch.utils.protowire import fields as _fields
+from dan_tpu_torch.utils.protowire import put_field as _put_field
+from dan_tpu_torch.utils.protowire import put_varint as _put_varint
+from dan_tpu_torch.utils.protowire import varint as _varint
 
 MAGIC = 0xDB4775248B80FB57
 FOOTER_LEN = 48
@@ -73,69 +78,6 @@ _OTHER_DTYPES = {7: "string", 8: "complex64", 11: "qint8", 12: "quint8", 13: "qi
 
 class BundleError(ValueError):
     """A bundle this reader cannot read, or one whose bytes are damaged."""
-
-
-# -- wire format ---------------------------------------------------------------
-
-def _varint(buf, pos: int) -> Tuple[int, int]:
-    result, shift = 0, 0
-    while True:
-        if pos >= len(buf):
-            raise BundleError("truncated varint")
-        b = buf[pos]
-        pos += 1
-        result |= (b & 0x7F) << shift
-        if not b & 0x80:
-            return result, pos
-        shift += 7
-        if shift > 63:
-            raise BundleError("varint longer than 10 bytes")
-
-
-def _put_varint(out: bytearray, v: int) -> None:
-    while v >= 0x80:
-        out.append((v & 0x7F) | 0x80)
-        v >>= 7
-    out.append(v)
-
-
-def _fields(buf) -> Iterator[Tuple[int, int, object]]:
-    """(field number, wire type, value) of a protobuf message: an int for
-    varint and fixed fields, bytes for length-delimited ones."""
-    pos = 0
-    while pos < len(buf):
-        tag, pos = _varint(buf, pos)
-        field, wire = tag >> 3, tag & 7
-        if wire == 0:
-            value, pos = _varint(buf, pos)
-        elif wire == 1:
-            value = struct.unpack_from("<Q", buf, pos)[0]
-            pos += 8
-        elif wire == 2:
-            n, pos = _varint(buf, pos)
-            value = bytes(buf[pos:pos + n])
-            pos += n
-        elif wire == 5:
-            value = struct.unpack_from("<I", buf, pos)[0]
-            pos += 4
-        else:
-            raise BundleError(f"protobuf wire type {wire} is not supported")
-        if pos > len(buf):
-            raise BundleError("truncated protobuf message")
-        yield field, wire, value
-
-
-def _put_field(out: bytearray, field: int, value, wire: int = 0) -> None:
-    _put_varint(out, field << 3 | wire)
-    if wire == 0:
-        _put_varint(out, value)
-    elif wire == 2:
-        _put_varint(out, len(value))
-        out += value
-    elif wire == 5:
-        out += struct.pack("<I", value)
-    else:
-        raise ValueError(wire)
 
 
 @dataclass
@@ -367,6 +309,13 @@ class BundleReader:
 
     def __init__(self, prefix: str):
         self.prefix = prefix
+        try:
+            self._read_index()
+        except WireError as e:  # a damaged varint or protobuf value
+            raise BundleError(f"{prefix}.index: {e}") from e
+
+    def _read_index(self) -> None:
+        prefix = self.prefix
         with open(prefix + ".index", "rb") as f:
             data = f.read()
         if len(data) < FOOTER_LEN:

@@ -10,10 +10,10 @@ the OIHW transpose lives).  The name rules, the slot and bookkeeping skips
 and the VGG-16 classifier fc6/fc7 subsampling are copies of the JAX
 package's, so both packages place the same variables.
 
-Leaves the checkpoint does not cover keep the port's own initialisation
-(`DANDetector(config)`, a torch.Generator seeded with 0), not the JAX
-package's `init_detector_params(PRNGKey(0))`: a partial (warm-start)
-checkpoint leaves other values there in the two packages.
+Leaves the checkpoint does not cover get the JAX package's init,
+`init_detector_params(PRNGKey(0))`, as its importer gives them: drawn in
+numpy by models/reference_init.py, only for those leaves (the bits exactly,
+a kernel within 4 ulp of JAX's).
 """
 from __future__ import annotations
 
@@ -23,9 +23,9 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from dan_tpu_torch.ckpt.bridge import params_to_jax
 from dan_tpu_torch.ckpt.tf_bundle import BundleReader, write_bundle
 from dan_tpu_torch.config import ModelConfig
+from dan_tpu_torch.models.reference_init import reference_specs
 
 # (regex on the TF variable name) -> (params section, layer key, leaf key).
 # Applied in order; first match wins.  {m} groups substitute into targets.
@@ -109,12 +109,12 @@ class ImportReport:
 
 def import_tf_checkpoint(ckpt_path: str, model_config: ModelConfig) -> ImportReport:
     """The importer's work, without the printing and the strict check."""
-    from dan_tpu_torch.models.detector import DANDetector
-
     reader = BundleReader(ckpt_path)
     shapes = reader.get_variable_to_shape_map()
 
-    params = params_to_jax(DANDetector(model_config).state_dict())
+    specs = reference_specs(0, model_config)
+    params = {section: {layer: dict.fromkeys(leaves) for layer, leaves in layers.items()}
+              for section, layers in specs.items()}
 
     placed, unmapped, mismatched = set(), [], []
     for var_name in sorted(shapes):
@@ -125,18 +125,18 @@ def import_tf_checkpoint(ckpt_path: str, model_config: ModelConfig) -> ImportRep
             continue
         section, layer, leaf = target
         try:
-            dst = params[section][layer][leaf]
+            shape = specs[section][layer][leaf].shape
         except KeyError:
             unmapped.append(var_name)
             continue
         value = reader.get_tensor(var_name)
-        if tuple(value.shape) != tuple(dst.shape):
-            adapted = _adapt_vgg_fc(value, dst.shape, layer)
+        if tuple(value.shape) != shape:
+            adapted = _adapt_vgg_fc(value, shape, layer)
             if adapted is None:
-                mismatched.append((var_name, tuple(value.shape), tuple(dst.shape)))
+                mismatched.append((var_name, tuple(value.shape), shape))
                 continue
             value = adapted
-        params[section][layer][leaf] = value.astype(dst.dtype)
+        params[section][layer][leaf] = value.astype(np.float32)
         placed.add((section, layer, leaf))
 
     missing = [
@@ -146,6 +146,9 @@ def import_tf_checkpoint(ckpt_path: str, model_config: ModelConfig) -> ImportRep
         for leaf in leaves
         if (section, layer, leaf) not in placed
     ]
+    for name in missing:
+        section, layer, leaf = name.split("/")
+        params[section][layer][leaf] = specs[section][layer][leaf].value()
     return ImportReport(params, placed, missing, unmapped, mismatched)
 
 
@@ -158,7 +161,8 @@ def load_tf_checkpoint(
     """Read a TF checkpoint prefix into a parameter tree in the JAX
     package's layout (numpy leaves).
 
-    Missing model params keep the port's init (warm-start semantics);
+    Missing model params get the JAX package's PRNGKey(0) init (warm-start
+    semantics, models/reference_init.py);
     unmapped checkpoint vars are reported.  strict=True raises if any MODEL
     param was left unplaced or any shape mismatched; unmapped
     checkpoint-side extras alone never fail strict mode (TF1 checkpoints

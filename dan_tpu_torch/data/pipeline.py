@@ -258,6 +258,7 @@ class TrainPipeline:
             num_producers = max(1, min(4, (_os.cpu_count() or 1) // 2))
         self.num_producers = max(1, int(num_producers))
         self._stop = threading.Event()
+        self._threads: List[threading.Thread] = []
 
     def _epoch_perm(self, epoch: int) -> np.ndarray:
         """Shuffle for one epoch, derived from (seed, epoch) so any
@@ -310,7 +311,7 @@ class TrainPipeline:
             # silently kill this thread and hang training on q.get().
             _put_or_stop(q, e, stop)
         finally:
-            pool.shutdown(wait=False)
+            pool.shutdown(wait=True, cancel_futures=True)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         # One queue per producer; the consumer walks them in step order so
@@ -324,10 +325,12 @@ class TrainPipeline:
         # exit without ever enqueuing (consumer hangs on q.get() forever).
         # Generators still holding the old event keep seeing it set.
         self._stop = stop = threading.Event()
-        for k in range(self.num_producers):
-            threading.Thread(
-                target=self._producer, args=(k, stop, qs[k]), daemon=True
-            ).start()
+        self._threads = [
+            threading.Thread(target=self._producer, args=(k, stop, qs[k]), daemon=True)
+            for k in range(self.num_producers)
+        ]
+        for t in self._threads:
+            t.start()
         try:
             i = 0
             while True:
@@ -340,4 +343,9 @@ class TrainPipeline:
             stop.set()
 
     def stop(self):
+        """Stop the producers and wait until they and their decode threads
+        are done (a producer finishes the batch it is building), so that no
+        read of a record's file outlives the call."""
         self._stop.set()
+        for t in self._threads:
+            t.join()

@@ -29,6 +29,7 @@ Progress and statistics go to stderr; the last line of stdout is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -227,11 +228,8 @@ def main(argv=None) -> int:
         if args.int8 and not args.no_tta:
             ap.error("--int8 requires --no_tta (the TTA path runs in the compute dtype)")
         mesh = torchrun_mesh(default_config().mesh, args.device)
-        try:
+        with mesh if mesh is not None else contextlib.nullcontext():
             predictions = infer(args, records, mesh)
-        finally:
-            if mesh is not None:
-                mesh.close()
         if mesh is not None and mesh.rank != 0:
             return 0
 

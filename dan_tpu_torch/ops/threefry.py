@@ -1,9 +1,12 @@
 """A numpy copy of `jax.random`'s default generator, threefry2x32, for the
-scalar draws of the train-time augmentation: `prng_key`, `split`,
-`uniform`, `bernoulli` and `randint` give the bits and the values that
-`jax.random.PRNGKey`, `split`, `uniform`, `bernoulli` and `randint` give
-for the same key, so that a port train run draws the JAX package's
-augmentation numbers from the same per-image seeds.
+scalar draws of the train-time augmentation and the arrays of the JAX
+package's parameter init: `prng_key`, `split`, `random_bits`, `uniform`,
+`bernoulli`, `randint` and `normal` give the bits and the values that
+`jax.random.PRNGKey`, `split`, `bits`, `uniform`, `bernoulli`, `randint`
+and `normal` give for the same key, so that a port train run draws the JAX
+package's augmentation numbers from the same per-image seeds, and a
+partial checkpoint's uncovered leaves get the JAX package's init
+(models/reference_init.py).
 
 It follows JAX's defaults as of jax 0.9.0: `jax_threefry_partitionable =
 True` (a split and the random bits hash the 64-bit iota of the output
@@ -16,11 +19,20 @@ shape; a scalar key gives a numpy scalar.  XLA compiles uniform's
 so `uniform` rounds that product-sum once (`_fma_f32`); a separate
 multiply and add differ in the last bit for about half of all draws.
 
+An array draw (`shape` given) takes a scalar key and hashes the 64-bit
+row-major index of each element as the counter (high word, low word).
+`normal` is sqrt(2) * erf_inv of a uniform on (nextafter(-1, 0), 1), with
+XLA's float32 erf_inv (Giles' polynomials, its multiply-adds fused as XLA
+fuses them on the CPU); numpy's log1p and XLA's differ in the last bit, so
+about 1.3 % of the normals differ from JAX's by 1 to 3 ulp (the bits and
+the uniforms are exact).
+
     key = prng_key(seed)                     # jax.random.PRNGKey(seed)
     k_color, k_flip = split(key)             # jax.random.split(key)
     u = uniform(k, -0.1, 0.1)                # jax.random.uniform(k, (), minval=, maxval=)
     on = bernoulli(k, 0.5)                   # jax.random.bernoulli(k, 0.5)
     i = randint(k, 0, 4)                     # jax.random.randint(k, (), 0, 4)
+    w = normal(k, (3, 3, 64, 128))           # jax.random.normal(k, (3, 3, 64, 128))
     keys = prng_key(np.array([3, 4, 5]))     # jax.vmap(jax.random.PRNGKey)(seeds)
 """
 from __future__ import annotations
@@ -78,11 +90,18 @@ def split(key: Key, num: int = 2) -> List[Key]:
     return [(_scalar(hi[j]), _scalar(lo[j])) for j in range(num)]
 
 
-def random_bits(key: Key) -> np.ndarray:
-    """32 random bits for a scalar shape: the two words of the hash of the
-    counter (0, 0), xor'd."""
-    hi, lo = threefry2x32(key, np.zeros((), np.uint32), np.zeros((), np.uint32))
-    return _scalar(hi ^ lo)
+def random_bits(key: Key, shape: Tuple[int, ...] = ()) -> np.ndarray:
+    """jax.random.bits(key, shape): for each element the two words of the
+    hash of its row-major index (high word, low word), xor'd; a scalar
+    shape hashes (0, 0) for every key of an array of keys."""
+    if shape == ():
+        hi, lo = threefry2x32(key, np.zeros((), np.uint32), np.zeros((), np.uint32))
+        return _scalar(hi ^ lo)
+    if np.ndim(key[0]):
+        raise ValueError("an array draw takes a scalar key")
+    i = np.arange(int(np.prod(shape, dtype=np.int64)), dtype=np.uint64)
+    hi, lo = threefry2x32(key, (i >> np.uint64(32)).astype(np.uint32), i.astype(np.uint32))
+    return (hi ^ lo).reshape(shape)
 
 
 def _fma_f32(a, b, c) -> np.ndarray:
@@ -105,11 +124,12 @@ def _fma_f32(a, b, c) -> np.ndarray:
     return np.where(tie, toward, r)
 
 
-def uniform(key: Key, minval: float = 0.0, maxval: float = 1.0):
-    """jax.random.uniform(key, (), float32, minval, maxval): 23 random
+def uniform(key: Key, minval: float = 0.0, maxval: float = 1.0,
+            shape: Tuple[int, ...] = ()):
+    """jax.random.uniform(key, shape, float32, minval, maxval): 23 random
     mantissa bits under the exponent of 1.0, minus 1, scaled in float32."""
     lo, hi = np.float32(minval), np.float32(maxval)
-    bits = (np.asarray(random_bits(key)) >> np.uint32(9)) | np.float32(1.0).view(np.uint32)
+    bits = (np.asarray(random_bits(key, shape)) >> np.uint32(9)) | np.float32(1.0).view(np.uint32)
     u = bits.view(np.float32) - np.float32(1.0)
     return _scalar(np.maximum(lo, _fma_f32(u, np.float32(hi - lo), lo)))
 
@@ -132,3 +152,37 @@ def randint(key: Key, minval: int, maxval: int):
         multiplier = np.uint32(multiplier * multiplier) % span
         offset = ((higher % span) * multiplier + lower % span) % span
     return _scalar(np.int64(minval) + offset.astype(np.int64))
+
+
+# XLA's float32 erf_inv (Giles, "Approximating the erfinv function"): a
+# degree-8 polynomial in w - 2.5 where w = -log1p(-x * x) < 5, else in
+# sqrt(w) - 3, times x.  Highest coefficient first.
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                 0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                 0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x) -> np.ndarray:
+    """lax.erf_inv on float32 as XLA computes it on the CPU, Horner steps
+    fused into one rounding each; +-1 give +-inf."""
+    x = np.asarray(x, np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        w = -np.log1p(-(x * x))
+        small = w < np.float32(5)
+        w = np.where(small, w - np.float32(2.5), np.sqrt(w) - np.float32(3)).astype(np.float32)
+        coef = [np.where(small, np.float32(a), np.float32(b))
+                for a, b in zip(_ERFINV_SMALL, _ERFINV_LARGE)]
+        p = coef[0]
+        for c in coef[1:]:
+            p = _fma_f32(p, w, c)
+        return np.where(np.abs(x) == 1, x * np.float32(np.inf), p * x)
+
+
+def normal(key: Key, shape: Tuple[int, ...] = ()):
+    """jax.random.normal(key, shape) in float32: sqrt(2) * erf_inv(u), u
+    uniform on (nextafter(-1, 0), 1).  Within 3 ulp of JAX's, and equal to
+    it for about 98.7 % of the draws (see the module's docstring)."""
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    u = uniform(key, lo, 1.0, shape)
+    return _scalar(np.float32(np.sqrt(2)) * erf_inv(u))

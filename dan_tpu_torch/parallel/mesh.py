@@ -57,10 +57,25 @@ class Mesh:
         per = batch_size // self.size
         return slice(self.rank * per, (self.rank + 1) * per)
 
-    def close(self) -> None:
-        """Destroy the process group (every rank calls it at the end)."""
+    def close(self, sync: bool = True) -> None:
+        """Destroy the process group (every rank calls it at the end).
+
+        sync: first wait for every rank (a barrier, bounded by the group's
+        timeout), so that no rank tears down its connections while another
+        still reads from them; gloo aborts a rank whose peer closed a pair
+        mid-exchange.  A rank that failed passes False: it has no barrier
+        to meet, the others may be stuck in a collective."""
         if dist.is_initialized():
+            if sync:
+                dist.barrier()
             dist.destroy_process_group()
+
+    def __enter__(self) -> "Mesh":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        """close(), with the barrier only when the block raised nothing."""
+        self.close(sync=exc_type is None)
 
 
 def _env_int(name: str) -> Optional[int]:

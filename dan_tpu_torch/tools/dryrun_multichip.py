@@ -176,8 +176,7 @@ def train_rank(
     (params_digest), "launches" (the kernels' counts in the steps),
     "allreduce_ms" (one all-reduce of a buffer of the gradients' size),
     "ooms" (allocator_ooms) and on rank 0 the final "state"."""
-    mesh = rank_mesh(rank, world_size, init_method, device, backend)
-    try:
+    with rank_mesh(rank, world_size, init_method, device, backend) as mesh:
         state = create_train_state(cfg, init if isinstance(init, int) else 0, mesh.device)
         if not isinstance(init, int):
             ckpt.load_payload(state, init)
@@ -216,8 +215,6 @@ def train_rank(
         if rank == 0:
             out["state"] = ckpt.state_payload(state)
         return out
-    finally:
-        mesh.close()
 
 
 def tta_rank(
@@ -238,8 +235,7 @@ def tta_rank(
     "launches": kernel counts of the run, "s": seconds of the run, "ooms":
     allocations that ran out of device memory (allocator_ooms), "memory":
     memory_peaks}."""
-    mesh = rank_mesh(rank, world_size, init_method, device, backend)
-    try:
+    with rank_mesh(rank, world_size, init_method, device, backend) as mesh:
         model = DANDetector(cfg.model)
         model.load_state_dict(model_state)
         det = Detector(model, cfg, device=mesh.device)
@@ -253,8 +249,6 @@ def tta_rank(
         return {"results": results, "stats": dict(det._get_tta_runner().last_run_stats),
                 "launches": counters(), "s": time.perf_counter() - t0,
                 "ooms": allocator_ooms(mesh.device), "memory": memory_peaks(mesh.device)}
-    finally:
-        mesh.close()
 
 
 def allocator_ooms(device: torch.device) -> int:
@@ -314,8 +308,7 @@ def _sync(device: torch.device) -> None:
 def legs_rank(rank: int, world_size: int, init_method: str, device: str,
               backend: Optional[str], model_dir: str) -> dict:
     """The three legs on this rank; returns what rank 0 reports."""
-    mesh = rank_mesh(rank, world_size, init_method, device, backend)
-    try:
+    with rank_mesh(rank, world_size, init_method, device, backend) as mesh:
         cfg = tiny_config(world_size, "float32" if mesh.device.type == "cpu" else "bfloat16")
         state = create_train_state(cfg, 0, mesh.device)
         place_replicated(state, mesh)
@@ -356,8 +349,6 @@ def legs_rank(rank: int, world_size: int, init_method: str, device: str,
         return {"train": m1, "continuity": (ma["loss"], mb["loss"], rel),
                 "digest": digest, "dets": {k: len(v["scores"]) for k, v in results.items()},
                 "results": results, "tta_stats": dict(runner.last_run_stats)}
-    finally:
-        mesh.close()
 
 
 def dryrun_multichip(n: int, device: str = "cpu", backend: Optional[str] = None,

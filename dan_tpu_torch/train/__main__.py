@@ -24,20 +24,30 @@ when model_dir already holds a checkpoint.
 From random init the reference recipe (lr 1e-3, no warm-up, no clip)
 diverges within a few steps, so a --synthetic run without --warm_start
 defaults to --warmup_steps 50 --grad_clip 10, as scripts/train.py does;
-explicit flags win.  A non-finite loss at a logging step aborts with exit
-code 6 and saves nothing.  Metrics go to stderr and to
-<model_dir>/train_metrics.jsonl.
+explicit flags win.  A non-finite loss at a logging step writes its record
+and aborts with exit code 6, saving nothing.  Metrics go to stderr and to
+<model_dir>/train_metrics.jsonl (utils/logging.py's MetricsLogger; the
+throughput key is images_per_sec_per_chip, the global rate over the ranks).
+
+    python -m dan_tpu_torch.train ... --trace_dir /tmp/trace   # torch.profiler trace of the steps
+    python -m dan_tpu_torch.train ... --debug_nans             # raise at the first non-finite value
+
+--trace_dir writes a Chrome trace of the step loop, one file a rank
+(utils/profiling.py).  --debug_nans is the counterpart of the reference's
+jax_debug_nans: train_step checks every module's output, runs the backward
+in autograd's anomaly mode and checks the loss and the gradients before the
+update, so the run exits non-zero with a FloatingPointError naming the
+module (or the parameter) before any poisoned parameter is updated or
+saved.  It waits for the device at every module; without it the step is
+unchanged.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
-import json
 import math
-import os
 import sys
-import time
 
 
 from dan_tpu_torch.config import default_config
@@ -47,6 +57,8 @@ from dan_tpu_torch.data.pipeline import device_prefetch
 from dan_tpu_torch.device import resolve_device
 from dan_tpu_torch.parallel.mesh import place_replicated, shard_batch, torchrun_mesh
 from dan_tpu_torch.train.loop import create_train_state, train_step
+from dan_tpu_torch.utils.logging import MetricsLogger
+from dan_tpu_torch.utils.profiling import ThroughputMeter, maybe_trace
 
 
 def parse_args(argv=None):
@@ -66,6 +78,11 @@ def parse_args(argv=None):
     ap.add_argument("--warmup_steps", type=int, default=None)
     ap.add_argument("--checkpoint_every", type=int, default=None)
     ap.add_argument("--log_every", type=int, default=None)
+    ap.add_argument("--debug_nans", action="store_true",
+                    help="raise at the first non-finite module output, loss or gradient, "
+                    "before the update (the counterpart of jax_debug_nans)")
+    ap.add_argument("--trace_dir", default=None,
+                    help="write a torch.profiler Chrome trace of the step loop here")
     ap.add_argument("--device", default=None,
                     help="torch device; default: the first CUDA card (under torchrun "
                     "cuda:LOCAL_RANK); cpu under torchrun runs the ranks on gloo")
@@ -125,11 +142,9 @@ def main(argv=None) -> int:
         raise SystemExit("pass --synthetic or --wider_root")
     cfg = make_config(args)
     mesh = torchrun_mesh(cfg.mesh, args.device)
-    try:
+    # On a mesh every rank meets a barrier before the teardown, unless it raised.
+    with mesh if mesh is not None else contextlib.nullcontext():
         return train(args, cfg, mesh)
-    finally:
-        if mesh is not None:
-            mesh.close()
 
 
 def train(args, cfg, mesh) -> int:
@@ -150,36 +165,35 @@ def train(args, cfg, mesh) -> int:
         state.model.load_state_dict(load_params(args.warm_start, cfg, verbose=lead))
         say(f"warm-started from {args.warm_start}")
 
-    if lead:
-        os.makedirs(args.model_dir, exist_ok=True)
-    t0 = time.time()
-    t_last, n_last = time.perf_counter(), 0
     data = device_prefetch(batches(args, cfg, state.step, mesh), device)
-    log_path = os.path.join(args.model_dir, "train_metrics.jsonl")
-    with open(log_path, "a") if lead else contextlib.nullcontext() as log:
-        while state.step < total_steps:
-            metrics = train_step(state, next(data), mesh=mesh)
-            n_last += 1
-            step = state.step
-            if step % log_every == 0:
-                rec = {k: float(v) for k, v in metrics.items()}  # waits for the device
-                if not math.isfinite(rec["loss"]):  # the same on every rank
-                    say(
-                        f"FATAL: non-finite loss at step {step}: training diverged. "
-                        "From random init pass --warmup_steps 50 --grad_clip 10 "
-                        "(or a lower --lr)."
-                    )
-                    return 6
-                now = time.perf_counter()
-                rec["images_per_sec"] = n_last * cfg.train.batch_size / (now - t_last)
-                t_last, n_last = now, 0
-                if lead:
-                    log.write(json.dumps({"step": step, "time": round(time.time() - t0, 3),
-                                          **rec}) + "\n")
-                    log.flush()
-                say(f"step {step} " + " ".join(f"{k}={v:.5g}" for k, v in rec.items()))
-            if step % cfg.train.checkpoint_every == 0 or step == total_steps:
-                say(f"saving {ckpt.save(args.model_dir, step, state, mesh)}")
+    logger = MetricsLogger(args.model_dir) if lead else None
+    meter = ThroughputMeter(cfg.train.batch_size, mesh.size if mesh else 1)
+    try:
+        with maybe_trace(args.trace_dir):
+            while state.step < total_steps:
+                metrics = train_step(state, next(data), mesh=mesh, debug_nans=args.debug_nans)
+                meter.tick()
+                step = state.step
+                if step % log_every == 0:
+                    rec = {k: float(v) for k, v in metrics.items()}  # waits for the device
+                    if not math.isfinite(rec["loss"]):  # the same on every rank
+                        if logger:
+                            logger.log(step, rec)
+                        say(
+                            f"FATAL: non-finite loss at step {step}: training diverged. "
+                            "From random init pass --warmup_steps 50 --grad_clip 10 "
+                            "(or a lower --lr)."
+                        )
+                        return 6
+                    rec["images_per_sec_per_chip"] = meter.images_per_sec_per_chip
+                    if logger:
+                        logger.log(step, rec)
+                    meter.reset()
+                if step % cfg.train.checkpoint_every == 0 or step == total_steps:
+                    say(f"saving {ckpt.save(args.model_dir, step, state, mesh)}")
+    finally:
+        if logger:
+            logger.close()
     return 0
 
 

@@ -30,11 +30,23 @@ and dan_tpu/data/pipeline.py (numpy arrays: canvas, crop_x0, crop_y0,
 crop_size, boxes, mask, seed).  The per-image augmentation draws are taken
 on the host from the batch's `seed`, as the JAX package's
 jax.random.PRNGKey(seed) draws them (ops/threefry.py).
+
+`train_step(..., debug_nans=True)` is the counterpart of jax_debug_nans:
+every module's output is checked as it is made (FloatingPointError naming
+the first module whose output is not finite), the backward runs under
+autograd's anomaly mode with its NaN check, and the loss and the gradients
+are checked before the update, so a non-finite step raises before any
+parameter changes.  The checks wait for the device at every module.  On a
+mesh the loss and gradient check runs after the all-reduce, so every rank
+raises there; a module's hook or anomaly mode raises on its own rank only,
+and the other ranks wait in the all-reduce until the mesh's timeout, or
+until torchrun stops them when that rank exits.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Mapping, Optional
+from typing import Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
@@ -136,6 +148,51 @@ def loss_and_grads(
     return dict(zip(named, grads)), metrics
 
 
+def _all_finite(out) -> bool:
+    if isinstance(out, torch.Tensor):
+        return not out.is_floating_point() or bool(torch.isfinite(out).all())
+    if isinstance(out, dict):
+        return all(_all_finite(v) for v in out.values())
+    if isinstance(out, (tuple, list)):
+        return all(_all_finite(v) for v in out)
+    return True
+
+
+@contextlib.contextmanager
+def nan_guard(model: torch.nn.Module) -> Iterator[None]:
+    """A forward hook on every module of `model` that raises
+    FloatingPointError when the module's output is not finite (a module
+    returns after its children, so the first to raise is the innermost
+    one), and autograd's anomaly mode with its NaN check; both removed on
+    exit."""
+    def hook(name):
+        def check(module, inputs, output):
+            if not _all_finite(output):
+                raise FloatingPointError(
+                    f"debug_nans: the output of {name} ({type(module).__name__}) is not finite")
+        return check
+
+    handles = [m.register_forward_hook(hook(name or "the model"))
+               for name, m in model.named_modules()]
+    try:
+        with torch.autograd.set_detect_anomaly(True, check_nan=True):
+            yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def check_finite(grads: Mapping[str, torch.Tensor], metrics: Mapping[str, torch.Tensor]) -> None:
+    """Raise FloatingPointError naming a non-finite loss or the first
+    parameter whose gradient is not finite (one wait for the device)."""
+    if not bool(torch.isfinite(metrics["loss"])):
+        raise FloatingPointError(f"debug_nans: the loss is {float(metrics['loss'])}")
+    ok = torch.stack([torch.isfinite(g).all() for g in grads.values()]).cpu()
+    if not bool(ok.all()):
+        name = list(grads)[int((~ok).nonzero()[0])]
+        raise FloatingPointError(f"debug_nans: the gradient of {name} is not finite")
+
+
 # Metrics whose per-rank shares sum to the global batch's (num_pos is
 # global already, and grad_norm is taken from the summed gradients).
 _SUMMED_METRICS = ("loss", "cls_loss", "loc_loss", "num_neg_selected")
@@ -146,20 +203,27 @@ def train_step(
     batch: Mapping[str, np.ndarray],
     draws: Optional[AugmentDraws] = None,
     mesh: Optional[Mesh] = None,
+    debug_nans: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """One step in place; returns the metrics as 0-d device tensors (loss,
     cls_loss, loc_loss, num_pos, num_neg_selected, grad_norm before the
     clip).  With a mesh, `batch` and `draws` are this rank's rows and the
     metrics are the global batch's, the same on every rank.  Nothing here
-    waits for the device, but a gloo collective waits for its inputs."""
+    waits for the device, but a gloo collective waits for its inputs.
+    debug_nans: raise FloatingPointError before the update at the first
+    non-finite module output, loss or gradient (see the module's
+    docstring)."""
     images, targets = preprocess_and_match(batch, state.config, state.device, draws)
     total_pos = None
     if mesh is not None:
         total_pos = all_reduce_sum((targets.cls_target == 1).sum(), mesh)
-    grads, metrics = loss_and_grads(state, images, targets, total_pos)
+    with nan_guard(state.model) if debug_nans else contextlib.nullcontext():
+        grads, metrics = loss_and_grads(state, images, targets, total_pos)
     if mesh is not None:
         grads, summed = all_reduce_grads(grads, {k: metrics[k] for k in _SUMMED_METRICS}, mesh)
         metrics.update(summed)
+    if debug_nans:
+        check_finite(grads, metrics)
     named = dict(state.model.named_parameters())
     metrics["grad_norm"] = sgd_update(named, grads, state.momentum, state.step, state.config.train)
     state.step += 1

@@ -224,8 +224,16 @@ def test_convert_cli_strict_refuses_a_partial_bundle(source, tmp_path):
     assert proc.returncode == 0 and "2 model params left at init" in proc.stdout
     got = torch.load(tmp_path / "n.pt", weights_only=True)["model"]
     assert torch.equal(got["heads.loc_conv3_3.weight"], source[0]["heads.loc_conv3_3.weight"])
-    init = DANDetector(tiny().model).state_dict()  # the port's own init, seed 0
-    assert torch.equal(got["heads.cls_conv3_3.weight"], init["heads.cls_conv3_3.weight"])
+    # The uncovered leaves get the JAX package's init_detector_params(PRNGKey(0)):
+    # the heads' key, then the first of its 12 convs, drawn here by JAX itself.
+    k_heads = jax.random.split(jax.random.PRNGKey(0), 3)[2]
+    shape = (3, 3, 256, 4)  # conv3_3's head: 256 channels in, 3 background + 1 face out
+    init = np.asarray(jax.random.normal(jax.random.split(k_heads, 12)[0], shape)
+                      * (2.0 / (9 * 256)) ** 0.5)
+    kernel = got["heads.cls_conv3_3.weight"].permute(2, 3, 1, 0).numpy()
+    ulps = np.abs(kernel.view(np.int32).astype(np.int64) - init.view(np.int32).astype(np.int64))
+    assert kernel.shape == shape and ulps.max() <= 4
+    assert not got["heads.cls_conv3_3.bias"].any()
 
 
 def _losses(model_dir):

@@ -103,7 +103,7 @@ def test_port_and_chip_smoke_import_with_dan_tpu_and_jax_blocked():
     assert {"dan_tpu_torch.quant", "dan_tpu_torch.ops.conv_i8", "dan_tpu_torch.ops.conv_i8_cuda",
             "dan_tpu_torch.ops.quantize_i8_cuda", "dan_tpu_torch.ops.threefry",
             "dan_tpu_torch.tools.smoke_e2e"} <= set(mods)
-    assert {"dan_tpu_torch.ckpt.crc32c", "dan_tpu_torch.ckpt.tf_bundle",
+    assert {"dan_tpu_torch.utils.crc32c", "dan_tpu_torch.ckpt.tf_bundle",
             "dan_tpu_torch.ckpt.tf_import", "dan_tpu_torch.ckpt.load",
             "dan_tpu_torch.ckpt.convert"} <= set(mods)
     code = (

@@ -1,5 +1,5 @@
 """The port's TF V2 bundle reader and writer (dan_tpu_torch/ckpt/tf_bundle.py)
-and its CRC-32C (ckpt/crc32c.py) against TensorFlow: bundles TF writes
+and its CRC-32C (utils/crc32c.py) against TensorFlow: bundles TF writes
 (tf.raw_ops.SaveV2, the op under tf.train.Saver, and a Saver itself) read
 bit-identically to tf.train.load_checkpoint, bundles the port writes read
 bit-identically through TF, and damaged or unsupported bundles raise.
@@ -14,7 +14,7 @@ import torch
 tf = pytest.importorskip("tensorflow")
 google_crc32c = pytest.importorskip("google_crc32c")
 
-from dan_tpu_torch.ckpt import crc32c as port_crc  # noqa: E402
+from dan_tpu_torch.utils import crc32c as port_crc  # noqa: E402
 from dan_tpu_torch.ckpt import tf_bundle  # noqa: E402
 from dan_tpu_torch.ckpt.tf_bundle import BundleError, BundleReader, write_bundle  # noqa: E402
 
@@ -273,6 +273,16 @@ def test_big_endian_header_and_compressed_block_are_refused(tmp_path):
         "<I", port_crc.mask(port_crc.crc32c(bytes(data[off:off + size + 1]))))
     open(prefix + ".index", "wb").write(bytes(data))
     with pytest.raises(BundleError, match="compression type 1"):
+        BundleReader(prefix)
+
+
+def test_a_truncated_entry_value_raises_a_bundle_error(tmp_path):
+    prefix = str(tmp_path / "m")
+    write_bundle(prefix, {"x": np.ones(3, np.float32)})
+    # The entry's last field is its fixed32 CRC: one byte short is a
+    # truncated protobuf message, in a block whose own CRC is valid.
+    _rewrite_index(prefix, lambda k, v: v[:-1] if k == b"x" else v)
+    with pytest.raises(BundleError, match="truncated protobuf message"):
         BundleReader(prefix)
 
 
