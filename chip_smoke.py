@@ -1,14 +1,15 @@
 #!/usr/bin/env python
 """Drive the PyTorch port's detect path, train step, TTA evaluation path,
-data parallelism, int8 deployment, checkpoint loading and tools on one CUDA
-card and check them.
+data parallelism, int8 deployment, checkpoint loading, tools and host C++
+helpers on one CUDA card and its host, and check them.
 
     python3 chip_smoke.py
 
 Phases (each raises on failure; the exit code is 0 only if all pass):
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build every CUDA source (csrc/*.cu, one nvcc each, all at once) and
-     print the NMS kernel's build time;
+     print the NMS kernel's build time; then the two host C++ helpers
+     (native/*.cc, g++);
   3. compare the NMS kernel with its plain PyTorch version on the card,
      ranks, indices and valid flags identical, and the path each row took
      (`nms_cuda.LAST_PATHS`: tile scan for a sorted row, argmax loop
@@ -213,12 +214,36 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      official .mat ground truth), K3-K6 once a step, and its eval CLI again
      in process, K2 once an image; (f) make_synth_wider --n 320 and the
      eval CLI with TTA on them, K1 and K7 equal to last_run_stats plus the
-     warm-up's one launch a shape; (g) profile_host_feed --n 64.
+     warm-up's one launch a shape ((g), profile_host_feed, runs in 21e);
+ 21. the host C++ helpers (dan_tpu_torch/native/) on the card's host: (a) a
+     probe: PIL's version and the libjpeg it ships, that library's
+     libjpeg-turbo symbols (nm -D, or ctypes), g++'s version, each
+     library's build seconds; the phase fails if a libjpeg is found and the
+     loader does not load; (b) overlaps.cc: bbox_overlaps bit for bit
+     against the numpy IoU on 3,000 x 1,000 seeded boxes, image_eval bit
+     for bit against the numpy matcher on 50 seeded images, and the eval CLI
+     with --no_tta and the official .mat gt on the fixture with phase 20e's
+     trained model: K2 once an image, the same AP with and without the
+     native matcher; (c) loader.cc: the native batch equal to the cv2 batch
+     at window 'full', byte for byte, every key, over the fixture's 20
+     images, 64 synthetic JPEGs 1024 wide and 16 re-encoded at 4:2:0 /
+     4:4:4, quality 60-99 and progressive, with no fallback row; at 'crop'
+     the train preprocess and matcher targets on the card equal to the cv2
+     batch's bit for bit; an EXIF-rotated JPEG and a PNG take the fallback;
+     (d) TrainPipeline (native, crop window) -> device_prefetch ->
+     train_step, 20 steps at batch 8, 640x640, the synthetic recipe, on the
+     64 JPEGs: K3 + K4, K5 and K6 once a step, every loss finite; (e)
+     profile_host_feed --n 64: the per-image stages of the native and the
+     cv2 path (decode ms an image at 'crop' and 'full', one thread), the
+     pipeline's img/s at 1/2/4 producers on each, and the cores one card's
+     train step needs.  Without a libjpeg on the host, (c)-(e) print why
+     they did not run.
 
 Phase 12's first half runs before phase 13, its real-data half after it.
 The line before the last is a JSON object describing each kernel, with the
-least time the card could take for this run's inputs (`bound_ms`) and its
-launches in phase 20 (`launches_tools`); the last
+least time the card could take for this run's inputs (`bound_ms`), its
+launches in phase 20 (`launches_tools`) and in phase 21
+(`launches_native`); the last
 line is {"ok": true, "device": {...}}.  Imports no JAX and nothing of the
 JAX package.
 """
@@ -260,6 +285,7 @@ from dan_tpu_torch.eval import __main__ as eval_cli
 from dan_tpu_torch.eval.tta import TTARunner, VoteRows, plan_variant_buckets
 from dan_tpu_torch.eval.widerface_ap import evaluate_widerface
 from dan_tpu_torch.eval.writer import load_detection_dir, write_wider_detections
+from dan_tpu_torch import native
 from dan_tpu_torch.ops import (
     _cuda_build,
     bbox_vote_cuda,
@@ -650,6 +676,9 @@ def main() -> int:
         f"{KERNEL_SOURCE} " + (f"in {secs:.3f} s" if secs is not None else "was already built"))
     for line in _cuda_build.ptxas_summary("nms"):
         log(f"  ptxas: {line}")
+    native.load()
+    native.load_loader()
+    log(f"phase 2: host helpers (g++, seconds; None = found built): {native.BUILD_SECONDS}")
 
     # -- 3. kernel vs plain on the card ---------------------------------------
     cfg = default_config()
@@ -949,7 +978,8 @@ def main() -> int:
     # -- 19. checkpoint loading; 20. the tools -----------------------------------
     with tempfile.TemporaryDirectory() as d:
         ck = phase19(cfg, dev, smi, d)
-        tools = phase20(cfg, dev, smi, d, bench_ms, train_step_ms)
+        tools, soak_dir = phase20(cfg, dev, smi, d, bench_ms, train_step_ms)
+        nat = phase21(dev, smi, d, soak_dir)
 
     n_rows, n_box = BATCH, post.pre_nms_topk
     # NMS: 20 bytes a box in, its rank out; for every selected box an IoU, a
@@ -976,7 +1006,8 @@ def main() -> int:
          "argmax_loop_swapped_ms": ms["swapped1"],
          "plain_ms": ms["plain1"], "bound_ms": b_nms1[0], "bound_by": b_nms1[1],
          "dependent_steps": int(nms_tiles[0]), "kept": int(kept_rows[0]), "library_ms": None,
-         "launches_ckpt": ck["nms_one"], "launches_tools": tools["K2"]},
+         "launches_ckpt": ck["nms_one"], "launches_tools": tools["K2"],
+         "launches_native": nat["nms"]},
     ]
     for name, (_, src, replaces) in TRAIN_KERNELS.items():
         entry = {
@@ -985,7 +1016,8 @@ def main() -> int:
             "ms": train_ms[name]["kernel"], "plain_ms": train_ms[name]["plain"],
             "library_ms": train_ms[name].get("library"),
             "launches_dp_ranks": [r[name] for r in dp_launches["train"]],
-            "launches_ckpt": ck["train"][name], "launches_tools": tools[name]}
+            "launches_ckpt": ck["train"][name], "launches_tools": tools[name],
+            "launches_native": nat[name]}
         if name == "conv12_wgrad":
             plan = train_bounds["conv12_wgrad tiling"]
             seg = conv12_wgrad_cuda.SEGMENT
@@ -3414,6 +3446,7 @@ def phase20de(dev, smi, tools, d):
     for k in ("matcher", "phase_pool_bwd", "conv12_wgrad"):
         tools[k] += c[k]
     tools["K2"] += c_eval["nms"]
+    return res["model_dir"]
 
 
 def phase20f(dev, smi, tools, d):
@@ -3447,41 +3480,361 @@ def phase20f(dev, smi, tools, d):
     tools["K7"] += c["vote"]
 
 
-def phase20g():
-    from dan_tpu_torch.tools import profile_host_feed
-
-    res, out, _ = quiet(lambda: profile_host_feed.run(profile_host_feed.parse_args(
-        ["--n", "64"])))
-    log("phase 20g: python -m dan_tpu_torch.tools.profile_host_feed --n 64 (host only, the "
-        f"card's host, {os.cpu_count()} cores):")
-    for line in out.strip().splitlines():
-        log(f"  {line}")
-    if not res["per_img_ms"] > 0:
-        raise AssertionError("phase 20g: no host feed cost")
-
-
 def phase20(cfg, dev, smi, d, bench_ms, train_ms):
     """The tools, scripts and utils of the port (dan_tpu_torch/tools/,
     utils/, data/tfrecords.py) on the card; returns each kernel's launches
-    in them, by kernels-line entry."""
+    in them, by kernels-line entry, and the fixture soak's model dir."""
     import cv2
 
-    log(f"phase 20: cv2 {cv2.__version__} is on this host: every part (a)-(g) runs")
+    log(f"phase 20: cv2 {cv2.__version__} is on this host: every part (a)-(f) runs")
     tools = collections.Counter()
     COUNTED.clear()
     pt = os.path.join(d, "dan.pt")
     phase20a(cfg, dev, tools, d, pt)
     phase20b(dev, smi, tools, d, pt)
     phase20c(dev, smi, tools, d, bench_ms, train_ms)
-    phase20de(dev, smi, tools, d)
+    soak_dir = phase20de(dev, smi, tools, d)
     phase20f(dev, smi, tools, d)
-    phase20g()
     tools["K9"] = COUNTED["blocked"]
     if tools["K9"]:
         raise AssertionError(f"phase 20: the blocked NMS, on no path, launched {tools['K9']} "
                              "times on the tools' paths")
     log(f"phase 20: launches of the tools' paths {dict(tools)}")
-    return tools
+    return tools, soak_dir
+
+
+# ---------------------------------------------------------------------------
+# the host C++ helpers (dan_tpu_torch/native/): phase 21
+# ---------------------------------------------------------------------------
+
+TURBO_SYMBOLS = ("jpeg_crop_scanline", "jpeg_skip_scanlines", "jpeg_mem_src")
+NATIVE_IMAGES = 64  # synthetic JPEGs 1024 wide, profile_host_feed's
+NATIVE_STEPS, NATIVE_BATCH = 20, 8  # train steps of phase 21d
+MATCHER_IMAGES = 50
+
+
+@contextlib.contextmanager
+def numpy_matcher():
+    """The AP protocol on its numpy matcher: native.image_eval answers None."""
+    saved = native.image_eval
+    native.image_eval = lambda *a, **k: None
+    try:
+        yield
+    finally:
+        native.image_eval = saved
+
+
+def phase21a():
+    """The probe: PIL's version and the libjpeg it ships, that library's
+    libjpeg-turbo symbols, g++, and both builds.  Returns the libjpeg file
+    (None: this host has none)."""
+    import ctypes
+    import importlib.metadata
+    import shutil
+
+    path, _, why = native.libjpeg()
+    try:
+        pil = importlib.metadata.version("pillow")
+    except importlib.metadata.PackageNotFoundError:
+        pil = "not installed"
+    log(f"phase 21a: PIL {pil}; PIL's libjpeg {native.pil_libjpeg()}; linked: {path or why}")
+    found = {}
+    if path is not None:
+        if shutil.which("nm"):
+            how = "nm -D"
+            lines = subprocess.run(["nm", "-D", path], capture_output=True,
+                                   text=True).stdout.splitlines()
+            defined = {ln.split()[-1].split("@")[0] for ln in lines if " T " in ln}
+            found = {sym: sym in defined for sym in TURBO_SYMBOLS}
+        else:
+            how = "ctypes"
+            lib = ctypes.CDLL(path)
+            found = {sym: hasattr(lib, sym) for sym in TURBO_SYMBOLS}
+        log(f"  {how} {os.path.basename(path)}: {found}")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout
+    log(f"  {gxx.splitlines()[0] if gxx else 'no g++'}")
+    loaded = native.load_loader() is not None
+    log(f"  builds (g++ seconds, phase 2): {native.BUILD_SECONDS}; overlaps "
+        f"{'loaded' if native.load() is not None else 'unavailable'}; loader "
+        f"{'loaded' if loaded else native.loader_unavailable_reason()}")
+    if native.load() is None:
+        raise AssertionError("phase 21a: overlaps.cc did not build or load")
+    if path is not None and not (loaded and all(found.values())):
+        raise AssertionError("phase 21a: a libjpeg is on this host but the loader did not load")
+    return path
+
+
+def matcher_images(rng, n):
+    """WIDER-like images for the AP matcher: up to 750 score-sorted
+    detections, half of them near one of up to 120 gts, the rest anywhere;
+    a third of the gts outside the difficulty subset."""
+    out = []
+    for _ in range(n):
+        m = int(rng.integers(0, 120))
+        xy = rng.uniform(0, 1000, (m, 2))
+        gts = np.concatenate([xy, xy + rng.uniform(4, 300, (m, 2))], 1)
+        k = int(rng.integers(1, 750))
+        dets = np.concatenate([rng.uniform(0, 1000, (k, 2)), np.zeros((k, 2))], 1)
+        dets[:, 2:] = dets[:, :2] + rng.uniform(4, 300, (k, 2))
+        if m:
+            near = rng.integers(0, m, k // 2)
+            dets[:k // 2] = gts[near] + rng.normal(0, 6.0, (k // 2, 4))
+        dets = np.concatenate([dets, rng.uniform(0, 1, (k, 1))], 1)
+        dets = dets[np.argsort(-dets[:, 4], kind="stable")]
+        out.append((dets, gts, np.nonzero(rng.uniform(size=m) > 0.33)[0]))
+    return out
+
+
+def phase21b(d, soak_dir):
+    """overlaps.cc bit for bit against the numpy IoU and matcher, and the
+    eval CLI's AP on the fixture with and without it; returns K2's
+    launches."""
+    from dan_tpu_torch.eval import widerface_ap as ap
+    from dan_tpu_torch.eval.widerface_ap import load_official_gt
+    from dan_tpu_torch.tools import soak_fixture_e2e as soak
+
+    rng = np.random.default_rng(SEED + 21)
+    boxes = [np.concatenate([xy, xy + rng.uniform(1, 200, (n, 2))], 1)
+             for n, xy in ((3000, rng.uniform(0, 1000, (3000, 2))),
+                           (1000, rng.uniform(0, 1000, (1000, 2))))]
+    t0 = time.perf_counter()
+    got = native.bbox_overlaps(*boxes)
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = ap._bbox_overlaps(*boxes)
+    t_np = time.perf_counter() - t0
+    same_iou = np.array_equal(got.view(np.int64), want.view(np.int64))
+    images = matcher_images(rng, MATCHER_IMAGES)
+
+    def match_all():
+        return [ap._image_eval(dets, gts, keep) for dets, gts, keep in images]
+
+    t0 = time.perf_counter()
+    nat = match_all()
+    t_nat_m = time.perf_counter() - t0
+    with numpy_matcher():
+        t0 = time.perf_counter()
+        ref = match_all()
+        t_np_m = time.perf_counter() - t0
+    bad = sum(not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))
+              for a, b in zip(nat, ref))
+    log(f"phase 21b: bbox_overlaps 3000 x 1000: {(got > 0).sum()} nonzero pairs, bit-identical "
+        f"to numpy: {same_iou} ({t_nat * 1e3:.1f} ms native, {t_np * 1e3:.1f} ms numpy; host "
+        f"clock); image_eval on {MATCHER_IMAGES} images ({sum(len(i[0]) for i in images)} dets, "
+        f"{sum(len(i[1]) for i in images)} gts): {bad} differ from the numpy matcher "
+        f"({t_nat_m * 1e3:.1f} ms native, {t_np_m * 1e3:.1f} ms numpy)")
+    if not same_iou or bad:
+        raise AssertionError("phase 21b: overlaps.cc differs from numpy")
+    gt_dir = os.path.join(soak.FIX, "eval_tools", "ground_truth")
+    preds = os.path.join(d, "native_preds")
+    calls = []
+    image_eval = native.image_eval
+    native.image_eval = lambda *a: calls.append(1) or image_eval(*a)
+    try:
+        (rc, out, _), c = counted(lambda: quiet(lambda: eval_cli.main(
+            ["--wider_root", soak.FIX, "--ckpt", soak_dir, "--no_tta", "--output_dir", preds,
+             "--gt_mats", gt_dir])))
+    finally:
+        native.image_eval = image_eval
+    with numpy_matcher():
+        rc2, out2, _ = quiet(lambda: eval_cli.main(
+            ["--score_only", "--pred_dir", preds, "--gt_mats", gt_dir]))
+    gt_boxes, keep, _ = load_official_gt(gt_dir)
+    dets = load_detection_dir(preds)
+    ap_nat = evaluate_widerface(dets, gt_boxes, keep)
+    with numpy_matcher():
+        ap_np = evaluate_widerface(dets, gt_boxes, keep)
+    line, line2 = out.strip().splitlines()[-1], out2.strip().splitlines()[-1]
+    log(f"  the eval CLI --no_tta on the fixture with phase 20e's model, native matcher "
+        f"({len(calls)} image_eval calls): rc {rc}, {line}; --score_only on the numpy matcher: "
+        f"rc {rc2}, {line2}; AP native {ap_nat} numpy {ap_np}; K2 launches {c['nms']}")
+    if rc or rc2 or line != line2 or ap_nat != ap_np or not calls or c["nms"] != 20:
+        raise AssertionError("phase 21b: the fixture's AP differs without the native matcher, "
+                             "or the eval did not take it or K2")
+    return c["nms"]
+
+
+def reencoded(records, d):
+    """16 of the synthetic JPEGs encoded again: 4:2:0 and 4:4:4 at quality
+    60, 75, 95 and 99, twice, the last two progressive."""
+    import cv2
+
+    from dan_tpu_torch.data.widerface import ImageRecord
+
+    out = []
+    for k, r in enumerate(records[:16]):
+        q = (60, 75, 95, 99)[k % 4]
+        params = [cv2.IMWRITE_JPEG_QUALITY, q, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                  (cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444)[
+                      (k // 4) % 2]]
+        if k >= 14:
+            params += [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
+        path = os.path.join(d, f"reenc{k}.jpg")
+        cv2.imwrite(path, cv2.imread(r.path), params)
+        out.append(ImageRecord(path=path, rel_path=f"e/reenc{k}.jpg", event="e",
+                               boxes=r.boxes, attrs=r.attrs))
+    return out
+
+
+def odd_files(d, rng):
+    """An EXIF-rotated JPEG (orientation 6) and a PNG, each with a face."""
+    import cv2
+    from PIL import Image
+
+    from dan_tpu_torch.data.widerface import ImageRecord
+
+    img = rng.integers(0, 255, (700, 900, 3), dtype=np.uint8)
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    rot, png = os.path.join(d, "rot.jpg"), os.path.join(d, "odd.png")
+    Image.fromarray(img).save(rot, format="JPEG", exif=exif.tobytes())
+    cv2.imwrite(png, img[:, :, ::-1])
+    box = np.array([[100, 120, 300, 330]], np.float32)
+    return [ImageRecord(path=p, rel_path=f"e/{os.path.basename(p)}", event="e", boxes=box,
+                        attrs=np.zeros((1, 6), np.float32)) for p in (rot, png)]
+
+
+def phase21c(dev, d, synth):
+    """loader.cc's batches against the cv2 batches: byte for byte at 'full',
+    the same train preprocess and targets on the card at 'crop', the
+    fallback for an EXIF-rotated JPEG and a PNG."""
+    from dan_tpu_torch.data.pipeline import _collate, _prepare_batch_native, _prepare_sample
+    from dan_tpu_torch.data.widerface import load_split
+    from dan_tpu_torch.tools import soak_fixture_e2e as soak
+
+    cfg = default_config()
+    records = load_split(soak.FIX, "val", keep_invalid=True) + synth + reencoded(synth, d)
+    seeds = [SEED + 2100 + i for i in range(len(records))]
+    counts = {w: collections.Counter() for w in ("full", "crop")}
+    full_bad, crop_bad, t_prep = [], [], 0.0
+    for i in range(0, len(records), 16):
+        recs, sds = records[i:i + 16], seeds[i:i + 16]
+        full = _prepare_batch_native(recs, cfg, sds, os.cpu_count(), "full", counts["full"])
+        crop = _prepare_batch_native(recs, cfg, sds, os.cpu_count(), "crop", counts["crop"])
+        want = _collate([_prepare_sample(r, cfg, sd) for r, sd in zip(recs, sds)])
+        for j in range(len(recs)):
+            if any(not np.array_equal(full[k][j], want[k][j]) for k in want):
+                full_bad.append(recs[j].rel_path)
+        t0 = time.perf_counter()
+        img_c, t_c = preprocess_and_match(crop, cfg, dev)
+        img_w, t_w = preprocess_and_match(want, cfg, dev)
+        torch.cuda.synchronize()
+        t_prep += time.perf_counter() - t0
+        for j in range(len(recs)):
+            if not (same_bits(img_c[j], img_w[j]) and all(
+                    same_bits(getattr(t_c, k)[j], getattr(t_w, k)[j]) for k in t_c._fields)):
+                crop_bad.append(recs[j].rel_path)
+    odd = odd_files(d, np.random.default_rng(SEED + 22))
+    plain = [records[20], records[21]]
+    mixed = odd + plain
+    odd_counts = collections.Counter()
+    got = _prepare_batch_native(mixed, cfg, [7, 8, 9, 10], 2, "full", odd_counts)
+    want = _collate([_prepare_sample(r, cfg, sd) for r, sd in zip(mixed, [7, 8, 9, 10])])
+    odd_same = all(np.array_equal(got[k], want[k]) for k in want)
+    log(f"phase 21c: {len(records)} images (the fixture's 20, {len(synth)} synthetic 1024 wide, "
+        f"16 re-encoded at 4:2:0 / 4:4:4, q 60-99, 2 progressive) at canvas "
+        f"{cfg.preprocess.canvas_size}: window 'full' native == cv2 byte for byte, every key, on "
+        f"{len(records) - len(full_bad)} (differ: {full_bad}); images by path {dict(counts['full'])}; "
+        f"window 'crop' train preprocess + matcher targets on the card bit-identical to the cv2 "
+        f"batch's on {len(records) - len(crop_bad)} (differ: {crop_bad}; {t_prep:.2f} s for both "
+        f"on the card); images by path {dict(counts['crop'])}; an EXIF-rotated JPEG and a PNG "
+        f"beside 2 plain: {dict(odd_counts)}, the batch == cv2's: {odd_same}")
+    if full_bad or crop_bad or counts["full"]["fallback"] or counts["crop"]["fallback"] or (
+            odd_counts != {"native": 2, "fallback": 2}) or not odd_same:
+        raise AssertionError("phase 21c: the native batch differs from the cv2 batch, or the "
+                             "fallback was not taken where it must be and only there")
+
+
+def phase21d(dev, smi, synth):
+    """TrainPipeline on the native decoder -> device_prefetch -> train_step,
+    NATIVE_STEPS at NATIVE_BATCH on the synthetic JPEGs; returns the
+    launches."""
+    from dan_tpu_torch.data.pipeline import TrainPipeline, device_prefetch
+
+    cfg = train_config(default_config())
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, batch_size=NATIVE_BATCH))
+    state = create_train_state(cfg, SEED, dev)
+    pipe = TrainPipeline(synth, cfg, seed=SEED, num_workers=4)
+
+    def run():
+        it = iter(pipe)
+        feed = device_prefetch(it, dev)
+        try:
+            out = [train_step(state, next(feed)) for _ in range(NATIVE_STEPS)]
+            torch.cuda.synchronize()
+            return out
+        finally:
+            feed.close()
+            it.close()
+            pipe.stop()
+
+    t0 = time.perf_counter()
+    metrics, c = counted(run)
+    secs = time.perf_counter() - t0
+    losses = [float(m["loss"]) for m in metrics]
+    log(f"phase 21d: TrainPipeline (native, window {pipe.native_window}, "
+        f"{pipe.num_producers} producers x 4 threads) -> device_prefetch -> train_step, "
+        f"{NATIVE_STEPS} steps at batch {NATIVE_BATCH}, {cfg.preprocess.train_image_size}x"
+        f"{cfg.preprocess.train_image_size}: {NATIVE_STEPS * NATIVE_BATCH / secs:.1f} img/s "
+        f"(host clock, first step and the feed included; {smi}); images by path "
+        f"{dict(pipe.decoded)}; loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches "
+        f"{ {k: c[k] for k in ('matcher', 'phase_pool_bwd', 'conv12_wgrad')} }")
+    if not np.isfinite(losses).all() or any(
+            c[k] != NATIVE_STEPS for k in ("matcher", "phase_pool_bwd", "conv12_wgrad")) or (
+            pipe.decoded["native"] < NATIVE_STEPS * NATIVE_BATCH or pipe.decoded["fallback"]):
+        raise AssertionError("phase 21d: the native-fed train steps did not launch K3-K6 once "
+                             "a step, met a non-finite loss, or did not decode natively")
+    return c
+
+
+def phase21e(smi, synth):
+    """profile_host_feed on the synthetic JPEGs: the native and the cv2
+    path's stages and pipeline rates."""
+    from dan_tpu_torch.tools import profile_host_feed
+
+    res, out, _ = quiet(lambda: profile_host_feed.measure(
+        synth, profile_host_feed.parse_args(["--n", str(len(synth))])))
+    log(f"phase 21e: python -m dan_tpu_torch.tools.profile_host_feed --n {len(synth)} (host "
+        f"only, the card's host, {os.cpu_count()} cores; {smi}):")
+    for line in out.strip().splitlines():
+        log(f"  {line}")
+    nat = res["native"]
+    if nat is None or nat["fallback"] or not nat["per_img_ms"] > 0:
+        raise AssertionError("phase 21e: no native host feed cost, or a fallback row")
+    log(f"phase 21e: decode ms an image, one thread: native crop window "
+        f"{nat['ms']['decode_crop']:.3f}, native whole image {nat['ms']['decode_full']:.3f}, cv2 "
+        f"whole image {res['ms']['decode']:.3f}; per image {nat['per_img_ms']:.3f} ms native, "
+        f"{res['per_img_ms']:.3f} ms cv2: one card's train step at "
+        f"{profile_host_feed.TRAIN_IMG_S} img/s needs "
+        f"{profile_host_feed.TRAIN_IMG_S * nat['per_img_ms'] / 1e3:.2f} cores native, "
+        f"{profile_host_feed.TRAIN_IMG_S * res['per_img_ms'] / 1e3:.2f} cv2; pipeline img/s "
+        f"{res['pipeline_img_s']}")
+
+
+def phase21(dev, smi, d, soak_dir):
+    """The host C++ helpers on the card's host; returns the launches of the
+    paths they feed, by kernels-line entry."""
+    import cv2
+
+    from dan_tpu_torch.tools import profile_host_feed
+
+    t0 = time.perf_counter()
+    jpeg = phase21a()
+    launches = collections.Counter(nms=phase21b(d, soak_dir))
+    if jpeg is None:
+        log(f"phase 21c-e: not run: {native.loader_unavailable_reason()}")
+        return launches
+    synth_dir = os.path.join(d, "native_synth")
+    os.makedirs(synth_dir)
+    synth = profile_host_feed.make_dataset(NATIVE_IMAGES, synth_dir, np.random.default_rng(0))
+    log(f"phase 21c: cv2 {cv2.__version__}")
+    phase21c(dev, d, synth)
+    c = phase21d(dev, smi, synth)
+    for k in ("matcher", "phase_pool_bwd", "conv12_wgrad"):
+        launches[k] = c[k]
+    phase21e(smi, synth)
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s; launches {dict(launches)}")
+    return launches
 
 
 if __name__ == "__main__":

@@ -6,9 +6,16 @@ host never resamples pixels — it decodes JPEGs, pads them into fixed uint8
 canvases, samples data-anchor crop parameters, and hands batches to the
 device, where dan_tpu_torch.ops.preprocess does all the math inside the
 train step.  A worker pool overlaps decode with device compute, and
-`device_prefetch` the host-to-device copy.  The original's C++ batch
-decoder (dan_tpu/native/loader.cc) is not copied: every batch takes the
-per-image cv2 decode, which yields the same batches.
+`device_prefetch` the host-to-device copy.  By default a batch is decoded
+in C++ (dan_tpu_torch/native/loader.cc, `_prepare_batch_native`): threaded,
+straight into the canvas array, and only the window the train step will
+read.  The per-image cv2 decode (`_prepare_sample`) is its fallback, for a
+file libjpeg cannot take and for a host without the library.  The two give
+the same batches at `native_window="full"`, canvases included, byte for
+byte.  At the default `"crop"` every key but `canvas` is the same, and each
+canvas is the same inside the sampled crop window + 2 px and zero outside
+it: `train_preprocess` reads nothing else, so it gives the same output
+from either.
 
 Batch contract (all fixed shapes):
     canvas    (B, C, C, 3) uint8   padded source image
@@ -21,6 +28,7 @@ Batch contract (all fixed shapes):
 """
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -28,6 +36,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from dan_tpu_torch import native
 from dan_tpu_torch.config import DANConfig
 from dan_tpu_torch.data.augment import sample_data_anchor_crop
 from dan_tpu_torch.data.widerface import ImageRecord, load_image_rgb
@@ -104,7 +113,7 @@ def _prepare_sample(
     image: Optional[np.ndarray] = None,
 ) -> Dict[str, np.ndarray]:
     """Decode + pad one record into the batch contract (one sample, cv2
-    decode)."""
+    decode: the per-image fallback of the native batch decode)."""
     rng = np.random.default_rng(seed)
     img = image if image is not None else load_image_rgb(record.path)
     c = config.preprocess.canvas_size
@@ -118,6 +127,110 @@ def _prepare_sample(
     out = _finish_sample(record, config, rng, off_x, off_y, w, h)
     out["canvas"] = canvas
     return out
+
+
+Windows = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]
+
+
+def _native_plan(
+    records: Sequence[ImageRecord],
+    bufs: Sequence[bytes],
+    config: DANConfig,
+    seeds: Sequence[int],
+    window: str,
+) -> Tuple[List[Optional[Dict[str, np.ndarray]]], Windows]:
+    """The native batch's metadata pass (no pixels): canvas window -> box
+    bookkeeping -> crop params, consuming each sample's rng in the same
+    order as _prepare_sample so native and fallback batches are
+    interchangeable.  Returns the samples (None: the cv2 fallback takes
+    that image) and the decode windows (src_x, src_y, dst_x, dst_y, win_w,
+    win_h) of native.decode_batch_into."""
+    c = config.preprocess.canvas_size
+    n = len(records)
+    samples: List[Optional[Dict[str, np.ndarray]]] = [None] * n
+    src_x = np.zeros((n,), np.int32)
+    src_y = np.zeros((n,), np.int32)
+    dst_x = np.zeros((n,), np.int32)
+    dst_y = np.zeros((n,), np.int32)
+    win_w = np.zeros((n,), np.int32)
+    win_h = np.zeros((n,), np.int32)
+    for i, (r, b) in enumerate(zip(records, bufs)):
+        wh = native.jpeg_dims(b)
+        if wh is None:  # non-JPEG/corrupt header: full Python fallback
+            continue
+        # cv2 applies EXIF orientation; libjpeg does not. A rotated image
+        # decoded natively would mis-align with its (display-oriented) gt
+        # boxes — hand those to the cv2 fallback.
+        if (native.jpeg_exif_orientation(b) or 1) != 1:
+            continue
+        rng = np.random.default_rng(seeds[i])
+        off_x, off_y = _window_params(r, wh[0], wh[1], c, rng)
+        placed_w = min(c, wh[0] - off_x)
+        placed_h = min(c, wh[1] - off_y)
+        s = _finish_sample(r, config, rng, off_x, off_y, placed_w, placed_h)
+        samples[i] = s
+        if window == "crop":
+            # Decode the crop window +2 px (bilinear halo), clipped to the
+            # placed region; everything else in the slot stays zero.
+            x0 = max(0, int(np.floor(s["crop_x0"])) - 2)
+            y0 = max(0, int(np.floor(s["crop_y0"])) - 2)
+            x1 = min(placed_w, int(np.ceil(s["crop_x0"] + s["crop_size"])) + 2)
+            y1 = min(placed_h, int(np.ceil(s["crop_y0"] + s["crop_size"])) + 2)
+        else:
+            x0, y0, x1, y1 = 0, 0, placed_w, placed_h
+        dst_x[i], dst_y[i] = x0, y0
+        src_x[i], src_y[i] = off_x + x0, off_y + y0
+        win_w[i], win_h[i] = max(0, x1 - x0), max(0, y1 - y0)
+    return samples, (src_x, src_y, dst_x, dst_y, win_w, win_h)
+
+
+def _prepare_batch_native(
+    records: Sequence[ImageRecord],
+    config: DANConfig,
+    seeds: Sequence[int],
+    nthreads: int,
+    window: str = "crop",
+    counts: Optional[collections.Counter] = None,
+) -> Optional[Dict[str, np.ndarray]]:
+    """Whole-batch native path: file bytes -> C++ threaded JPEG window
+    decode directly into the (B, C, C, 3) canvas array (zero collation
+    copies, GIL-free decode).
+
+    window='crop' exploits that the data-anchor crop sampler needs only
+    box METADATA (never pixels): each sample's crop window is drawn first
+    and the decoder reads just that window (+2 px of bilinear margin) —
+    the only canvas region the device-side train preprocess ever samples.
+    window='full' decodes the whole placed image.
+
+    Returns None when the native library is unavailable; any single image
+    the native decoder rejects falls back to the cv2 path in place.
+    counts: when given, counts["native"] and counts["fallback"] grow by the
+    images that took each path."""
+    if native.load_loader() is None:
+        return None
+    c = config.preprocess.canvas_size
+    n = len(records)
+    bufs = []
+    for r in records:
+        with open(r.path, "rb") as f:
+            bufs.append(f.read())
+    samples, windows = _native_plan(records, bufs, config, seeds, window)
+    canvases = np.empty((n, c, c, 3), np.uint8)
+    status = native.decode_batch_into(bufs, *windows, canvases, nthreads=nthreads)
+    fallback = 0
+    for i, r in enumerate(records):
+        if samples[i] is None or status[i] != 0:
+            # cv2 fallback replays the SAME rng stream from the start.
+            s = _prepare_sample(r, config, seeds[i])
+            canvases[i] = s.pop("canvas")
+            samples[i] = s
+            fallback += 1
+    if counts is not None:
+        counts["native"] += n - fallback
+        counts["fallback"] += fallback
+    batch = _collate(samples)
+    batch["canvas"] = canvases
+    return batch
 
 
 def _collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
@@ -219,6 +332,13 @@ class TrainPipeline:
     have seen without the interruption.  rank / num_ranks: build only this
     rank's contiguous rows of each global batch of batch_size (the same
     records and sample seeds as slicing the global batch).
+
+    use_native: decode each batch with the C++ loader (`_prepare_batch_native`,
+    `num_workers` threads), at native_window "crop" (the default: only the
+    sampled crop window + 2 px) or "full"; a host without the library takes
+    the cv2 path, and a producer that finds it missing does not try again.
+    `decoded` counts the images of the yielded and pending batches by path:
+    "native", "fallback" (cv2 inside a native batch) and "cv2".
     """
 
     def __init__(
@@ -229,6 +349,8 @@ class TrainPipeline:
         seed: int = 0,
         num_workers: int = 8,
         prefetch: int = 2,
+        use_native: bool = True,
+        native_window: str = "crop",
         num_producers: Optional[int] = None,
         start_step: int = 0,
         rank: int = 0,
@@ -249,6 +371,12 @@ class TrainPipeline:
         self.seed = seed
         self.num_workers = num_workers
         self.prefetch = prefetch
+        if native_window not in ("crop", "full"):
+            raise ValueError(f"native_window must be 'crop' or 'full', got {native_window!r}")
+        self.use_native = use_native
+        self.native_window = native_window
+        self.decoded: collections.Counter = collections.Counter()
+        self._decoded_lock = threading.Lock()
         if num_producers is None:
             # One producer per ~2 cores up to 4: a handful of producers
             # keeps the decode threads fed without oversubscribing small
@@ -291,18 +419,28 @@ class TrainPipeline:
             np.random.default_rng(self.seed).integers(0, 2**31)
         )
         perm_cache: Dict[int, np.ndarray] = {}
+        native_ok = self.use_native
         try:
             step = self.start_step + k
             while not stop.is_set():
                 idxs = self._step_indices(step, perm_cache)
-                futures = [
-                    pool.submit(
-                        _prepare_sample, self.records[idxs[j]], self.config,
-                        sample_seed + step * self.batch_size + j,
+                records = [self.records[idxs[j]] for j in self._rows]
+                seeds = [sample_seed + step * self.batch_size + j for j in self._rows]
+                counts: collections.Counter = collections.Counter()
+                batch = None
+                if native_ok:
+                    batch = _prepare_batch_native(
+                        records, self.config, seeds, nthreads=self.num_workers,
+                        window=self.native_window, counts=counts,
                     )
-                    for j in self._rows
-                ]
-                batch = _collate([f.result() for f in futures])
+                    native_ok = batch is not None  # don't retry a dead lib
+                if batch is None:
+                    futures = [pool.submit(_prepare_sample, r, self.config, sd)
+                               for r, sd in zip(records, seeds)]
+                    batch = _collate([f.result() for f in futures])
+                    counts["cv2"] += len(records)
+                with self._decoded_lock:
+                    self.decoded.update(counts)
                 if not _put_or_stop(q, batch, stop):
                     return
                 step += self.num_producers

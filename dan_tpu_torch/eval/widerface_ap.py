@@ -1,10 +1,12 @@
 """WIDER FACE easy/medium/hard AP evaluation (SURVEY.md §2 'WIDER output
-writer + AP eval' [B][K]).  The port's copy of dan_tpu/eval/widerface_ap.py
-on its numpy matcher (the C++ matcher of dan_tpu/native is not copied).
+writer + AP eval' [B][K]).  The port's copy of dan_tpu/eval/widerface_ap.py:
+the per-image matcher runs in C++ (dan_tpu_torch/native/overlaps.cc, equal
+to the numpy matcher below bit for bit), or in numpy where that library
+cannot be built.
 
-Self-contained vectorized re-implementation of the official
-`widerface_evaluate` protocol (the reference vendors the official tool; its
-Cython `bbox_overlaps` is replaced by vectorized numpy here):
+Self-contained re-implementation of the official `widerface_evaluate`
+protocol (the reference vendors the official tool; its Cython
+`bbox_overlaps` is replaced by native/overlaps.cc and vectorized numpy here):
 
   1. global min-max score normalization over the whole prediction set;
   2. per image: score-descending greedy IoU-0.5 matching, one det per gt;
@@ -24,6 +26,8 @@ import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from dan_tpu_torch import native
 
 SETTINGS = ("easy", "medium", "hard")
 
@@ -64,6 +68,11 @@ def _image_eval(
         return pred_recall, proposal
     ignore = np.ones(len(gts), bool)  # True -> ignored
     ignore[keep_index] = False
+    # Native fast path (C++ equivalent of the official tool's Cython
+    # bbox_overlaps + the greedy matcher); numpy fallback below.
+    res = native.image_eval(dets, gts, ignore, iou_thresh)
+    if res is not None:
+        return res
     overlaps = _bbox_overlaps(dets[:, :4].astype(np.float64), gts.astype(np.float64))
     gt_matched = np.zeros(len(gts), bool)
     recall_count = 0

@@ -189,13 +189,14 @@ def all_reduce_grads(
     mesh: Mesh,
 ):
     """Sum float32 gradients over the ranks through one flat buffer, in the
-    order of `grads`: one collective.  `extra` 0-d float32 tensors (the
-    step's metrics) ride in the same buffer.  The sums are copied back into
-    the gradient tensors, in place: views into the buffer would start at
-    other alignments, and a reduction over them (the global norm) can sum
-    in another order.  Returns (grads, summed extra)."""
+    order of `grads`: one collective.  `extra` float32 tensors (the step's
+    metrics, 0-d, and debug_nans' one-hot row) ride in the same buffer.
+    The sums are copied back into the gradient tensors, in place: views
+    into the buffer would start at other alignments, and a reduction over
+    them (the global norm) can sum in another order.  Returns (grads,
+    summed extra, each a view of the buffer in its tensor's shape)."""
     parts = [g.reshape(-1) for g in grads.values()]
-    parts.append(torch.stack([v.to(torch.float32) for v in extra.values()]))
+    parts += [v.to(torch.float32).reshape(-1) for v in extra.values()]
     flat = torch.cat(parts)
     dist.all_reduce(flat, op=dist.ReduceOp.SUM)
     views, i = [], 0
@@ -203,7 +204,11 @@ def all_reduce_grads(
         views.append(flat[i:i + g.numel()].view_as(g))
         i += g.numel()
     torch._foreach_copy_(list(grads.values()), views)
-    return dict(grads), {k: flat[i + j] for j, k in enumerate(extra)}
+    summed = {}
+    for k, v in extra.items():
+        summed[k] = flat[i:i + v.numel()].view(v.shape)
+        i += v.numel()
+    return dict(grads), summed
 
 
 def gather_objects(obj, mesh: Mesh) -> List[Any]:

@@ -1,21 +1,25 @@
 """Cost the host input feed of training (counterpart of
 scripts/profile_host_feed.py): the per-image host CPU time of each stage
-of the port's TrainPipeline (file read, JPEG decode, canvas window +
-metadata + crop sampling, canvas placement, collation), the feed rate one
-core gives, how many cores the H100's train step needs, and whether the
+of the port's TrainPipeline on its two decode paths, the feed rate one core
+gives, how many cores the H100's train step needs, and whether the
 multi-producer TrainPipeline scales past one producer.
+
+The native path (the default): file read, JPEG header + metadata + crop
+sampling, the C++ window decode (native/loader.cc, one thread) of the crop
+window + 2 px and, for comparison, of the whole placed image, and
+collation.  The cv2 path (the fallback): file read, cv2's decode of the
+whole image, canvas window + metadata + crop sampling, canvas placement and
+collation.  The pipeline's rate is measured on both paths at 1, 2 and 4
+producers.
 
 Host work only: no card is touched.  Run it alone on an idle host (every
 concurrent process is part of the measurement).
 
     python -m dan_tpu_torch.tools.profile_host_feed [--n 64] [--batch 16] [--steps 8]
 
-The port's pipeline decodes with cv2 (the reference's C++ batch decoder,
-dan_tpu/native/, is not ported yet), so its decode stage is the whole image,
-not a crop window.  The target rate is the port's train step on one H100:
-TRAIN_IMG_S at batch 32, 640x640, bf16 (chip_smoke.py phase 10, PERF.md
-section 5; NVIDIA H100 80GB HBM3, 700.00 W), and four times it for a
-host with four cards.
+The target rate is the port's train step on one H100: TRAIN_IMG_S at batch
+32, 640x640, bf16 (chip_smoke.py phase 10, PERF.md section 5; NVIDIA H100
+80GB HBM3, 700.00 W), and four times it for a host with four cards.
 """
 from __future__ import annotations
 
@@ -27,8 +31,15 @@ import time
 
 import numpy as np
 
+from dan_tpu_torch import native
 from dan_tpu_torch.config import default_config
-from dan_tpu_torch.data.pipeline import TrainPipeline, _collate, _finish_sample, _window_params
+from dan_tpu_torch.data.pipeline import (
+    TrainPipeline,
+    _collate,
+    _finish_sample,
+    _native_plan,
+    _window_params,
+)
 from dan_tpu_torch.data.widerface import ImageRecord
 
 # The port's train step on one card: 208.0 img/s at batch 32 (153.816 ms a
@@ -135,9 +146,14 @@ def measure(records, args) -> dict:
                 "mask": np.zeros((cfg.match.max_gt,), bool), "seed": np.uint32(1),
                 "canvas": canvases[j]} for j in range(args.batch)]
     t_coll = timeit(lambda: _collate(samples), reps=5) / args.batch
+    # the native batch stacks the scalars only: its canvases are decoded in place
+    for sm in samples:
+        del sm["canvas"]
+    t_coll_native = timeit(lambda: _collate(samples), reps=5) / args.batch
 
     print("\nper-image host cost (ms, single-threaded, min of reps):")
     print(f"  file read           {t_read * 1e3:7.3f}   ({mb:.2f} MB/img)")
+    print("cv2 path:")
     print(f"  decode full image   {t_dec * 1e3:7.3f}")
     print(f"  window+meta+crop    {t_meta * 1e3:7.3f}")
     print(f"  canvas placement    {t_place * 1e3:7.3f}")
@@ -146,36 +162,92 @@ def measure(records, args) -> dict:
     per_img = serial + t_dec + t_place
     print(f"  => serial (non-decode) {serial * 1e3:.3f} ms; total "
           f"{per_img * 1e3:.3f} ms/img = {1 / per_img:.0f} img/s/core")
+    nat = native_stages(records, bufs, cfg, args) if native.load_loader() is not None else None
+    if nat is None:
+        print(f"native path: not run ({native.loader_unavailable_reason()})")
+    else:
+        print("native path:")
+        print(f"  header+meta+crop    {nat['meta'] * 1e3:7.3f}")
+        print(f"  decode crop-window  {nat['decode_crop'] * 1e3:7.3f}   (1 thread)")
+        print(f"  decode full-image   {nat['decode_full'] * 1e3:7.3f}   (1 thread)")
+        print(f"  collation           {t_coll_native * 1e3:7.3f}")
+        nat["serial"] = t_read + nat["meta"] + t_coll_native
+        nat["per_img"] = nat["serial"] + nat["decode_crop"]
+        print(f"  => serial (non-decode) {nat['serial'] * 1e3:.3f} ms; total "
+              f"{nat['per_img'] * 1e3:.3f} ms/img = {1 / nat['per_img']:.0f} img/s/core")
 
-    # pipeline level: one producer against several
-    ips = {}
-    for n_prod in (1, 2, 4):
-        pipe = TrainPipeline(records, cfg, batch_size=args.batch, seed=0,
-                             num_workers=max(1, os.cpu_count() or 1), num_producers=n_prod)
-        it = iter(pipe)
-        next(it)  # warm: thread start + first batch
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            next(it)
-        dt = time.perf_counter() - t0
-        it.close()
-        pipe.stop()
-        ips[n_prod] = args.steps * args.batch / dt
-        print(f"pipeline num_producers={n_prod}: {ips[n_prod]:.1f} img/s "
-              f"(batch {args.batch}, {os.cpu_count()} host cores)")
+    # pipeline level: one producer against several, on each decode path
+    ips = {"native": {}, "cv2": {}}
+    for use_native in ([True] if nat is not None else []) + [False]:
+        path = "native" if use_native else "cv2"
+        for n_prod in (1, 2, 4):
+            pipe = TrainPipeline(records, cfg, batch_size=args.batch, seed=0,
+                                 num_workers=max(1, os.cpu_count() or 1),
+                                 num_producers=n_prod, use_native=use_native)
+            it = iter(pipe)
+            next(it)  # warm: thread start + first batch
+            t0 = time.perf_counter()
+            for _ in range(args.steps):
+                next(it)
+            dt = time.perf_counter() - t0
+            it.close()
+            pipe.stop()
+            ips[path][n_prod] = args.steps * args.batch / dt
+            print(f"pipeline {path} num_producers={n_prod}: {ips[path][n_prod]:.1f} img/s "
+                  f"(batch {args.batch}, {os.cpu_count()} host cores; images by path "
+                  f"{dict(pipe.decoded)})")
 
-    # the scaling statement, for one card and for a host of four
-    for cards in (1, 4):
-        target = cards * TRAIN_IMG_S
-        print(f"scaling: {1 / per_img:.0f} img/s/core => {cards} x H100 ({CARD}) training at "
-              f"{TRAIN_IMG_S:.1f} img/s a card needs {target:.0f} img/s, ~{target * per_img:.1f} "
-              f"cores of host decode+meta work; the serial non-decode share is "
-              f"{serial / per_img:.0%}, so one producer caps at {1 / serial:.0f} img/s whatever "
-              f"its decode threads; num_producers >= {int(np.ceil(target * serial))} removes "
-              f"that ceiling")
-    return {"ms": {"read": t_read * 1e3, "decode": t_dec * 1e3, "meta": t_meta * 1e3,
-                   "place": t_place * 1e3, "collate": t_coll * 1e3},
-            "per_img_ms": per_img * 1e3, "serial_ms": serial * 1e3, "pipeline_img_s": ips}
+    # the scaling statement, for one card and for a host of four, each path
+    paths = [("cv2", per_img, serial)]
+    if nat is not None:
+        paths.insert(0, ("native", nat["per_img"], nat["serial"]))
+    for path, per, ser in paths:
+        for cards in (1, 4):
+            target = cards * TRAIN_IMG_S
+            print(f"scaling ({path}): {1 / per:.0f} img/s/core => {cards} x H100 ({CARD}) "
+                  f"training at {TRAIN_IMG_S:.1f} img/s a card needs {target:.0f} img/s, "
+                  f"~{target * per:.1f} cores of host decode+meta work; the serial non-decode "
+                  f"share is {ser / per:.0%}, so one producer caps at {1 / ser:.0f} img/s "
+                  f"whatever its decode threads; num_producers >= {int(np.ceil(target * ser))} "
+                  f"removes that ceiling")
+    ms = {"read": t_read * 1e3, "decode": t_dec * 1e3, "meta": t_meta * 1e3,
+          "place": t_place * 1e3, "collate": t_coll * 1e3}
+    out = {"ms": ms, "per_img_ms": per_img * 1e3, "serial_ms": serial * 1e3,
+           "pipeline_img_s": ips, "native": None}
+    if nat is not None:
+        out["native"] = {"ms": {"read": t_read * 1e3, "meta": nat["meta"] * 1e3,
+                                "decode_crop": nat["decode_crop"] * 1e3,
+                                "decode_full": nat["decode_full"] * 1e3,
+                                "collate": t_coll_native * 1e3},
+                         "per_img_ms": nat["per_img"] * 1e3, "serial_ms": nat["serial"] * 1e3,
+                         "fallback": nat["fallback"]}
+    return out
+
+
+def native_stages(records, bufs, cfg, args) -> dict:
+    """Seconds an image of the native path's metadata pass and of its C++
+    decode on one thread, at window 'crop' and 'full', batch by batch;
+    "fallback": the images the decoder refused (0 on these JPEGs)."""
+    n = len(records)
+    seeds = list(range(1000, 1000 + n))
+    out = {"meta": timeit(lambda: _native_plan(records, bufs, cfg, seeds, "crop")) / n,
+           "fallback": 0}
+    c = cfg.preprocess.canvas_size
+    for window in ("crop", "full"):
+        samples, windows = _native_plan(records, bufs, cfg, seeds, window)
+        out["fallback"] += sum(s is None for s in samples)
+        chunks = [(bufs[i:i + args.batch], [w[i:i + args.batch] for w in windows])
+                  for i in range(0, n, args.batch)]
+        canvases = np.empty((args.batch, c, c, 3), np.uint8)
+        status = []
+
+        def decode():
+            for b, w in chunks:
+                status.append(native.decode_batch_into(b, *w, canvases[:len(b)], nthreads=1))
+
+        out[f"decode_{window}"] = timeit(decode, reps=2) / n
+        out["fallback"] += int(sum((s != 0).sum() for s in status))
+    return out
 
 
 def parse_args(argv=None):

@@ -38,7 +38,8 @@ jax_debug_nans: train_step checks every module's output, runs the backward
 in autograd's anomaly mode and checks the loss and the gradients before the
 update, so the run exits non-zero with a FloatingPointError naming the
 module (or the parameter) before any poisoned parameter is updated or
-saved.  It waits for the device at every module; without it the step is
+saved; under torchrun every rank raises at the same step, naming the same
+module.  It waits for the device at every module; without it the step is
 unchanged.
 """
 from __future__ import annotations

@@ -37,10 +37,14 @@ the first module whose output is not finite), the backward runs under
 autograd's anomaly mode with its NaN check, and the loss and the gradients
 are checked before the update, so a non-finite step raises before any
 parameter changes.  The checks wait for the device at every module.  On a
-mesh the loss and gradient check runs after the all-reduce, so every rank
-raises there; a module's hook or anomaly mode raises on its own rank only,
-and the other ranks wait in the all-reduce until the mesh's timeout, or
-until torchrun stops them when that rank exits.
+mesh every rank raises together, as the JAX package's sharded step (one
+program) does: no check raises before the gradients' all-reduce, where a
+rank that raised alone would leave the others waiting in it.  The hooks
+record the first module whose output is not finite, the backward runs
+without anomaly mode's NaN check, and the all-reduce's flat buffer carries
+a one-hot row over the model's sorted module names, summed over the ranks;
+after it every rank raises FloatingPointError naming the first module of
+that list that a rank recorded, then checks the summed loss and gradients.
 """
 from __future__ import annotations
 
@@ -158,28 +162,57 @@ def _all_finite(out) -> bool:
     return True
 
 
+def _not_finite(name: str, module: torch.nn.Module) -> FloatingPointError:
+    return FloatingPointError(
+        f"debug_nans: the output of {name or 'the model'} ({type(module).__name__}) is not finite")
+
+
 @contextlib.contextmanager
-def nan_guard(model: torch.nn.Module) -> Iterator[None]:
+def nan_guard(model: torch.nn.Module, record: Optional[list] = None) -> Iterator[None]:
     """A forward hook on every module of `model` that raises
     FloatingPointError when the module's output is not finite (a module
     returns after its children, so the first to raise is the innermost
     one), and autograd's anomaly mode with its NaN check; both removed on
-    exit."""
+    exit.  record: a list instead of the raise, which gets the name of the
+    first module whose output was not finite, and the backward runs without
+    the NaN check (on a mesh, where every rank must reach the all-reduce)."""
     def hook(name):
         def check(module, inputs, output):
-            if not _all_finite(output):
-                raise FloatingPointError(
-                    f"debug_nans: the output of {name} ({type(module).__name__}) is not finite")
+            if record or _all_finite(output):  # a list records the first only
+                return
+            if record is None:
+                raise _not_finite(name, module)
+            record.append(name)
         return check
 
-    handles = [m.register_forward_hook(hook(name or "the model"))
-               for name, m in model.named_modules()]
+    handles = [m.register_forward_hook(hook(name)) for name, m in model.named_modules()]
     try:
-        with torch.autograd.set_detect_anomaly(True, check_nan=True):
+        with torch.autograd.set_detect_anomaly(True, check_nan=record is None):
             yield
     finally:
         for h in handles:
             h.remove()
+
+
+def _first_not_finite(model: torch.nn.Module, record: list, device) -> torch.Tensor:
+    """A float32 one-hot row over `model`'s module names, sorted (the same
+    list on every rank): 1 at record[0], or all zeros when record is empty."""
+    names = sorted(name for name, _ in model.named_modules())
+    row = torch.zeros(len(names), dtype=torch.float32, device=device)
+    if record:
+        row[names.index(record[0])] = 1.0
+    return row
+
+
+def _raise_not_finite(model: torch.nn.Module, rows: torch.Tensor) -> None:
+    """Raise FloatingPointError naming the first module of the sorted list
+    whose entry in `rows` (_first_not_finite, summed over the ranks) is not
+    0; return when there is none.  Waits for the device."""
+    hit = rows.cpu().nonzero()
+    if len(hit):
+        modules = dict(model.named_modules())
+        name = sorted(modules)[int(hit[0])]
+        raise _not_finite(name, modules[name])
 
 
 def check_finite(grads: Mapping[str, torch.Tensor], metrics: Mapping[str, torch.Tensor]) -> None:
@@ -217,10 +250,16 @@ def train_step(
     total_pos = None
     if mesh is not None:
         total_pos = all_reduce_sum((targets.cls_target == 1).sum(), mesh)
-    with nan_guard(state.model) if debug_nans else contextlib.nullcontext():
+    record = [] if mesh is not None else None
+    with nan_guard(state.model, record) if debug_nans else contextlib.nullcontext():
         grads, metrics = loss_and_grads(state, images, targets, total_pos)
     if mesh is not None:
-        grads, summed = all_reduce_grads(grads, {k: metrics[k] for k in _SUMMED_METRICS}, mesh)
+        extra = {k: metrics[k] for k in _SUMMED_METRICS}
+        if debug_nans:
+            extra["not_finite"] = _first_not_finite(state.model, record, state.device)
+        grads, summed = all_reduce_grads(grads, extra, mesh)
+        if debug_nans:
+            _raise_not_finite(state.model, summed.pop("not_finite"))
         metrics.update(summed)
     if debug_nans:
         check_finite(grads, metrics)

@@ -95,7 +95,8 @@ BLOCKED = ("dan_tpu", "jax", "jaxlib", "tensorflow", "orbax", "google_crc32c", "
 def test_port_and_chip_smoke_import_with_dan_tpu_and_jax_blocked():
     """Every module of the port and chip_smoke.py import in an interpreter
     whose finder refuses `dan_tpu`, `jax`, `jaxlib`, `tensorflow`, `orbax`,
-    `google_crc32c` and `google.protobuf`, and none of them is loaded."""
+    `google_crc32c` and `google.protobuf`, and none of them is loaded; nor
+    is PIL, after the native loader has looked for PIL's libjpeg."""
     mods = _port_modules()
     assert "dan_tpu_torch.eval.__main__" in mods and "dan_tpu_torch.data.pipeline" in mods
     assert {"dan_tpu_torch.parallel.mesh", "dan_tpu_torch.parallel.spawn",
@@ -106,6 +107,8 @@ def test_port_and_chip_smoke_import_with_dan_tpu_and_jax_blocked():
     assert {"dan_tpu_torch.utils.crc32c", "dan_tpu_torch.ckpt.tf_bundle",
             "dan_tpu_torch.ckpt.tf_import", "dan_tpu_torch.ckpt.load",
             "dan_tpu_torch.ckpt.convert"} <= set(mods)
+    assert {"dan_tpu_torch.native", "dan_tpu_torch.data.pipeline",
+            "dan_tpu_torch.tools.profile_host_feed"} <= set(mods)
     code = (
         "import importlib, importlib.abc, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
@@ -118,6 +121,9 @@ def test_port_and_chip_smoke_import_with_dan_tpu_and_jax_blocked():
         f"bad = sorted(m for m in sys.modules\n"
         f"             if any(m == b or m.startswith(b + '.') for b in {BLOCKED!r}))\n"
         "assert not bad, bad\n"
+        # The native loader finds PIL's libjpeg without importing PIL.
+        "sys.modules['dan_tpu_torch.native'].libjpeg()\n"
+        "assert not [m for m in sys.modules if m == 'PIL' or m.startswith('PIL.')]\n"
         "print('blocked-import-ok', len(sys.modules))\n"
     )
     proc = subprocess.run(

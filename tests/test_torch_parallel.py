@@ -34,6 +34,7 @@ at 2 and 4 ranks).  A per-rank normalisation or an averaged gradient moves
 every update by 50 % or more, which every one of these checks sees.
 """
 import functools
+import time
 
 import numpy as np
 import pytest
@@ -269,3 +270,18 @@ def test_empty_shard_is_normalised_over_the_global_batch():
             assert_params_match_one_device(bad, one["states"][0], f"per rank {per_rank}")
         with pytest.raises(AssertionError):
             assert_update_close(bad, one["states"][0], payload, f"averaged {average}")
+
+
+def test_debug_nans_on_one_rank_raises_on_every_rank(tmp_path):
+    """A NaN weight on rank 1 only, under debug_nans: both ranks raise
+    FloatingPointError naming the module the one-rank step names, well
+    inside the mesh's own timeout, and no checkpoint is written."""
+    from tests.test_torch_parallel_tta import nan_rank
+
+    cfg = tiny_config()
+    t0 = time.monotonic()
+    said = spawn(nan_rank, 2, args=(cfg, str(tmp_path / "run")), timeout=60)
+    assert time.monotonic() - t0 < 60
+    want = "debug_nans: the output of backbone.conv3_1 (Conv) is not finite"
+    assert said == [want, want]
+    assert not (tmp_path / "run").exists()

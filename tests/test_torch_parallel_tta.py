@@ -85,6 +85,27 @@ def raise_rank(rank, world_size, init_method):
     dist.all_reduce(torch.ones(1))
 
 
+def nan_rank(rank, world_size, init_method, cfg, model_dir):
+    """One DP step under debug_nans with a NaN in backbone.conv3_1's weight
+    on rank 1 only: what the step raised, or None after the checkpoint the
+    train CLI would then write."""
+    from dan_tpu_torch.ckpt import train_state as ckpt
+
+    with _mesh(rank, world_size, init_method) as mesh:
+        state = create_train_state(cfg, 0, mesh.device)
+        pmesh.place_replicated(state, mesh)
+        if rank == 1:
+            with torch.no_grad():
+                state.model.get_parameter("backbone.conv3_1.weight").view(-1)[0] = float("nan")
+        batch = pmesh.shard_batch(synthetic_batch(cfg, cfg.train.batch_size, seed=0), mesh)
+        try:
+            train_step(state, batch, mesh=mesh, debug_nans=True)
+        except FloatingPointError as e:
+            return str(e)
+        ckpt.save(model_dir, state.step, state, mesh)
+        return None
+
+
 def hang_rank(rank, world_size, init_method):
     """Rank 1 sleeps; rank 0 waits for it in an all-reduce."""
     _mesh(rank, world_size, init_method, timeout=300)

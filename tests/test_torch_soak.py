@@ -74,8 +74,14 @@ def test_profile_host_feed_small(capsys):
     printed = capsys.readouterr().out
     assert set(out["ms"]) == {"read", "decode", "meta", "place", "collate"}
     assert all(v > 0 for v in out["ms"].values()) and out["per_img_ms"] > out["serial_ms"]
-    assert sorted(out["pipeline_img_s"]) == [1, 2, 4]
-    assert "decode full image" in printed and printed.count("scaling: ") == 2
+    assert sorted(out["pipeline_img_s"]) == ["cv2", "native"]
+    assert all(sorted(v) == [1, 2, 4] for v in out["pipeline_img_s"].values())
+    nat = out["native"]
+    assert set(nat["ms"]) == {"read", "meta", "decode_crop", "decode_full", "collate"}
+    assert all(v > 0 for v in nat["ms"].values()) and nat["per_img_ms"] > nat["serial_ms"]
+    assert nat["fallback"] == 0
+    assert "decode full image" in printed and "decode crop-window" in printed
+    assert printed.count("scaling (cv2): ") == 2 and printed.count("scaling (native): ") == 2
     assert "NVIDIA H100 80GB HBM3, 700.00 W" in printed
 
 
