@@ -106,7 +106,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      peak memory overall and for one 2048-bucket launch of 8 units, and the
      device's busy share from one profiler pass;
  14. time the vote kernel at (128, 6000, 750) and (1, 6000, 750) with its
-     own device time (torch.profiler) and the blocked NMS at (5000, 750)
+     own device time (torch.profiler, up to three sessions; CUDA events over
+     its launches alone if none shows it, as `device_ms_from` says) and the
+     blocked NMS at (5000, 750)
      against their plain versions (the blocked
      NMS's wrapper and its two passes alone, beside greedy_nms_rank's kernel
      at B = 1), and replay the selections to count the IoUs and merges that
@@ -237,13 +239,35 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      cv2 path (decode ms an image at 'crop' and 'full', one thread), the
      pipeline's img/s at 1/2/4 producers on each, and the cores one card's
      train step needs.  Without a libjpeg on the host, (c)-(e) print why
-     they did not run.
+     they did not run;
+ 22. the bench entry points (dan_tpu_torch/tools/bench*.py, entry.py) on
+     the JAX package's PRNGKey(0) weights (models/reference_init.py, drawn
+     once on the host and handed to (b)-(e)): (a) `python -m
+     dan_tpu_torch.tools.bench` in a subprocess, as a shell runs it:
+     exactly one JSON line with the reference's four keys, its value within
+     5 % of phase 5's img/s, and the line it prints to stderr says it
+     launched the NMS kernel 1 + 3 + 20 times with every row of the last
+     launch on the tile scan; with CUDA_VISIBLE_DEVICES="" it exits 5 and
+     prints no number; (b) bench_train --batch 32 --iters 10 in process, its
+     ms/step beside phase 10's, K3 + K4, K5 and K6 once a step (counted);
+     (c) bench_int8 --iters 10, its bf16 img/s within 5 % of phase 5's and
+     its int8 img/s within 5 % of phase 17's, conv_i8 18 times and
+     quantize_i8 once a forward, K1 once a step; (d) bench_tta_dataset
+     --images 48 --tta_batches 4,16 --vote_batches 32,128: every row's
+     bucket and vote launches equal to the K1 and K7 counters of its run and
+     to last_run_stats; (e) entry()'s forward on the card: finite logits of
+     the default shapes, no kernel launched.  The blocked NMS must launch 0
+     times.  In (b)-(e) the batch of every NMS and vote launch is read after
+     the launch (`launch_batches`): their count must equal the counters',
+     every NMS row must take the tile scan, and a launch at B = 1 counts
+     for K2 / K8, any other for K1 / K7.  The reference times on the host clock, phase 5 with CUDA
+     events; both are printed, neither is adjusted.
 
 Phase 12's first half runs before phase 13, its real-data half after it.
 The line before the last is a JSON object describing each kernel, with the
 least time the card could take for this run's inputs (`bound_ms`), its
-launches in phase 20 (`launches_tools`) and in phase 21
-(`launches_native`); the last
+launches in phase 20 (`launches_tools`), in phase 21 (`launches_native`)
+and in phase 22 (`launches_bench`); the last
 line is {"ok": true, "device": {...}}.  Imports no JAX and nothing of the
 JAX package.
 """
@@ -280,6 +304,7 @@ from dan_tpu_torch.ckpt.tf_import import (
     load_tf_checkpoint,
 )
 from dan_tpu_torch.models.detector import DANDetector
+from dan_tpu_torch.models.reference_init import init_reference_params
 from dan_tpu_torch.models.vgg import phase_pool_with_winner, nhwc
 from dan_tpu_torch.eval import __main__ as eval_cli
 from dan_tpu_torch.eval.tta import TTARunner, VoteRows, plan_variant_buckets
@@ -303,6 +328,7 @@ from dan_tpu_torch.models import layers, lfpn
 from dan_tpu_torch.models.layers import max_pool
 from dan_tpu_torch import quant
 from dan_tpu_torch.quant import QuantizedDetector, calibrate_act_scales, phase_max_i8
+from dan_tpu_torch.tools import bench as bench_tool
 from dan_tpu_torch.tools import smoke_e2e
 from dan_tpu_torch.ops.bbox_vote import bbox_vote_batched
 from dan_tpu_torch.ops.preprocess import sample_augment_batch, train_preprocess
@@ -475,27 +501,45 @@ def host_ms(fn, iters=20) -> float:
     return t
 
 
-def device_ms(fn, iters, names):
+def device_ms(fn, iters, names, alone=None, sessions=3):
     """Device time per call of fn() spent in the CUDA kernels whose names
     contain each of `names`, from torch.profiler over `iters` calls after
-    one warm call -> {name: ms}.  Raises if a named kernel shows no time."""
+    one warm call -> ({name: ms}, how it was measured).
+
+    The profiled calls sit 50 ms inside the session on both sides, and a
+    session whose events lack a named kernel is profiled again, up to
+    `sessions` times: CUPTI has delivered a short session without its
+    kernel records.  If none shows every named kernel, a single name is
+    timed with CUDA events over `iters` back-to-back calls of alone(), which
+    launches that kernel and nothing else on the device; else this raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys(names, 0.0)
-    for e in prof.key_averages():
-        if e.device_type.name == "CUDA":
-            for name in names:
-                if name in e.key:
-                    out[name] += e.self_device_time_total / 1e3 / iters
-    if not all(v > 0.0 for v in out.values()):
-        raise AssertionError(f"the profiler shows no device time for some of {names}: {out}")
-    return out
+    for session in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        out = dict.fromkeys(names, 0.0)
+        seen = 0
+        for e in prof.key_averages():
+            if e.device_type.name == "CUDA":
+                seen += e.count
+                for name in names:
+                    if name in e.key:
+                        out[name] += e.self_device_time_total / 1e3 / iters
+        if all(v > 0.0 for v in out.values()):
+            return out, "torch.profiler"
+        log(f"  torch.profiler session {session} of {sessions}: no device time for some of "
+            f"{names} ({out}; {seen} device events in all)")
+    if alone is None or len(names) != 1:
+        raise AssertionError(f"the profiler shows no device time for some of {names}")
+    alone()
+    torch.cuda.synchronize()
+    return {names[0]: cuda_ms(alone, iters)}, "CUDA events over the kernel's launches alone"
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -809,15 +853,12 @@ def main() -> int:
     check_dets(dets, batch_req, post.max_detections)
 
     anchors = det.anchors
+    bench_detect = bench_tool.build_detect_fn(cfg, dev)
 
     def bench_step():
-        with torch.inference_mode():
-            x = normalize_image(images_u8.float(), cfg.preprocess)
-            cls, loc = det.model(x)
-            out = postprocess_batch(cls, loc, anchors, cfg.anchors, post,
-                                    float(size), float(size))
-            nms_paths.append(nms_cuda.LAST_PATHS)
-            return out
+        out = bench_detect(det.model, images_u8)
+        nms_paths.append(nms_cuda.LAST_PATHS)
+        return out
 
     for _ in range(2):
         out = bench_step()
@@ -981,6 +1022,9 @@ def main() -> int:
         tools, soak_dir = phase20(cfg, dev, smi, d, bench_ms, train_step_ms)
         nat = phase21(dev, smi, d, soak_dir)
 
+    # -- 22. the bench entry points ------------------------------------------
+    bl = phase22(cfg, dev, smi, img_s, train_step_ms, BATCH / i8["ms_i8"] * 1e3)
+
     n_rows, n_box = BATCH, post.pre_nms_topk
     # NMS: 20 bytes a box in, its rank out; for every selected box an IoU, a
     # threshold test and (the input need not be sorted) an argmax compare
@@ -999,7 +1043,8 @@ def main() -> int:
          "bound_by": b_nms[1], "dependent_steps": int(nms_tiles.max()),
          "kept": int(kept_rows.max()), "library_ms": None,
          "launches_dp_ranks": [r["nms"] for r in dp_launches["tta"]],
-         "launches_ckpt": ck["nms_batched"], "launches_tools": tools["K1"]},
+         "launches_ckpt": ck["nms_batched"], "launches_tools": tools["K1"],
+         "launches_bench": bl["K1"]},
         {"name": "greedy_nms_rank (B=1)", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "dan_tpu/ops/nms_pallas.py:34", "launches": launches_one,
          "max_abs_err": err_1, "ms": ms["kernel1"], "argmax_loop_ms": ms["argmax1"],
@@ -1007,7 +1052,7 @@ def main() -> int:
          "plain_ms": ms["plain1"], "bound_ms": b_nms1[0], "bound_by": b_nms1[1],
          "dependent_steps": int(nms_tiles[0]), "kept": int(kept_rows[0]), "library_ms": None,
          "launches_ckpt": ck["nms_one"], "launches_tools": tools["K2"],
-         "launches_native": nat["nms"]},
+         "launches_native": nat["nms"], "launches_bench": bl["K2"]},
     ]
     for name, (_, src, replaces) in TRAIN_KERNELS.items():
         entry = {
@@ -1017,7 +1062,7 @@ def main() -> int:
             "library_ms": train_ms[name].get("library"),
             "launches_dp_ranks": [r[name] for r in dp_launches["train"]],
             "launches_ckpt": ck["train"][name], "launches_tools": tools[name],
-            "launches_native": nat[name]}
+            "launches_native": nat[name], "launches_bench": bl[name]}
         if name == "conv12_wgrad":
             plan = train_bounds["conv12_wgrad tiling"]
             seg = conv12_wgrad_cuda.SEGMENT
@@ -1043,18 +1088,20 @@ def main() -> int:
         {"name": "bbox_vote (batched)", "route": "cuda", "source": vote_src,
          "replaces": "dan_tpu/ops/bbox_vote_pallas.py:162", "launches": tta["vote_launches"],
          "max_abs_err": vote_err, "ms": tta_ms["vote"]["kernel"],
-         "device_ms": tta_ms["vote"]["device"], "plain_ms": tta_ms["vote"]["plain"],
+         "device_ms": tta_ms["vote"]["device"], "device_ms_from": tta_ms["vote"]["device_from"],
+         "plain_ms": tta_ms["vote"]["plain"],
          "bound_ms": tta_bounds["vote"][0], "bound_by": tta_bounds["vote"][1],
          "dependent_steps": tta_bounds["vote"][2], "outputs": tta_bounds["vote"][3],
          "library_ms": None, "launches_dp_ranks": [r["bbox_vote"] for r in dp_launches["tta"]],
-         "launches_tools": tools["K7"]},
+         "launches_tools": tools["K7"], "launches_bench": bl["K7"]},
         {"name": "bbox_vote (B=1)", "route": "cuda", "source": vote_src,
          "replaces": "dan_tpu/ops/bbox_vote_pallas.py:30", "launches": tta["vote_launches_one"],
          "max_abs_err": vote_err, "ms": tta_ms["vote1"]["kernel"],
-         "device_ms": tta_ms["vote1"]["device"], "plain_ms": tta_ms["vote1"]["plain"],
+         "device_ms": tta_ms["vote1"]["device"], "device_ms_from": tta_ms["vote1"]["device_from"],
+         "plain_ms": tta_ms["vote1"]["plain"],
          "bound_ms": tta_bounds["vote1"][0], "bound_by": tta_bounds["vote1"][1],
          "dependent_steps": tta_bounds["vote1"][2], "outputs": tta_bounds["vote1"][3],
-         "library_ms": None, "launches_tools": tools["K8"]},
+         "library_ms": None, "launches_tools": tools["K8"], "launches_bench": bl["K8"]},
         {"name": "greedy_nms_blocked", "route": "cuda",
          "source": "dan_tpu_torch/csrc/nms_blocked.cu",
          "replaces": "dan_tpu/ops/nms_blocked_pallas.py:39",
@@ -1065,7 +1112,7 @@ def main() -> int:
          "plain_ms": tta_ms["blocked"]["plain"],
          "bound_ms": tta_bounds["blocked"][0], "bound_by": tta_bounds["blocked"][1],
          "dependent_steps": tta_bounds["blocked"][2], "library_ms": None,
-         "launches_tools": tools["K9"]},
+         "launches_tools": tools["K9"], "launches_bench": bl["K9"]},
     ]
     kernels.append(
         {"name": "conv_i8", "route": "cuda", "source": f"dan_tpu_torch/csrc/{INT8_SOURCE}.cu",
@@ -1080,7 +1127,7 @@ def main() -> int:
                       "(the packed 2x2 form's zero taps left out)",
          "launches_per_forward": i8["launches"] // i8["iters"],
          "bench_ms": i8["ms_i8"], "bench_bf16_ms": i8["ms_bf"],
-         "launches_tools": tools["conv_i8"]})
+         "launches_tools": tools["conv_i8"], "launches_bench": bl["conv_i8"]})
     kernels.append(
         {"name": "quantize_i8", "route": "cuda", "source": f"dan_tpu_torch/csrc/{QUANT_SOURCE}.cu",
          "replaces": "dan_tpu/quant.py:383-394 (no TPU kernel: XLA's fused relu + "
@@ -1089,7 +1136,7 @@ def main() -> int:
          "max_abs_err": max(quant_err, i8["quant"]["err"]), "ms": i8["quant"]["ms"],
          "plain_ms": i8["quant"]["plain"], "bound_ms": i8["quant"]["bound"][0],
          "bound_by": i8["quant"]["bound"][1], "library_ms": None,
-         "launches_tools": tools["quantize_i8"]})
+         "launches_tools": tools["quantize_i8"], "launches_bench": bl["quantize_i8"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1388,7 +1435,7 @@ def phase11(cases, smi):
     # kernels' own device time.
     margs = cases["matcher"]
     call = lambda: matching_cuda.match_anchors_cuda(*margs)  # noqa: E731
-    dev_t = device_ms(call, 20, MATCHER_KERNELS)
+    dev_t, _ = device_ms(call, 20, MATCHER_KERNELS)
     out["matcher"]["device"] = dev_t
     log(f"phase 11: matcher call {out['matcher']['kernel']:.4f} ms (CUDA events over back-to-back "
         f"calls; the wrapper's host time {host_ms(call):.4f} ms a call); its kernels' device time "
@@ -1981,13 +2028,16 @@ def phase14(vote_inputs, nms_rows, post, dev, smi):
         lambda: nms_cuda.greedy_nms_rank(bx[None], sc[None], nthr, max_out), 20)
     for key, args in (("vote", (b, s, v)), ("vote1", (b1, s1, v1))):
         call = lambda: bbox_vote_cuda.bbox_vote_batched_cuda(*args, thr, max_out)  # noqa: E731
-        out[key]["device"] = device_ms(call, 20, ("bbox_vote_kernel",))["bbox_vote_kernel"]
+        alone = lambda: bbox_vote_cuda._launch(*args, thr, max_out)  # noqa: E731
+        dev_t, out[key]["device_from"] = device_ms(call, 20, ("bbox_vote_kernel",), alone)
+        out[key]["device"] = dev_t["bbox_vote_kernel"]
         out[key]["host"] = host_ms(call)
     log(f"phase 14: bbox_vote at {tuple(s.shape)} -> {max_out}: kernel "
-        f"{out['vote']['kernel']:.4f} ms (its device time {out['vote']['device']:.4f} ms, the "
-        f"wrapper's host time {out['vote']['host']:.4f} ms), plain {out['vote']['plain']:.4f} ms; "
-        f"at B=1: kernel {out['vote1']['kernel']:.4f} ms (device {out['vote1']['device']:.4f} ms, "
-        f"host {out['vote1']['host']:.4f} ms), plain {out['vote1']['plain']:.4f} ms ({smi})")
+        f"{out['vote']['kernel']:.4f} ms (its device time {out['vote']['device']:.4f} ms by "
+        f"{out['vote']['device_from']}, the wrapper's host time {out['vote']['host']:.4f} ms), "
+        f"plain {out['vote']['plain']:.4f} ms; at B=1: kernel {out['vote1']['kernel']:.4f} ms "
+        f"(device {out['vote1']['device']:.4f} ms by {out['vote1']['device_from']}, host "
+        f"{out['vote1']['host']:.4f} ms), plain {out['vote1']['plain']:.4f} ms ({smi})")
     log(f"phase 14: greedy_nms_blocked at ({sc.shape[0]}, {max_out}): the wrapper (order check "
         f"that waits for the device, both passes, rank_to_result) "
         f"{out['blocked']['kernel']:.4f} ms, its two passes alone "
@@ -3834,6 +3884,240 @@ def phase21(dev, smi, d, soak_dir):
         launches[k] = c[k]
     phase21e(smi, synth)
     log(f"phase 21: {time.perf_counter() - t0:.1f} s; launches {dict(launches)}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the bench entry points (tools/bench*.py, tools/entry.py): phase 22
+# ---------------------------------------------------------------------------
+
+BENCH_TOL = 0.05  # a bench module's img/s against the phase that times the same path
+BENCH_ITERS = 10  # timed steps of 22b and 22c
+TTA_BENCH_ARGV = ["--images", "48", "--tta_batches", "4,16", "--vote_batches", "32,128"]
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+NMS_LINE = (r"bench: greedy_nms_rank launches (\d+); rows of the last launch on the tile scan "
+            r"(\d+)/(\d+)")
+TRAIN_LINE = r"train batch=(\d+)/chip x (\d+) chip\(s\): ([\d.]+) img/s/chip \(([\d.]+) ms/step\)"
+INT8_LINE = r"bf16 ([\d.]+) -> int8 ([\d.]+) img/s/chip \(([\d.]+)x\)"
+
+
+def near(x, ref) -> bool:
+    return abs(x / ref - 1.0) <= BENCH_TOL
+
+
+def phase22a(smi, bench_img_s):
+    """python -m dan_tpu_torch.tools.bench in a subprocess, as a shell runs
+    it; then with no card visible.  Its NMS launches are read from the line
+    it prints to stderr (nms_cuda.LAUNCHES over its measure(), and
+    LAST_PATHS of the last launch: the 24 launches take the same images).
+    Returns (img/s, NMS launches at B = BATCH)."""
+    import re
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DAN_BENCH_ALLOW_CPU", "DAN_BENCH_MEASURE_CPU", "DAN_BENCH_BATCH")}
+    env["PYTHONPATH"] = REPO
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dan_tpu_torch.tools.bench"], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    log(f"phase 22a: python -m dan_tpu_torch.tools.bench (a subprocess, {secs:.1f} s, PyTorch's "
+        f"TF32 defaults: the bf16 convolutions do not use TF32): rc {proc.returncode}, stdout "
+        f"{lines}; phase 5's bench step {bench_img_s:.1f} img/s (CUDA events) ({smi})")
+    for line in proc.stderr.strip().splitlines()[-6:]:
+        log(f"  {line}")
+    head = json.loads(lines[0]) if len(lines) == 1 else {}
+    if proc.returncode != 0 or set(head) != BENCH_KEYS or (
+            head["metric"] != bench_tool.METRIC) or not near(head["value"], bench_img_s):
+        raise AssertionError("phase 22a: the bench did not print one JSON line with the four "
+                             f"keys and a value within {BENCH_TOL:.0%} of phase 5's img/s")
+    nms = re.search(NMS_LINE, proc.stderr)
+    calls = 1 + bench_tool.WARMUP_ITERS + bench_tool.MEASURE_ITERS
+    if nms is None or [int(g) for g in nms.groups()] != [calls, BATCH, BATCH]:
+        raise AssertionError(f"phase 22a: the bench did not launch the NMS kernel {calls} times "
+                             f"with every row of its last launch on the tile scan "
+                             f"({nms.group(0) if nms else 'no launch line'})")
+    proc = subprocess.run([sys.executable, "-m", "dan_tpu_torch.tools.bench"], cwd=REPO,
+                          env=dict(env, CUDA_VISIBLE_DEVICES=""), capture_output=True, text=True,
+                          timeout=300)
+    last = proc.stderr.strip().splitlines()[-1] if proc.stderr.strip() else ""
+    log(f"  with CUDA_VISIBLE_DEVICES=\"\": rc {proc.returncode}, stdout {proc.stdout!r}, "
+        f"\"{last}\"")
+    if proc.returncode != bench_tool.NO_CARD_EXIT or proc.stdout.strip():
+        raise AssertionError("phase 22a: without a card the bench did not exit 5 or printed a "
+                             "number")
+    return head["value"], calls
+
+
+def phase22b(smi, params, train_ms):
+    """bench_train --batch 32 --iters 10 in process, counted."""
+    import re
+
+    from dan_tpu_torch.tools import bench_train
+
+    argv = ["--batch", str(TRAIN_BATCH), "--iters", str(BENCH_ITERS)]
+    (rc, out, err), c = counted(lambda: quiet(lambda: bench_train.main(argv, params=params)))
+    m = re.fullmatch(TRAIN_LINE, out.strip().splitlines()[-1])
+    steps = 1 + bench_train.WARMUP_STEPS + BENCH_ITERS
+    log(f"phase 22b: python -m dan_tpu_torch.tools.bench_train {' '.join(argv)}: rc {rc}, "
+        f"\"{out.strip()}\" ({err.strip().splitlines()[0]}); phase 10's train step "
+        f"{train_ms:.3f} ms (CUDA events; warm-up 50 and clip 10, where the bench takes the "
+        f"default config as the reference does) ({smi}); launches in {steps} steps "
+        f"{ {k: c[k] for k in ('matcher', 'phase_pool_bwd', 'conv12_wgrad')} }")
+    if rc != 0 or m is None or int(m.group(1)) != TRAIN_BATCH or any(
+            c[k] != steps for k in ("matcher", "phase_pool_bwd", "conv12_wgrad")):
+        raise AssertionError("phase 22b: bench_train did not print the reference's line or did "
+                             "not launch K3-K6 once a step")
+    return c
+
+
+def phase22c(smi, params, bench_img_s, int8_img_s):
+    """bench_int8 --iters 10 in process, counted: its two numbers beside
+    phases 5 and 17."""
+    import re
+
+    from dan_tpu_torch.tools import bench_int8
+
+    argv = ["--iters", str(BENCH_ITERS)]
+    (rc, out, err), c = counted(lambda: quiet(lambda: bench_int8.main(argv, params=params)))
+    m = re.fullmatch(INT8_LINE, out.strip().splitlines()[-1])
+    fwd = 1 + bench_tool.WARMUP_ITERS + BENCH_ITERS  # forwards of each measure()
+    log(f"phase 22c: python -m dan_tpu_torch.tools.bench_int8 {' '.join(argv)}: rc {rc}, "
+        f"\"{out.strip()}\"; phase 5's bf16 {bench_img_s:.1f} img/s, phase 17's int8 "
+        f"{int8_img_s:.1f} img/s (CUDA events) ({smi}); launches conv_i8 {c['conv_i8']}, "
+        f"quantize_i8 {c['quantize_i8']}, NMS {c['nms']} in {fwd} int8 and {fwd} bf16 forwards")
+    if rc != 0 or m is None:
+        raise AssertionError("phase 22c: bench_int8 did not print the reference's line")
+    if not (near(float(m.group(1)), bench_img_s) and near(float(m.group(2)), int8_img_s)):
+        raise AssertionError(f"phase 22c: bench_int8's numbers are not within {BENCH_TOL:.0%} "
+                             "of phases 5 and 17")
+    if (c["conv_i8"], c["quantize_i8"], c["nms"]) != (I8_PER_FORWARD * fwd, fwd, 2 * fwd):
+        raise AssertionError(f"phase 22c: launches {dict(c)}, expected {I8_PER_FORWARD} conv_i8 "
+                             "and 1 quantize_i8 an int8 forward, 1 NMS a step")
+    return c
+
+
+def phase22d(smi, params):
+    """bench_tta_dataset on 48 images at 2 x 2 pairs, each row's launches
+    counted and held against its counts and last_run_stats."""
+    from dan_tpu_torch.tools import bench_tta_dataset as btd
+
+    per_row = []
+
+    def measure(runner, sizes, images, tb, vb):
+        before = {k: mod.LAUNCHES for k, mod in COUNTERS.items()}
+        row = btd.measure_pair(runner, sizes, images, tb, vb)
+        per_row.append((row, {k: mod.LAUNCHES - before[k] for k, mod in COUNTERS.items()},
+                        dict(runner.last_run_stats)))
+        return row
+
+    t0 = time.perf_counter()
+    (rows, out, err), c = counted(lambda: quiet(lambda: btd.run(
+        btd.parse_args(TTA_BENCH_ARGV), params=params, measure=measure)))
+    printed = [json.loads(line) for line in out.strip().splitlines()]
+    log(f"phase 22d: python -m dan_tpu_torch.tools.bench_tta_dataset {' '.join(TTA_BENCH_ARGV)} "
+        f"({time.perf_counter() - t0:.1f} s with the warm-up; host clock; {smi}):")
+    for line in err.strip().splitlines()[:-1]:
+        log(f"  {line}")
+    bad = printed != rows
+    for row, launches, stats in per_row:
+        log(f"  {json.dumps(row)}; counted K1 {launches['nms']}, K7 {launches['vote']}; "
+            f"last_run_stats {stats}")
+        bad |= not (row["bucket_launches"] == launches["nms"] == stats["bucket_launches"]
+                    and row["vote_launches"] == launches["vote"] == stats["vote_launches"]
+                    and row["images"] == stats["images"] == int(TTA_BENCH_ARGV[1]))
+    log(f"  warm-up launches: K1 {c['nms'] - sum(r['bucket_launches'] for r in rows)}, K7 "
+        f"{c['vote'] - sum(r['vote_launches'] for r in rows)}")
+    if bad or len(rows) != 4:
+        raise AssertionError("phase 22d: a row's launch counts differ from the K1 / K7 counters "
+                             "or last_run_stats, or the printed rows from the returned ones")
+    return c
+
+
+def phase22e(cfg, dev, params):
+    """entry()'s forward on the card."""
+    from dan_tpu_torch.tools.entry import entry
+
+    def forward():
+        fn, args = entry(device=dev, params=params)
+        return fn(*args)
+
+    (cls, loc), c = counted(forward)
+    torch.cuda.synchronize()
+    n = cfg.anchors.num_anchors(cfg.model.image_size)
+    log(f"phase 22e: tools.entry.entry(): forward of one zero 640x640 image -> cls "
+        f"{tuple(cls.shape)} {cls.dtype}, loc {tuple(loc.shape)} {loc.dtype}; kernel launches "
+        f"{sum(c.values())}")
+    if (cls.shape, loc.shape) != ((1, n, 2), (1, n, 4)) or cls.dtype != torch.float32 or not (
+            torch.isfinite(cls).all() and torch.isfinite(loc).all()) or sum(c.values()):
+        raise AssertionError("phase 22e: entry()'s forward is not finite logits of the default "
+                             "shapes, or it launched a hand-written kernel")
+
+
+@contextlib.contextmanager
+def launch_batches():
+    """{'nms': [...], 'vote': [...]}: (rows, LAST_PATHS or None) of every
+    NMS and vote kernel launch while inside, read after each launch that
+    its wrapper counted (each module's _launch wrapped, restored after)."""
+    seen = {"nms": [], "vote": []}
+    saved = {k: COUNTERS[k]._launch for k in seen}
+
+    def spy(key):
+        mod = COUNTERS[key]
+
+        def launch(*args, **kwargs):
+            before = mod.LAUNCHES
+            out = saved[key](*args, **kwargs)
+            if mod.LAUNCHES != before:
+                seen[key].append((int(mod.LAST_TILES.shape[0]),
+                                  mod.LAST_PATHS if key == "nms" else None))
+            return out
+        return launch
+
+    for key in seen:
+        COUNTERS[key]._launch = spy(key)
+    try:
+        yield seen
+    finally:
+        for key, fn in saved.items():
+            COUNTERS[key]._launch = fn
+
+
+def phase22(cfg, dev, smi, bench_img_s, train_ms, int8_img_s):
+    """The bench entry points on the card; returns each kernel's launches in
+    them, by kernels-line entry."""
+    t0 = time.perf_counter()
+    COUNTED.clear()
+    params = init_reference_params(0, cfg.model)
+    log(f"phase 22: the JAX package's PRNGKey(0) weights drawn on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    _, bench_nms = phase22a(smi, bench_img_s)
+    with launch_batches() as seen:
+        train = phase22b(smi, params, train_ms)
+        i8 = phase22c(smi, params, bench_img_s, int8_img_s)
+        tta = phase22d(smi, params)
+        phase22e(cfg, dev, params)
+    if COUNTED["blocked"]:
+        raise AssertionError(f"phase 22: the blocked NMS, on no path, launched "
+                             f"{COUNTED['blocked']} times")
+    # K2 and K8 are the batched kernels at B = 1: each launch goes to the
+    # entry of its batch, as the spy read it.
+    one = {k: sum(rows == 1 for rows, _ in v) for k, v in seen.items()}
+    rows_on_scan = torch.cat([p for _, p in seen["nms"]]).bool()
+    log(f"phase 22: in process, NMS launches by batch "
+        f"{dict(collections.Counter(r for r, _ in seen['nms']))}, vote launches by batch "
+        f"{dict(collections.Counter(r for r, _ in seen['vote']))}; NMS rows on the tile scan "
+        f"{int(rows_on_scan.sum())}/{rows_on_scan.numel()}")
+    if [len(seen[k]) for k in seen] != [COUNTED[k] for k in seen] or not bool(
+            rows_on_scan.all()):
+        raise AssertionError("phase 22: the launches read after each launch differ from the "
+                             "counters, or an NMS row took the argmax loop")
+    launches = collections.Counter(
+        K1=bench_nms + COUNTED["nms"] - one["nms"], K2=one["nms"],
+        K7=COUNTED["vote"] - one["vote"], K8=one["vote"], K9=COUNTED["blocked"],
+        conv_i8=i8["conv_i8"], quantize_i8=i8["quantize_i8"],
+        **{k: train[k] for k in ("matcher", "phase_pool_bwd", "conv12_wgrad")})
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s; launches {dict(launches)}")
     return launches
 
 

@@ -5,9 +5,10 @@ print a per-kernel cost table (counterpart of scripts/profile.py).
     python -m dan_tpu_torch.tools.profile train  [--batch 8]   [--top 30]
         [--iters_traced 3] [--trace_dir DIR]
 
-detect is the bench path at the default config (640x640, bf16): normalize
--> forward -> postprocess_batch (NMS kernel K1) on `batch` random uint8
-images from numpy.random.default_rng(0), random weights (seed 0).  train is
+detect is the bench path at the default config (640x640, bf16):
+tools/bench.py's build_detect_fn (normalize -> forward -> postprocess_batch,
+NMS kernel K1) on its `batch` uint8 images from numpy.random.default_rng(0),
+random weights (Detector.from_random, seed 0).  train is
 train_step on synthetic_batch(cfg, batch, seed=0) with the synthetic
 runs' recipe (warm-up 50, clip 10), the matcher, phase-pool backward and
 conv1_2' weight-grad kernels included.
@@ -43,41 +44,24 @@ import tempfile
 import time
 from typing import Dict, List
 
-import numpy as np
 import torch
 
+from dan_tpu_torch.api import Detector
 from dan_tpu_torch.config import default_config
 from dan_tpu_torch.device import resolve_device
+from dan_tpu_torch.tools.bench import bench_images, build_detect_fn, sync
 from dan_tpu_torch.utils.profiling import trace_path
 
 WARM_ITERS = 10
 
 
-def _sync(device):
-    torch.cuda.synchronize(device)
-
-
 def detect_graph(batch: int, device):
     """One iteration of the bench path, as a function."""
-    from dan_tpu_torch.api import Detector
-    from dan_tpu_torch.ops.postprocess import postprocess_batch
-    from dan_tpu_torch.ops.preprocess import normalize_image
-
     cfg = default_config()
-    size = cfg.model.image_size
     det = Detector.from_random(0, cfg, device)
-    rng = np.random.default_rng(0)
-    images = torch.from_numpy(
-        rng.integers(0, 255, (batch, size, size, 3), dtype=np.uint8)).to(device)
-
-    def step():
-        with torch.inference_mode():
-            x = normalize_image(images.float(), cfg.preprocess)
-            cls, loc = det.model(x)
-            return postprocess_batch(cls, loc, det.anchors, cfg.anchors, cfg.postprocess,
-                                     float(size), float(size))
-
-    return step
+    images = torch.from_numpy(bench_images(cfg, batch)).to(device)
+    detect = build_detect_fn(cfg, device)
+    return lambda: detect(det.model, images)
 
 
 def train_graph(batch: int, device):
@@ -175,11 +159,11 @@ def profile(graph: str, batch: int, iters_traced: int, top: int, trace_dir: str,
     step = (detect_graph if graph == "detect" else train_graph)(batch, device)
     step()  # build + warm
     step()
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     for _ in range(WARM_ITERS):
         step()
-    _sync(device)
+    sync(device)
     ips = WARM_ITERS * batch / (time.perf_counter() - t0)
     print(f"{graph} batch={batch}: {ips:.1f} img/s ({torch.cuda.get_device_name(device)})",
           file=sys.stderr)
@@ -190,7 +174,7 @@ def profile(graph: str, batch: int, iters_traced: int, top: int, trace_dir: str,
                        record_shapes=True, with_flops=True) as prof:
         for _ in range(iters_traced):
             step()
-        _sync(device)
+        sync(device)
     prof.export_chrome_trace(trace_path(trace_dir))
     total_us, rows = kernel_table(prof, iters_traced)
     print_table(total_us, rows, iters_traced, top)

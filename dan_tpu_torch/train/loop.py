@@ -83,11 +83,14 @@ class TrainState:
         return next(self.model.parameters()).device
 
 
-def create_train_state(config: DANConfig, seed: int = 0, device=None) -> TrainState:
-    """Random He-normal weights from a torch.Generator seeded with `seed`,
-    zero momentum, step 0."""
+def create_train_state(config: DANConfig, seed: int = 0, device=None,
+                       model: Optional[DANDetector] = None) -> TrainState:
+    """`model`'s weights (by default random He-normal ones from a
+    torch.Generator seeded with `seed`) on `device`, zero momentum, step 0."""
     device = resolve_device(device)
-    model = DANDetector(config.model, torch.Generator().manual_seed(seed)).to(device)
+    if model is None:
+        model = DANDetector(config.model, torch.Generator().manual_seed(seed))
+    model = model.to(device)
     momentum = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
     return TrainState(model=model, momentum=momentum, step=0, config=config)
 

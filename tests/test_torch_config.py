@@ -16,11 +16,13 @@ import dan_tpu.data.synthetic as ref_synthetic
 import dan_tpu_torch
 import dan_tpu_torch.config as port_config
 from dan_tpu_torch.api import Detector
+from dan_tpu_torch.ckpt.bridge import params_to_jax
 from dan_tpu_torch.config import from_reference
 from dan_tpu_torch.data.synthetic import synthetic_batch
 from dan_tpu_torch.device import resolve_device
 from dan_tpu_torch.eval.tta import TTARunner
 from dan_tpu_torch.models.detector import DANDetector
+from dan_tpu_torch.tools.entry import entry
 from dan_tpu_torch.train import create_train_state
 
 torch.set_num_threads(1)
@@ -90,6 +92,8 @@ def _port_modules():
 # What the port and chip_smoke.py must not import: the JAX package, JAX, and
 # what the card's host lacks (TensorFlow, orbax, google_crc32c, protobuf).
 BLOCKED = ("dan_tpu", "jax", "jaxlib", "tensorflow", "orbax", "google_crc32c", "google.protobuf")
+# The bench entry points, each a CLI (tools/entry.py is a function).
+BENCH_MODULES = ("bench", "bench_train", "bench_tta_dataset", "bench_int8")
 
 
 def test_port_and_chip_smoke_import_with_dan_tpu_and_jax_blocked():
@@ -109,6 +113,7 @@ def test_port_and_chip_smoke_import_with_dan_tpu_and_jax_blocked():
             "dan_tpu_torch.ckpt.convert"} <= set(mods)
     assert {"dan_tpu_torch.native", "dan_tpu_torch.data.pipeline",
             "dan_tpu_torch.tools.profile_host_feed"} <= set(mods)
+    assert {f"dan_tpu_torch.tools.{m}" for m in BENCH_MODULES + ("entry",)} <= set(mods)
     code = (
         "import importlib, importlib.abc, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
@@ -165,8 +170,11 @@ def test_resolve_device():
         lambda cfg, **kw: Detector(DANDetector(cfg.model), cfg, **kw),
         lambda cfg, **kw: TTARunner(DANDetector(cfg.model), cfg, **kw),
         lambda cfg, **kw: create_train_state(cfg, 0, **kw),
+        # entry() -> (fn, (model, images)): the images' device.
+        lambda cfg, **kw: entry(cfg, params=params_to_jax(DANDetector(cfg.model).state_dict()),
+                                **kw)[1][1],
     ],
-    ids=["from_random", "Detector", "TTARunner", "create_train_state"],
+    ids=["from_random", "Detector", "TTARunner", "create_train_state", "entry"],
 )
 def test_entry_points_default_to_the_card_and_take_the_cpu_on_request(make):
     cfg = tiny()
@@ -177,7 +185,8 @@ def test_entry_points_default_to_the_card_and_take_the_cpu_on_request(make):
         make(cfg)
 
 
-@pytest.mark.parametrize("module", ["dan_tpu_torch.train", "dan_tpu_torch.eval"])
+@pytest.mark.parametrize("module", ["dan_tpu_torch.train", "dan_tpu_torch.eval"]
+                         + [f"dan_tpu_torch.tools.{m}" for m in BENCH_MODULES])
 def test_clis_raise_without_a_card(module, tmp_path):
     _no_card()
     args = {
@@ -185,10 +194,13 @@ def test_clis_raise_without_a_card(module, tmp_path):
         "dan_tpu_torch.eval": ["--wider_root",
                                os.path.join(REPO, "tests", "fixtures", "mini_wider"),
                                "--limit", "1", "--no_tta"],
-    }[module]
+        "dan_tpu_torch.tools.bench_train": ["--iters", "1"],
+        "dan_tpu_torch.tools.bench_tta_dataset": ["--images", "1"],
+    }.get(module, [])
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DAN_BENCH_")}
     proc = subprocess.run(
         [sys.executable, "-m", module, *args], cwd=REPO,
-        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True, timeout=300,
+        env=dict(env, PYTHONPATH=REPO), capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
