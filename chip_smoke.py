@@ -39,7 +39,7 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      sorted rows with one swapped pair; the tile scan must be the faster;
   8. print the build time and the ptxas registers, spills and shared
      memory of the train-step kernels (matching.cu, phase_pool.cu,
-     conv12_wgrad.cu);
+     conv12_wgrad.cu, upsample2x_bwd.cu) and the TTA ones;
   9. hold each train-step kernel against its plain version on the card at
      the train shapes (batch 32, 640x640): the matcher (A = 34125, G = 256)
      with all four MatchTargets leaves bit-identical, on the
@@ -51,19 +51,24 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      bit-identical across two runs, at the train shape, at batch 1 and 3,
      at o1 (2, 37, 53, 256) and (1, 64, 65, 256) (rows that end inside a
      64-pixel segment), on a border-only o1 and dr, and exactly 0 on an
-     all-negative o1;
+     all-negative o1; the LFPN upsample's gradient kernel bit for bit
+     (torch.equal) and run to run at a step's three shapes (g (32, 512,
+     40, 40), (32, 512, 80, 80), (32, 256, 160, 160)) and at odd sizes, in
+     bf16 and float32;
  10. train the default config at batch 32, 640x640, bf16, on synthetic
      data (warm-up 50, clip 10): 6 steps on one batch must lower the loss;
      10 timed steps on fresh batches give ms/step, img/s, the split into
      H2D + preprocess + match, forward + backward and optimizer, and peak
      memory; each train kernel must have launched its expected count per
-     step; then 2 steps through `python -m dan_tpu_torch.train`'s main(),
+     step (K3 + K4, K5, K6 once, the upsample gradient three times); then
+     2 steps through `python -m dan_tpu_torch.train`'s main(),
      the second resumed from the first one's checkpoint;
  11. time each train-step kernel against its plain version at the train
      shapes, the matcher call beside its three kernels' own device time
-     (torch.profiler), and cuDNN's weight gradient beside the conv1_2'
-     kernel (the one PyTorch call that computes a ported kernel's
-     function);
+     (torch.profiler), cuDNN's weight gradient beside the conv1_2'
+     kernel, and ATen's upsample_bilinear2d_backward (the atomic backward
+     the upsample kernel replaces) beside a step's three upsample gradients
+     (the PyTorch calls that compute a kernel's function);
  12. hold the vote kernel and the blocked-NMS kernel against their plain
      versions on the card: the vote at (7, 6000) -> 750 on seeded rows
      (clusters, an empty row, a full row, score ties, a pair at IoU exactly
@@ -78,8 +83,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      (`bbox_vote_cuda.LAST_TILES`) positive exactly when it has an active
      detection and at most one a 64 active ones; the blocked NMS at
      N = 5000 on the bench path's candidates, on the NaN row of phase 3 and
-     at N = 257: kept set identical to its plain version and to the ranks
-     of greedy_nms_rank (the tile scan);
+     at N = 257: ranks identical to its plain version and to those of
+     greedy_nms_rank (the tile scan) at max_out N, 750, 1, 20 and where the
+     kernel's stop at the max_out-th kept box falls on a tile's edge and
+     one past it;
  13. the TTA path at the default config (full width, bf16, random weights):
      160 seeded images of 8 WIDER-like sizes that reach every bucket,
      `warmup_tta`, `detect_tta` on one image of each size, then
@@ -110,26 +117,30 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      its launches alone if none shows it, as `device_ms_from` says) and the
      blocked NMS at (5000, 750)
      against their plain versions (the blocked
-     NMS's wrapper and its two passes alone, beside greedy_nms_rank's kernel
-     at B = 1), and replay the selections to count the IoUs and merges that
-     this run's rows need, for the bounds.
+     NMS's wrapper, its two passes together and each alone beside the first
+     design's time from PERF.md, and greedy_nms_rank's kernel at B = 1),
+     and replay the selections to count the IoUs and merges that this run's
+     rows need, for the bounds.
 
  15. data parallelism (dan_tpu_torch/parallel/), every rank a spawned
      process that launches its own kernels: (a) NCCL at world size 1 on
-     cuda:0, at the train and TTA shapes above: three DP train steps
-     against three `train_step` calls from the same state and global
-     batches (bit-identical where two one-device runs are; within their
-     spread where the backward's atomics make them differ), and a 32-image
+     cuda:0, at the train and TTA shapes above: two runs of three
+     `train_step` calls from create_train_state(0) on the same batches must
+     be bit-identical in every parameter, momentum buffer and metric (the
+     default step trains one model a seed); three DP train steps from the
+     same state and global batches bit-identical to them (metrics, hard
+     negatives, parameters, momentum), and a 32-image
      `detect_tta_dataset(mesh=)` bit-identical to the call without it;
      (b) gloo, 2 ranks on cuda:0 (NCCL refuses two ranks on one card), each
      held to half of 0.9 of its memory (`dryrun_multichip.card_share`), a
      global batch of 32 = 16 a rank: matcher targets, num_pos and the
      selected-negative count identical to the one-device step, the hard
      negatives' agreement printed, the loss within 1e-2 and the
-     parameters' update within 5e-2 (relative L2, bf16), K3-K6 once a step
-     on each rank; the 32 images through both ranks bit-identical to the
-     one-device run at the same tta_batch, launch counters = last_run_stats
-     = the planners' arithmetic a rank; on every leg no rank's allocation
+     parameters' update within 5e-2 (relative L2, bf16), K3-K6 once and
+     the upsample gradient three times a step on each rank; the 32 images
+     through both ranks bit-identical to the one-device run at the same
+     tta_batch, launch counters = last_run_stats = the planners'
+     arithmetic a rank; on every leg no rank's allocation
      ran out of device memory (cuDNN would then take another algorithm and
      other bits); ms a step and the all-reduce's
      share; the three legs of tools/dryrun_multichip.py; (c) NCCL over
@@ -176,9 +187,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      equal those with the plain conv in its place.  smoke_e2e runs under
      torch.use_deterministic_algorithms: it runs twice, and the two trained
      models (every parameter, the last loss, every AP) must be identical;
-     the train step is timed by default, with the upsample's slice gradient
-     alone, with that and cuDNN's deterministic choice, and under the mode,
-     at batch 8 and 32, and the kernels the mode adds are listed;
+     the train step is timed with the upsample's gradient by ATen's atomic
+     backward, by default (the kernel), by the slice sums (its plain
+     version), with the kernel and cuDNN's deterministic choice, and under
+     the mode, at batch 8 and 32, and the kernels the mode adds are listed;
  19. checkpoint loading (dan_tpu_torch/ckpt/): (a) a seeded full-width
      detector written as a TF V2 bundle (the port's export_tf_checkpoint),
      an .npz and a .pt (the convert CLI's main(), --strict); each loaded by
@@ -195,9 +207,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      with --synthetic --warm_start <bundle> --steps 2 --batch_size 32 and
      the synthetic recipe's --warmup_steps 50 --grad_clip 10 (the weights are
      random):
-     exit 0, K3 + K4, K5 and K6 once a step (counted), the first step's
-     loss equal to train_step's on the source weights and the same batch,
-     and a --resume run continuing from its step-2 checkpoint;
+     exit 0, K3 + K4, K5 and K6 once and the upsample gradient three
+     times a step (counted), the first step's loss equal to train_step's
+     on the source weights and the same batch, and a --resume run
+     continuing from its step-2 checkpoint;
  20. the tools, scripts and utils (dan_tpu_torch/tools/, utils/,
      data/tfrecords.py), each through the entry point a user calls: (a) the
      demo CLI on a 1024x768 JPEG with phase 19's .pt, its detections equal
@@ -205,18 +218,20 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      them, --out at the input's shape, --tta launching K1 and K8, --int8
      the int8 kernels; (b) the train CLI, 3 steps at batch 32, with
      --trace_dir (the trace names the matcher's, the phase-pool backward's
-     and the conv1_2' weight-grad kernels as many times as their counters
-     say), the same steps with --debug_nans timed beside the default, and a
-     NaN in one parameter under --debug_nans: a non-zero exit naming the
+     and the conv1_2' weight-grad kernels and the upsample gradient's as
+     many times as their counters say), the same steps with --debug_nans
+     timed beside the default, and a NaN in one parameter under
+     --debug_nans: a non-zero exit naming the
      module, no checkpoint; (c) tools.profile detect at batch 128 and train
      at batch 32, their device time an iteration beside phases 5 and 10, the
      hand-written kernels under their own names; (d) the TFRecord roundtrip
      of the fixture with its MB/s; (e) the fixture soak at its defaults (300
      steps at batch 8 through the TrainPipeline, then the eval CLI with the
-     official .mat ground truth), K3-K6 once a step, and its eval CLI again
-     in process, K2 once an image; (f) make_synth_wider --n 320 and the
-     eval CLI with TTA on them, K1 and K7 equal to last_run_stats plus the
-     warm-up's one launch a shape ((g), profile_host_feed, runs in 21e);
+     official .mat ground truth), K3-K6 once and the upsample gradient
+     three times a step, and its eval CLI again in process, K2 once an
+     image; (f) make_synth_wider --n 320 and the eval CLI with TTA on
+     them, K1 and K7 equal to last_run_stats plus the warm-up's one
+     launch a shape ((g), profile_host_feed, runs in 21e);
  21. the host C++ helpers (dan_tpu_torch/native/) on the card's host: (a) a
      probe: PIL's version and the libjpeg it ships, that library's
      libjpeg-turbo symbols (nm -D, or ctypes), g++'s version, each
@@ -234,7 +249,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      batch's bit for bit; an EXIF-rotated JPEG and a PNG take the fallback;
      (d) TrainPipeline (native, crop window) -> device_prefetch ->
      train_step, 20 steps at batch 8, 640x640, the synthetic recipe, on the
-     64 JPEGs: K3 + K4, K5 and K6 once a step, every loss finite; (e)
+     64 JPEGs: K3 + K4, K5 and K6 once and the upsample gradient three
+     times a step, every loss finite; (e)
      profile_host_feed --n 64: the per-image stages of the native and the
      cv2 path (decode ms an image at 'crop' and 'full', one thread), the
      pipeline's img/s at 1/2/4 producers on each, and the cores one card's
@@ -249,7 +265,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      launched the NMS kernel 1 + 3 + 20 times with every row of the last
      launch on the tile scan; with CUDA_VISIBLE_DEVICES="" it exits 5 and
      prints no number; (b) bench_train --batch 32 --iters 10 in process, its
-     ms/step beside phase 10's, K3 + K4, K5 and K6 once a step (counted);
+     ms/step beside phase 10's, K3 + K4, K5 and K6 once and the upsample
+     gradient three times a step (counted);
      (c) bench_int8 --iters 10, its bf16 img/s within 5 % of phase 5's and
      its int8 img/s within 5 % of phase 17's, conv_i8 18 times and
      quantize_i8 once a forward, K1 once a step; (d) bench_tta_dataset
@@ -321,6 +338,7 @@ from dan_tpu_torch.ops import (
     nms_blocked_cuda,
     nms_cuda,
     phase_pool_cuda,
+    upsample_cuda,
 )
 from dan_tpu_torch.ops.conv_i8 import conv_i8_epilogue_plain, conv_i8_plain, out_size
 from dan_tpu_torch.models.detector import compute_dtype
@@ -360,10 +378,19 @@ TRAIN_KERNELS = {  # module, source, the TPU kernel it replaces
                        "dan_tpu/ops/phase_pool_pallas.py:60"),
     "conv12_wgrad": (conv12_wgrad_cuda, "conv12_wgrad",
                      "dan_tpu/ops/conv12_wgrad_pallas.py:51"),
+    "upsample2x_bwd": (upsample_cuda, "upsample2x_bwd",
+                       "dan_tpu/models/layers.py:105 (no TPU kernel: XLA's transpose of "
+                       "jax.image.resize's dots)"),
 }
+TRAIN_NAMES = tuple(TRAIN_KERNELS)
 # Launches per train step: one each (the matcher counts calls of its C
-# entry point, each of which launches both of its passes).
-PER_STEP = {"matcher": 1, "phase_pool_bwd": 1, "conv12_wgrad": 1}
+# entry point, each of which launches both of its passes), and the LFPN's
+# three upsample gradients.
+PER_STEP = {"matcher": 1, "phase_pool_bwd": 1, "conv12_wgrad": 1, "upsample2x_bwd": 3}
+# The upsample gradients of one train step at batch 32, 640x640: g of the
+# fc7 -> conv5_3, conv5_3 -> conv4_3 and conv4_3 -> conv3_3 blocks.
+UPSAMPLE_SHAPES = ((TRAIN_BATCH, 512, 40, 40), (TRAIN_BATCH, 512, 80, 80),
+                   (TRAIN_BATCH, 256, 160, 160))
 # The matcher's kernels: pass 1 (K3) is the first two, pass 2 (K4) the last.
 MATCHER_KERNELS = ("anchor_best_kernel", "gt_stats_kernel", "assign_kernel")
 TTA_SOURCES = ("bbox_vote", "nms_blocked")
@@ -390,6 +417,10 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
+# The blocked NMS's two passes at (5000, 750) in its first design (a serial
+# scan over the 64 bits of every tile, its words read from L2), PERF.md
+# section 6, printed beside the redesign's.
+K9_FIRST_DESIGN_MS = 0.3454
 # Phase 15: DP train steps and TTA images a leg; the tolerances of a
 # 2-rank step against one device in bf16 (the ranks' forward runs at batch
 # 16, whose convolutions may take other kernels than batch 32's): the loss
@@ -398,13 +429,16 @@ DP_STEPS = 3
 DP_TTA_IMAGES = 32
 DP_LOSS_RTOL = 1e-2
 DP_UPDATE_RTOL = 5e-2
-# The metrics of a step that its forward alone decides (grad_norm comes
-# from the backward, whose atomic adds differ between runs).
-FORWARD_METRICS = ("loss", "cls_loss", "loc_loss", "num_pos", "num_neg_selected")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def train_launches_ok(c, steps) -> bool:
+    """Each train kernel launched its count a step (PER_STEP) in `steps`
+    steps."""
+    return all(c[k] == PER_STEP[k] * steps for k in TRAIN_NAMES)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -1107,8 +1141,12 @@ def main() -> int:
          "replaces": "dan_tpu/ops/nms_blocked_pallas.py:39",
          "launches": tta["blocked_launches"], "max_abs_err": blocked_err,
          "ms": tta_ms["blocked"]["kernel"], "launch_ms": tta_ms["blocked"]["launch"],
+         "pass1_ms": tta_ms["blocked"]["pass1"], "pass2_ms": tta_ms["blocked"]["pass2"],
+         "first_design_ms": K9_FIRST_DESIGN_MS,
          "ms_covers": "the wrapper: order check that waits for the device, both passes, "
-                      "rank_to_result; launch_ms is the two passes alone",
+                      "rank_to_result; launch_ms is the two passes alone, pass1_ms / pass2_ms "
+                      "each alone; first_design_ms the two passes of the first design "
+                      "(PERF.md)",
          "plain_ms": tta_ms["blocked"]["plain"],
          "bound_ms": tta_bounds["blocked"][0], "bound_by": tta_bounds["blocked"][1],
          "dependent_steps": tta_bounds["blocked"][2], "library_ms": None,
@@ -1294,9 +1332,39 @@ def phase9(cfg, dev):
         edge_dr[sl] = dr[:2][sl]
     compare_wgrad(edge, edge_dr, "border-only o1 and dr")
     del zero, edge, edge_dr
-    errs = {"matcher": 0.0, "phase_pool_bwd": 0.0, "conv12_wgrad": e_abs}
+    compare_upsample(gen, dev)
+    errs = {"matcher": 0.0, "phase_pool_bwd": 0.0, "conv12_wgrad": e_abs, "upsample2x_bwd": 0.0}
     cases = {"matcher": margs, "phase_pool_bwd": (g, win), "conv12_wgrad": (o1, dr)}
     return errs, cases
+
+
+def compare_upsample(gen, dev):
+    """The upsample gradient kernel against its plain version, bit for bit
+    (torch.equal), at a train step's three shapes and at odd sizes, in bf16
+    and float32, twice each."""
+    odd = ((2, 3, 10, 14), (1, 1, 2, 2), (3, 5, 6, 4), (2, 7, 130, 66), (1, 2, 2, 322))
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in UPSAMPLE_SHAPES + odd:
+            g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            got = upsample_cuda.upsample2x_bwd(g)
+            again = upsample_cuda.upsample2x_bwd(g)
+            want = upsample_cuda.upsample2x_bwd_plain(g)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and same_bits(got, again)):
+                raise AssertionError(f"upsample gradient kernel != plain at {shape} {dtype}: "
+                                     f"{int((got != want).sum())} elements differ")
+    # A contiguous g whose storage starts inside a pair of elements is
+    # refused (the kernel loads and stores pairs), not a fault.
+    flat = torch.zeros(2 * 3 * 10 * 14 + 1, dtype=torch.bfloat16, device=dev)
+    try:
+        upsample_cuda.upsample2x_bwd(flat[1:].view(2, 3, 10, 14))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("the upsample gradient kernel took a g that is not pair-aligned")
+    log(f"phase 9: upsample gradient kernel == plain (torch.equal) and run to run bit-identical "
+        f"at g {list(UPSAMPLE_SHAPES)} and {list(odd)}, bf16 and float32; a g off a pair's "
+        f"alignment refused")
 
 
 def phase10(cfg, dev, smi):
@@ -1415,15 +1483,31 @@ def profile_steps(step, batches):
             f"{e.key[:90]}")
 
 
+def aten_ups_one(g):
+    """ATen's gradient of the 2x bilinear upsample of g (N, C, 2H, 2W)."""
+    return torch.ops.aten.upsample_bilinear2d_backward.default(
+        g, list(g.shape[2:]), [g.shape[0], g.shape[1], g.shape[2] // 2, g.shape[3] // 2], False,
+        2.0, 2.0)
+
+
 def phase11(cases, smi):
     """Each train kernel against its plain version, same inputs, in turns
     plain, kernel, kernel, plain."""
+    # A step's three upsample gradients (made here, so that phase 10's peak
+    # memory does not hold them).
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    cases = dict(cases, upsample2x_bwd=tuple(
+        torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        for shape in UPSAMPLE_SHAPES))
     fns = {
         "matcher": (matching_cuda.match_anchors_cuda, match_anchors),
         "phase_pool_bwd": (phase_pool_cuda.phase_pool_bwd,
                            phase_pool_cuda.phase_pool_bwd_plain),
         "conv12_wgrad": (conv12_wgrad_cuda.conv12_wgrad,
                          conv12_wgrad_cuda.conv12_wgrad_plain),
+        # A step's three upsample gradients, one call each.
+        "upsample2x_bwd": (lambda *gs: [upsample_cuda.upsample2x_bwd(g) for g in gs],
+                           lambda *gs: [upsample_cuda.upsample2x_bwd_plain(g) for g in gs]),
     }
     out = {}
     for name, (kernel, plain) in fns.items():
@@ -1462,6 +1546,26 @@ def phase11(cases, smi):
         raise AssertionError("the library call does not compute the kernel's function")
     del x, g, want
 
+    # The upsample gradient's library call: ATen's upsample_bilinear2d_backward
+    # (atomic adds), the backward the port took before the kernel.
+    ups = cases["upsample2x_bwd"]
+
+    def aten_ups():
+        return [aten_ups_one(g) for g in ups]
+
+    e_ups = max(rel_l2(a, k) for a, k in zip(aten_ups(), fns["upsample2x_bwd"][0](*ups)))
+    torch.cuda.synchronize()
+    out["upsample2x_bwd"]["library"] = cuda_ms(aten_ups, 10)
+    per_call = [(cuda_ms(lambda: upsample_cuda.upsample2x_bwd(g), 20),
+                 cuda_ms(lambda: aten_ups_one(g), 20)) for g in ups]
+    log(f"phase 11: upsample2x_bwd, a step's three calls at g {[tuple(g.shape) for g in ups]} "
+        f"bf16: kernel {out['upsample2x_bwd']['kernel']:.4f} ms, plain "
+        f"{out['upsample2x_bwd']['plain']:.4f} ms, ATen's upsample_bilinear2d_backward "
+        f"{out['upsample2x_bwd']['library']:.4f} ms (rel L2 to the kernel {e_ups:.3e}); a call "
+        f"(kernel, ATen): " + ", ".join(f"{k:.4f} / {a:.4f}" for k, a in per_call) + f" ({smi})")
+    if not e_ups < 1e-2:
+        raise AssertionError("ATen's upsample backward does not compute the kernel's function")
+
     # Bounds from this run's inputs.  Matcher: each pass reads anchors, gts
     # and mask and does 14 operations an (anchor, valid gt) pair; pass 1
     # writes 8 bytes an anchor and 16 a gt, pass 2 reads those and writes 24
@@ -1483,6 +1587,10 @@ def phase11(cases, smi):
                                 pool_out, PEAK_F32),
         "conv12_wgrad": bound(nbytes(o1, dr) + 4 * ci * co * 4,
                               2 * b * h * w * 4 * ci * co, PEAK_BF16),
+        # g read once, gx (a quarter of g) written once; 21 float32
+        # operations an output (two H sums of 7, one W sum).
+        "upsample2x_bwd": bound(sum(nbytes(g) * 5 // 4 for g in ups),
+                                sum(21 * g.numel() // 4 for g in ups), PEAK_F32),
     }
     for name, (ms_b, by) in bounds.items():
         log(f"  bound {name}: {ms_b:.4f} ms by {by}")
@@ -1620,11 +1728,28 @@ def phase12_real(vote_inputs, post, dev) -> float:
                         "the TTA run's first vote chunk")
 
 
+def blocked_stress_row(groups, copies, dev):
+    """A sorted row built against a scan that reads a tile before every
+    helper warp has ORed the earlier kept boxes into it: `groups` times a
+    tile of 64 disjoint boxes (all kept: a long chain step, 64 words for a
+    helper to OR into each later tile) followed by `copies` tiles that repeat
+    it (all suppressed: short chain steps, the tile after next suppressed
+    only by the helpers' ORs).  Boxes sit on a 10-px grid, 8 px wide."""
+    q = np.arange(groups * 64)
+    corner = np.stack([(q % 16) * 10.0, (q // 16) * 10.0], 1)
+    first = np.concatenate([corner, corner + 8.0], 1).astype(np.float32)
+    bx = np.concatenate([np.tile(first[k * 64:(k + 1) * 64], (1 + copies, 1))
+                         for k in range(groups)])
+    sc = np.linspace(1.0, 0.01, bx.shape[0]).astype(np.float32)
+    return torch.from_numpy(bx).to(dev), torch.from_numpy(sc).to(dev)
+
+
 def phase12_blocked(nms_rows, nan_row, post, dev) -> float:
     """The blocked NMS kernel: kept set against its plain version and
     against greedy_nms_rank's ranks (the tile scan: these rows are sorted),
-    on the bench rows, on the bench row with two NaN coordinates, and on
-    257 seeded boxes."""
+    on the bench rows, on the bench row with two NaN coordinates, on 257
+    and 20,000 seeded boxes and on two stress rows (blocked_stress_row), each
+    of which is then launched 200 times more against the plain ranks."""
     boxes, scores = nms_rows
     thr, max_out = post.nms_iou_threshold, post.max_detections
     rng = np.random.default_rng(SEED + 9)
@@ -1635,27 +1760,66 @@ def phase12_blocked(nms_rows, nan_row, post, dev) -> float:
     cases.append((nan_row[0], nan_row[1], thr, 0.0))
     cases += [(small_b, small_s, 0.4, 0.0), (small_b, small_s, 0.3, 0.5),
               (small_b, torch.zeros_like(small_s), 0.3, 0.0)]
+    # Past 8,192 boxes the scan stages a capped range of columns and reads
+    # the rest from L2: 20,000 seeded boxes (above greedy_nms_rank's limit,
+    # so against the plain version alone).
+    big_b = torch.from_numpy(random_boxes(rng, 20000)).to(dev)
+    big_s = torch.from_numpy(np.sort(rng.uniform(0.01, 1.0, 20000).astype(np.float32))[::-1]
+                             .copy()).to(dev)
+    cases.append((big_b, big_s, thr, 0.0))
+    # 2,048 boxes: only the first helper warp has tiles to OR; 4,992: the
+    # helpers' share of the tiles changes along the row.
+    stress = [blocked_stress_row(4, 7, dev), blocked_stress_row(13, 5, dev)]
+    cases += [(sb, ss, thr, 0.0) for sb, ss in stress]
+    k1_max = nms_cuda.build().nms_rank_max_n()
     log("phase 12: blocked NMS kernel against its plain version and the ranks of greedy_nms_rank")
     diff = 0
     for bx, sc, t, sthr in cases:
-        # max_out = N gives the whole kept set; then the path's max_out.
-        for out in (sc.shape[0], max_out):
+        # max_out = N gives the whole kept set; then the path's max_out, and
+        # cuts of the kernel's stop at the max_out-th kept box: inside the
+        # first tile, at the edge of the tiles that hold the first half of
+        # the kept boxes, and one past it.
+        kept = nms_blocked_cuda._kept_plain(bx, sc, t, sthr)
+        per_tile = torch.nn.functional.pad(kept, (0, -kept.shape[0] % 64)).view(-1, 64).sum(1)
+        upto = per_tile.cumsum(0)
+        half = min(int((upto < max(int(kept.sum()) // 2, 1)).sum()), upto.shape[0] - 1)
+        edge = int(upto[half])
+        cuts = sorted({sc.shape[0], max_out, 1, 20, edge, edge + 1})
+        for out in cuts:
             got = nms_blocked_cuda.greedy_nms_blocked_cuda(bx, sc, t, out, sthr)
             want = nms_blocked_cuda.greedy_nms_blocked_plain(bx, sc, t, out, sthr)
-            k1 = rank_to_result(
-                nms_cuda.greedy_nms_rank(bx[None].contiguous(), sc[None].contiguous(), t, out,
-                                         sthr), bx[None], sc[None], out)
+            refs = [want]
+            if sc.shape[0] <= k1_max:
+                k1 = rank_to_result(
+                    nms_cuda.greedy_nms_rank(bx[None].contiguous(), sc[None].contiguous(), t,
+                                             out, sthr), bx[None], sc[None], out)
+                refs.append(NMSResult(*(leaf[0] for leaf in k1)))
             torch.cuda.synchronize()
             off = [int((got.indices != w.indices).sum()) + int((got.valid != w.valid).sum())
-                   for w in (want, NMSResult(*(leaf[0] for leaf in k1)))]
+                   for w in refs] + [0]
             diff = max(diff, *off)
             if any(off):
                 raise AssertionError(
                     f"blocked NMS at N={sc.shape[0]} thr={t} score_thr={sthr} max_out={out}: "
                     f"{off[0]} kept entries differ from plain, {off[1]} from "
                     f"greedy_nms_rank")
-        log(f"  blocked NMS == plain == greedy_nms_rank at N={sc.shape[0]} thr={t} "
-            f"score_thr={sthr}: kept sets identical, {int(got.valid.sum())} within max_out")
+        log("  blocked NMS == plain" + (" == greedy_nms_rank" if sc.shape[0] <= k1_max else "")
+            + f" at N={sc.shape[0]} thr={t} "
+            f"score_thr={sthr}, max_out {cuts} ({edge} = the kept boxes of tiles 1-{half + 1}): "
+            f"ranks identical, {int(kept.sum())} kept in all")
+    for sb, ss in stress:
+        n = ss.shape[0]
+        want = nms_blocked_cuda.kept_to_rank(nms_blocked_cuda._kept_plain(sb, ss, thr), n)
+        off = torch.zeros((), dtype=torch.int64, device=dev)
+        for _ in range(200):
+            off += (nms_blocked_cuda._launch(sb, ss, thr, 0.0, n) != want).sum()
+        off = int(off)
+        diff = max(diff, off)
+        if off:
+            raise AssertionError(f"blocked NMS on the stress row of N={n}: {off} ranks differ "
+                                 f"from plain over 200 launches")
+        log(f"  blocked NMS on the stress row of N={n} ({int((want >= 0).sum())} kept): "
+            f"ranks identical to plain in 200 launches")
     return float(diff)
 
 
@@ -1999,6 +2163,33 @@ def profile_tta(det, keyed):
         log(f"    {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
 
 
+def blocked_passes(bx, sc, thr, max_out):
+    """CUDA-event ms of the blocked NMS's two passes apart, each launched
+    alone back to back on one row (uncounted: timing only), after checking
+    that the scan's ranks equal the wrapper's."""
+    lib = nms_blocked_cuda.build()
+    n = sc.shape[0]
+    mask = torch.empty((lib.nms_blocked_mask_words(n),), dtype=torch.int64, device=sc.device)
+    rank = torch.empty((n,), dtype=torch.int32, device=sc.device)
+
+    def mask_pass():
+        _cuda_build.check(lib.nms_blocked_mask_launch(
+            bx.data_ptr(), mask.data_ptr(), n, float(thr), _cuda_build.stream_of(bx)), "mask")
+
+    def scan_pass():
+        _cuda_build.check(lib.nms_blocked_scan_launch(
+            sc.data_ptr(), mask.data_ptr(), rank.data_ptr(), n, 0.0, int(max_out),
+            _cuda_build.stream_of(sc)), "scan")
+
+    mask_pass()
+    scan_pass()
+    want = nms_blocked_cuda._launch(bx, sc, thr, 0.0, max_out)
+    torch.cuda.synchronize()
+    if not torch.equal(rank, want):
+        raise AssertionError("the blocked NMS's passes alone rank other boxes than its wrapper")
+    return {"pass1": cuda_ms(mask_pass, 50), "pass2": cuda_ms(scan_pass, 50)}
+
+
 def phase14(vote_inputs, nms_rows, post, dev, smi):
     """Times of the vote and blocked-NMS kernels beside their plain
     versions, the vote's own device time, and their bounds from these
@@ -2018,9 +2209,11 @@ def phase14(vote_inputs, nms_rows, post, dev, smi):
         lambda: nms_blocked_cuda.greedy_nms_blocked_cuda(bx, sc, nthr, max_out),
         lambda: nms_blocked_cuda.greedy_nms_blocked_plain(bx, sc, nthr, max_out), 20, 2)
     # The wrapper's check of the descending order waits for the device, and
-    # rank_to_result follows the kernel: the two launches alone, beside it.
+    # rank_to_result follows the kernel: the two launches alone, beside it,
+    # and each pass alone.
     out["blocked"]["launch"] = cuda_ms(
-        lambda: nms_blocked_cuda._launch(bx, sc, nthr, 0.0), 20)
+        lambda: nms_blocked_cuda._launch(bx, sc, nthr, 0.0, max_out), 20)
+    out["blocked"].update(blocked_passes(bx, sc, nthr, max_out))
     k1_ms = cuda_ms(lambda: rank_to_result(
         nms_cuda.greedy_nms_rank(bx[None], sc[None], nthr, max_out), bx[None], sc[None],
         max_out), 20)
@@ -2041,9 +2234,11 @@ def phase14(vote_inputs, nms_rows, post, dev, smi):
     log(f"phase 14: greedy_nms_blocked at ({sc.shape[0]}, {max_out}): the wrapper (order check "
         f"that waits for the device, both passes, rank_to_result) "
         f"{out['blocked']['kernel']:.4f} ms, its two passes alone "
-        f"{out['blocked']['launch']:.4f} ms, plain {out['blocked']['plain']:.4f} ms; "
-        f"greedy_nms_rank (tile scan) at B=1 with rank_to_result {k1_ms:.4f} ms, alone "
-        f"{k1_launch_ms:.4f} ms ({smi})")
+        f"{out['blocked']['launch']:.4f} ms (pass 1, the mask, {out['blocked']['pass1']:.4f} ms; "
+        f"pass 2, the scan with the ranks, {out['blocked']['pass2']:.4f} ms, each alone), plain "
+        f"{out['blocked']['plain']:.4f} ms; the first design's two passes "
+        f"{K9_FIRST_DESIGN_MS} ms (PERF.md); greedy_nms_rank (tile scan) at B=1 with "
+        f"rank_to_result {k1_ms:.4f} ms, alone {k1_launch_ms:.4f} ms ({smi})")
 
     # Bounds, from what these inputs need.  Vote: 21 bytes a detection in,
     # 21 an output slot; in each dependent step an IoU, a test and an argmax
@@ -2130,6 +2325,12 @@ def max_param_diff(a, b):
     return max(float((a[k] - b[k]).abs().max()) for k in b)
 
 
+def differing(a, b):
+    """The names of the tensors of payload dict a that are not torch.equal
+    to b's."""
+    return [k for k in b if not torch.equal(a[k], b[k])]
+
+
 def dp_expected(items, runner, rank, n, tta_batch, vote_batch):
     """A rank's bucket and vote launches from the planners: the chunks of
     each (bucket, canvas) group, and of the vote, in which its block holds
@@ -2184,15 +2385,18 @@ def check_train_ranks(check, ranks, one, start, label, exact):
     log(f"  {label}: hard negatives differing from one device {neg_diff} of {n_neg} a step; "
         f"loss rel diff {loss_rel:.3e}; parameter update rel L2 {upd:.3e}, max |dp| {diff:.3e}")
     if exact:
-        check(ranks[0]["metrics"] == one["metrics"] and diff == 0.0 and sum(neg_diff) == 0,
-              f"{label}: metrics, hard negatives and parameters bit-identical to one device")
+        mom = differing(ranks[0]["state"]["momentum"], one["state"]["momentum"])
+        check(ranks[0]["metrics"] == one["metrics"] and diff == 0.0 and sum(neg_diff) == 0
+              and not mom, f"{label}: metrics, hard negatives, parameters and momentum "
+              f"bit-identical to one device (momentum tensors differing: {mom[:4]})")
     else:
         check(loss_rel <= DP_LOSS_RTOL and upd <= DP_UPDATE_RTOL,
               f"{label}: loss within {DP_LOSS_RTOL} and update within {DP_UPDATE_RTOL}")
     for r, rk in enumerate(ranks):
         want = {name: DP_STEPS * PER_STEP[name] for name in PER_STEP}
         got = {name: rk["launches"][name] for name in PER_STEP}
-        check(got == want, f"{label}: rank {r} launched K3+K4 / K5 / K6 {got} in {DP_STEPS} steps")
+        check(got == want, f"{label}: rank {r} launched K3+K4 / K5 / K6 / the upsample gradient "
+              f"{got} in {DP_STEPS} steps")
 
 
 def check_tta_ranks(check, ranks, ref, items, runner, label):
@@ -2233,13 +2437,23 @@ def phase15(cfg, tcfg, dev, smi):
     start = ckpt.state_payload(create_train_state(tcfg, SEED, "cpu"))["model"]
     one = one_device_steps(tcfg, dev)
     again = one_device_steps(tcfg, dev)
+    # The default train step trains one model per seed: a second run from
+    # create_train_state(SEED) on the same batches is bit-identical in every
+    # parameter, every momentum buffer and every metric.
     spread = dry.update_rel_l2(again["state"]["model"], one["state"]["model"], start)
-    reproducible = spread == 0.0 and again["metrics"] == one["metrics"]
+    params = differing(again["state"]["model"], one["state"]["model"])
+    moms = differing(again["state"]["momentum"], one["state"]["momentum"])
     log(f"phase 15: one device, {DP_STEPS} steps at batch {TRAIN_BATCH}: "
         f"{np.mean(one['ms'][1:]):.3f} ms a step after the first (host clock, synchronised); "
-        f"a second run {'is' if reproducible else 'is NOT'} bit-identical (max |dp| "
+        f"a second run: {len(params)} of {len(one['state']['model'])} parameter and {len(moms)} "
+        f"of {len(one['state']['momentum'])} momentum tensors differ (max |dp| "
         f"{max_param_diff(again['state']['model'], one['state']['model']):.3e}, update rel L2 "
-        f"{spread:.3e}) ({smi})")
+        f"{spread:.3e}), metrics {'identical' if again['metrics'] == one['metrics'] else 'differ'}"
+        f" ({smi})")
+    check(not params and not moms and again["metrics"] == one["metrics"],
+          f"one device: two default runs of {DP_STEPS} steps from create_train_state({SEED}) "
+          f"bit-identical in every parameter, momentum buffer and metric (differing: "
+          f"{(params + moms)[:4]})")
     batch_fn = functools.partial(dp_batch, tcfg)
     train_args = (tcfg, SEED, batch_fn, DP_STEPS)
 
@@ -2268,15 +2482,7 @@ def phase15(cfg, tcfg, dev, smi):
     r1 = ranks_of(dry.train_rank, 1, "nccl", train_args)
     log(f"phase 15a: NCCL, 1 rank: {np.mean(r1[0]['ms'][1:]):.3f} ms a step after the first, "
         f"one all-reduce of the gradients' buffer {r1[0]['allreduce_ms']:.3f} ms ({smi})")
-    if reproducible:
-        check_train_ranks(check, r1, one, start, "15a NCCL x1", exact=True)
-    else:
-        check_train_ranks(check, r1, one, start, "15a NCCL x1", exact=False)
-        upd = dry.update_rel_l2(r1[0]["state"]["model"], one["state"]["model"], start)
-        first = all(r1[0]["metrics"][0][k] == one["metrics"][0][k] for k in FORWARD_METRICS)
-        check(first and upd <= 4 * spread,
-              f"15a NCCL x1: the first step's forward metrics bit-identical, the update within "
-              f"4x the one-device runs' own spread ({upd:.3e} <= 4 x {spread:.3e})")
+    check_train_ranks(check, r1, one, start, "15a NCCL x1", exact=True)
     t1 = ranks_of(dry.tta_rank, 1, "nccl", tta_args)
     check_tta_ranks(check, t1, ref, items, runner, "15a NCCL x1")
 
@@ -2873,20 +3079,37 @@ def device_split(fn):
     return by["CUDA"], by["CPU"]
 
 
+class SliceUpsample(torch.autograd.Function):
+    """upsample2x with its gradient taken by the kernel's plain version
+    (slice sums in float32, several elementwise passes) on the card: the
+    gradient the deterministic mode took before the kernel, timed beside
+    the kernel."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return layers._bilinear2x(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return upsample_cuda.upsample2x_bwd_plain(g)
+
+
 def time_deterministic(dev, smi):
     """The train step's cost of smoke_e2e's deterministic mode, and of its
-    parts: ms a step at batch 8 (smoke_e2e's) and 32, by default; with the
-    LFPN upsample's gradient taken by models/layers.py::_Upsample2x (the slice
-    sums the mode uses) and nothing else changed; that with
-    torch.backends.cudnn.deterministic on; under deterministic(); and under it
-    with PyTorch's fill of new tensors on (the mode's default).  Each is timed
-    twice, in the order given and then in reverse.  At batch 32, the kernels
-    and the aten ops whose device time the mode adds over the slice gradient
-    with cuDNN deterministic (torch.profiler, one step each)."""
+    parts: ms a step at batch 8 (smoke_e2e's) and 32 with the LFPN
+    upsample's gradient by ATen's atomic backward (the default before the
+    kernel); by default (the kernel, csrc/upsample2x_bwd.cu); by the slice
+    sums (the kernel's plain version, the gradient of the mode before the
+    kernel); the kernel with torch.backends.cudnn.deterministic on; under
+    deterministic(); and under it with PyTorch's fill of new tensors on (the
+    mode's default).  Each is timed twice, in the order given and then in
+    reverse.  At batch 32, the kernels and the aten ops whose device time the
+    mode adds over the default with cuDNN deterministic (torch.profiler, one
+    step each)."""
     @contextlib.contextmanager
-    def adjoint(cudnn_deterministic=False):
+    def upsample(fn=None, cudnn_deterministic=False):
         prev = lfpn.upsample2x, torch.backends.cudnn.deterministic
-        lfpn.upsample2x = layers._Upsample2x.apply
+        lfpn.upsample2x = fn or prev[0]
         torch.backends.cudnn.deterministic = cudnn_deterministic
         try:
             yield
@@ -2899,8 +3122,10 @@ def time_deterministic(dev, smi):
             torch.utils.deterministic.fill_uninitialized_memory = True
             yield
 
-    modes = {"default": contextlib.nullcontext, "slice gradient": adjoint,
-             "+ cudnn.deterministic": functools.partial(adjoint, True),
+    modes = {"ATen backward": functools.partial(upsample, layers._bilinear2x),
+             "default (kernel)": contextlib.nullcontext,
+             "slice gradient": functools.partial(upsample, SliceUpsample.apply),
+             "kernel + cudnn.deterministic": functools.partial(upsample, None, True),
              "deterministic()": smoke_e2e.deterministic, "with the fill": with_fill}
     out, split = {}, {}
     for batch in (8, TRAIN_BATCH):
@@ -2922,18 +3147,18 @@ def time_deterministic(dev, smi):
             with modes[name]():
                 t[name].append(steps())
         if batch == TRAIN_BATCH:
-            for name in ("+ cudnn.deterministic", "deterministic()"):
+            for name in ("kernel + cudnn.deterministic", "deterministic()"):
                 with modes[name]():
                     split[name] = steps(profile=True)
     log("phase 18: train step ms (CUDA events, mean of 6 after 2; each timed twice, in this order "
         "and back) " + " / ".join(modes) + ": " + "; ".join(
             f"batch {b}: " + " / ".join(f"{v[0]:.3f}, {v[1]:.3f}" for v in t.values())
             for b, t in out.items()) + f" ({smi})")
-    narrow, mode = split["+ cudnn.deterministic"], split["deterministic()"]
+    narrow, mode = split["kernel + cudnn.deterministic"], split["deterministic()"]
     for i, what in enumerate(("kernels", "aten ops")):
         diff = sorted(((mode[i].get(k, 0.0) - narrow[i].get(k, 0.0), k)
                        for k in set(mode[i]) | set(narrow[i])), reverse=True)
-        log(f"  batch {TRAIN_BATCH}, one step's device time (profiler): slice gradient + cudnn."
+        log(f"  batch {TRAIN_BATCH}, one step's device time (profiler): kernel + cudnn."
             f"deterministic {sum(narrow[i].values()):.3f} ms, deterministic() "
             f"{sum(mode[i].values()):.3f} ms; the {what} the mode adds most to: "
             + "; ".join(f"{k[:90]} {d:+.3f} ms" for d, k in diff[:6]))
@@ -3271,7 +3496,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 COUNTERS = {"nms": nms_cuda, "vote": bbox_vote_cuda, "blocked": nms_blocked_cuda,
             "matcher": matching_cuda, "phase_pool_bwd": phase_pool_cuda,
             "conv12_wgrad": conv12_wgrad_cuda, "conv_i8": conv_i8_cuda,
-            "quantize_i8": quantize_i8_cuda}
+            "quantize_i8": quantize_i8_cuda, "upsample2x_bwd": upsample_cuda}
 TOOLS_STEPS = 3  # train CLI steps of phase 20b
 SOAK_N = 320  # images of phase 20f's synthetic-val soak (the documented one: 3,226)
 
@@ -3362,7 +3587,7 @@ def trace_kernels(path):
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     names = [e["name"] for e in events if e.get("cat") == "kernel"]
-    want = MATCHER_KERNELS + ("phase_pool_bwd_kernel", "wgrad_kernel")
+    want = MATCHER_KERNELS + ("phase_pool_bwd_kernel", "wgrad_kernel", "upsample2x_bwd_kernel")
     return {k: sum(is_kernel(n, k) for n in names) for k in want}
 
 
@@ -3391,7 +3616,8 @@ def phase20b(dev, smi, tools, d, pt):
     size = os.path.getsize(trace_path(trace_dir))
     want = {**{k: c_trace["matcher"] for k in MATCHER_KERNELS},
             "phase_pool_bwd_kernel": c_trace["phase_pool_bwd"],
-            "wgrad_kernel": c_trace["conv12_wgrad"]}
+            "wgrad_kernel": c_trace["conv12_wgrad"],
+            "upsample2x_bwd_kernel": c_trace["upsample2x_bwd"]}
     log(f"phase 20b: python -m dan_tpu_torch.train main() --steps {TOOLS_STEPS} --batch_size "
         f"{TRAIN_BATCH} --trace_dir: rc {rc}; trace {size / 1e6:.1f} MB, kernels in it {seen}; "
         f"launch counters {c_trace}")
@@ -3431,7 +3657,7 @@ def phase20b(dev, smi, tools, d, pt):
         f"{proc.returncode}, \"{last}\", checkpoints {saved}")
     if proc.returncode == 0 or "backbone.conv3_1 (Conv)" not in last or saved:
         raise AssertionError("phase 20b: --debug_nans did not stop at the poisoned module")
-    for k in ("matcher", "phase_pool_bwd", "conv12_wgrad"):
+    for k in TRAIN_NAMES:
         tools[k] += c_trace[k] + c_def[k] + c_dbg[k]
 
 
@@ -3454,10 +3680,11 @@ def phase20c(dev, smi, tools, d, bench_ms, train_ms):
         if graph == "detect":
             tools["K1"] += c["nms"]
         else:
-            for k in ("matcher", "phase_pool_bwd", "conv12_wgrad"):
+            for k in TRAIN_NAMES:
                 tools[k] += c[k]
     named = {"detect": ("nms_rank_kernel",),
-             "train": MATCHER_KERNELS + ("phase_pool_bwd_kernel", "wgrad_kernel")}
+             "train": MATCHER_KERNELS + ("phase_pool_bwd_kernel", "wgrad_kernel",
+                                         "upsample2x_bwd_kernel")}
     for graph, kernels in named.items():
         missing = [k for k in kernels if not any(is_kernel(n, k) for n in rows[graph])]
         if missing:
@@ -3481,10 +3708,11 @@ def phase20de(dev, smi, tools, d):
     log(f"phase 20e: python -m dan_tpu_torch.tools.soak_fixture_e2e main() at its defaults "
         f"(300 steps, batch 8, TrainPipeline of 4 workers a producer): {res['img_s']:.1f} img/s "
         f"(host clock, feed included; {smi}), last loss {res['loss']:.4f}; train launches "
-        f"{ {k: c[k] for k in ('matcher', 'phase_pool_bwd', 'conv12_wgrad')} }; the eval CLI "
+        f"{ {k: c[k] for k in TRAIN_NAMES} }; the eval CLI "
         f"(a subprocess): {ap}")
-    if any(c[k] != 300 for k in ("matcher", "phase_pool_bwd", "conv12_wgrad")):
-        raise AssertionError("phase 20e: the soak's train steps did not launch K3-K6 once each")
+    if not train_launches_ok(c, 300):
+        raise AssertionError("phase 20e: the soak's train steps did not launch K3-K6 once and "
+                             "the upsample gradient three times a step")
     argv = ["--wider_root", soak.FIX, "--ckpt", res["model_dir"], "--no_tta", "--output_dir",
             os.path.join(d, "soak_preds"), "--gt_mats",
             os.path.join(soak.FIX, "eval_tools", "ground_truth")]
@@ -3493,7 +3721,7 @@ def phase20de(dev, smi, tools, d):
         f"launches {c_eval['nms']} (K2, one an image)")
     if rc != 0 or c_eval["nms"] != 20:
         raise AssertionError("phase 20e: the eval CLI did not launch K2 once an image")
-    for k in ("matcher", "phase_pool_bwd", "conv12_wgrad"):
+    for k in TRAIN_NAMES:
         tools[k] += c[k]
     tools["K2"] += c_eval["nms"]
     return res["model_dir"]
@@ -3828,12 +4056,12 @@ def phase21d(dev, smi, synth):
         f"{cfg.preprocess.train_image_size}: {NATIVE_STEPS * NATIVE_BATCH / secs:.1f} img/s "
         f"(host clock, first step and the feed included; {smi}); images by path "
         f"{dict(pipe.decoded)}; loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches "
-        f"{ {k: c[k] for k in ('matcher', 'phase_pool_bwd', 'conv12_wgrad')} }")
-    if not np.isfinite(losses).all() or any(
-            c[k] != NATIVE_STEPS for k in ("matcher", "phase_pool_bwd", "conv12_wgrad")) or (
+        f"{ {k: c[k] for k in TRAIN_NAMES} }")
+    if not np.isfinite(losses).all() or not train_launches_ok(c, NATIVE_STEPS) or (
             pipe.decoded["native"] < NATIVE_STEPS * NATIVE_BATCH or pipe.decoded["fallback"]):
         raise AssertionError("phase 21d: the native-fed train steps did not launch K3-K6 once "
-                             "a step, met a non-finite loss, or did not decode natively")
+                             "and the upsample gradient three times a step, met a non-finite "
+                             "loss, or did not decode natively")
     return c
 
 
@@ -3880,7 +4108,7 @@ def phase21(dev, smi, d, soak_dir):
     log(f"phase 21c: cv2 {cv2.__version__}")
     phase21c(dev, d, synth)
     c = phase21d(dev, smi, synth)
-    for k in ("matcher", "phase_pool_bwd", "conv12_wgrad"):
+    for k in TRAIN_NAMES:
         launches[k] = c[k]
     phase21e(smi, synth)
     log(f"phase 21: {time.perf_counter() - t0:.1f} s; launches {dict(launches)}")
@@ -3963,11 +4191,11 @@ def phase22b(smi, params, train_ms):
         f"\"{out.strip()}\" ({err.strip().splitlines()[0]}); phase 10's train step "
         f"{train_ms:.3f} ms (CUDA events; warm-up 50 and clip 10, where the bench takes the "
         f"default config as the reference does) ({smi}); launches in {steps} steps "
-        f"{ {k: c[k] for k in ('matcher', 'phase_pool_bwd', 'conv12_wgrad')} }")
-    if rc != 0 or m is None or int(m.group(1)) != TRAIN_BATCH or any(
-            c[k] != steps for k in ("matcher", "phase_pool_bwd", "conv12_wgrad")):
+        f"{ {k: c[k] for k in TRAIN_NAMES} }")
+    if rc != 0 or m is None or int(m.group(1)) != TRAIN_BATCH or not train_launches_ok(c, steps):
         raise AssertionError("phase 22b: bench_train did not print the reference's line or did "
-                             "not launch K3-K6 once a step")
+                             "not launch K3-K6 once and the upsample gradient three times a "
+                             "step")
     return c
 
 
@@ -4116,7 +4344,7 @@ def phase22(cfg, dev, smi, bench_img_s, train_ms, int8_img_s):
         K1=bench_nms + COUNTED["nms"] - one["nms"], K2=one["nms"],
         K7=COUNTED["vote"] - one["vote"], K8=one["vote"], K9=COUNTED["blocked"],
         conv_i8=i8["conv_i8"], quantize_i8=i8["quantize_i8"],
-        **{k: train[k] for k in ("matcher", "phase_pool_bwd", "conv12_wgrad")})
+        **{k: train[k] for k in TRAIN_NAMES})
     log(f"phase 22: {time.perf_counter() - t0:.1f} s; launches {dict(launches)}")
     return launches
 

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dan_tpu_torch.ops import upsample_cuda
+
 
 def same_padding(size: int, kernel: int, stride: int, dilation: int) -> Tuple[int, int]:
     """TF 'SAME' (before, after) padding of one spatial dimension."""
@@ -103,11 +105,15 @@ class L2Norm(nn.Module):
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """2x bilinear upsample with half-pixel centres (jax.image.resize).
 
-    Under torch.use_deterministic_algorithms(True) it is _Upsample2x, whose
-    gradient is made of slice sums: PyTorch's CUDA backward adds atomically,
-    so it differs run to run, and the mode refuses it.  The forward is the
-    same ATen kernel either way."""
-    if torch.are_deterministic_algorithms_enabled():
+    The forward is ATen's upsample_bilinear2d everywhere.  On a CUDA tensor
+    it is _Upsample2x, whose gradient is the gather kernel of
+    csrc/upsample2x_bwd.cu (ops/upsample_cuda.py): ATen's CUDA backward adds
+    atomically, so it differs run to run, and the deterministic mode refuses
+    it.  So the card's train step is reproducible in every mode.  On the
+    CPU, ATen's backward is deterministic and stays the default; under
+    torch.use_deterministic_algorithms(True) the CPU also takes _Upsample2x,
+    whose gradient there is the kernel's plain version (slice sums)."""
+    if x.device.type != "cpu" or torch.are_deterministic_algorithms_enabled():
         return _Upsample2x.apply(x)
     return _bilinear2x(x)
 
@@ -119,22 +125,9 @@ def _bilinear2x(x: torch.Tensor) -> torch.Tensor:
     return torch.ops.aten.upsample_bilinear2d.vec(x, None, False, [2.0, 2.0])
 
 
-def _upsample_adjoint(g: torch.Tensor, dim: int) -> torch.Tensor:
-    """The transpose of the 2x half-pixel upsample along `dim` (2n -> n):
-    out[2i] = x[i-1] / 4 + 3 x[i] / 4 and out[2i+1] = 3 x[i] / 4 + x[i+1] / 4,
-    with x clamped at both ends, so with g padded by its edge values,
-    gx[i] = (gp[2i] + 3 gp[2i+1] + 3 gp[2i+2] + gp[2i+3]) / 4."""
-    n = g.shape[dim] // 2
-    gp = torch.cat([g.narrow(dim, 0, 1), g, g.narrow(dim, 2 * n - 1, 1)], dim)
-    pairs = gp.unflatten(dim, (n + 1, 2))  # (..., n + 1, 2, ...): gp[2j], gp[2j + 1]
-    even, odd = pairs.select(dim + 1, 0), pairs.select(dim + 1, 1)
-    return (0.25 * even.narrow(dim, 0, n) + 0.75 * odd.narrow(dim, 0, n)
-            + 0.75 * even.narrow(dim, 1, n) + 0.25 * odd.narrow(dim, 1, n))
-
-
 class _Upsample2x(torch.autograd.Function):
     """upsample2x with a gradient made of sums in a fixed order, in at least
-    float32."""
+    float32: the kernel on a CUDA gradient, its plain version on a CPU one."""
 
     @staticmethod
     def forward(ctx, x):
@@ -142,5 +135,4 @@ class _Upsample2x(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        wide = g if g.dtype in (torch.float32, torch.float64) else g.float()
-        return _upsample_adjoint(_upsample_adjoint(wide, 2), 3).to(g.dtype)
+        return upsample_cuda.upsample2x_bwd(g.contiguous())

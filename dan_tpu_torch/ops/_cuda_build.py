@@ -32,8 +32,9 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 BASE_FLAGS = ARCH + (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# Sources whose decisions compare floats (IoU thresholds, argmax) are built
-# without FMA contraction, so they round as their plain versions do.
+# Sources whose decisions compare floats (IoU thresholds, argmax), or whose
+# sums must equal their plain versions' bit for bit, are built without FMA
+# contraction, so they round as their plain versions do.
 EXTRA_FLAGS = {
     "nms": ("-fmad=false",),
     "matching": ("-fmad=false",),
@@ -41,6 +42,7 @@ EXTRA_FLAGS = {
     "nms_blocked": ("-fmad=false",),
     "conv_i8": ("-fmad=false",),
     "quantize_i8": ("-fmad=false",),
+    "upsample2x_bwd": ("-fmad=false",),
 }
 
 

@@ -13,8 +13,10 @@ ops.nms.rank_to_result.  Nothing on the detect or TTA path calls it (as in
 the JAX package, where the argmax-loop kernel is the dispatched one); it
 is the path for one large sorted row.
 
-Tensors on the CPU go through `greedy_nms_blocked_plain`; CUDA tensors
-launch the kernel or raise.
+The kernel writes the selection ranks itself and stops at the max_out-th
+kept box; the plain version makes the kept mask and ranks it
+(`kept_to_rank`).  Tensors on the CPU go through `greedy_nms_blocked_plain`;
+CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -36,11 +38,11 @@ LAUNCHES = 0
 def build() -> ctypes.CDLL:
     """Compile csrc/nms_blocked.cu (once per source hash) and load it."""
     lib = _cuda_build.load(SOURCE)
-    lib.nms_blocked_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-    ]
-    lib.nms_blocked_launch.restype = ctypes.c_int
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.nms_blocked_mask_launch.argtypes = [ptr, ptr, i32, f32, ptr]
+    lib.nms_blocked_mask_launch.restype = ctypes.c_int
+    lib.nms_blocked_scan_launch.argtypes = [ptr, ptr, ptr, i32, f32, i32, ptr]
+    lib.nms_blocked_scan_launch.restype = ctypes.c_int
     lib.nms_blocked_max_n.argtypes = []
     lib.nms_blocked_max_n.restype = ctypes.c_int
     lib.nms_blocked_mask_words.argtypes = [ctypes.c_int]
@@ -83,10 +85,10 @@ def greedy_nms_blocked_cuda(
     descending order waits for the device on a CUDA tensor."""
     _check(boxes, scores)
     if boxes.device.type == "cpu":
-        kept = _kept_plain(boxes, scores, iou_threshold, score_threshold)
+        rank = kept_to_rank(_kept_plain(boxes, scores, iou_threshold, score_threshold), max_out)
     else:
-        kept = _launch(boxes, scores, iou_threshold, score_threshold)
-    return rank_to_result(kept_to_rank(kept, max_out), boxes, scores, max_out)
+        rank = _launch(boxes, scores, iou_threshold, score_threshold, max_out)
+    return rank_to_result(rank, boxes, scores, max_out)
 
 
 def greedy_nms_blocked_plain(
@@ -128,8 +130,9 @@ def _kept_plain(boxes, scores, iou_threshold, score_threshold=0.0):
     return ~removed
 
 
-def _launch(boxes, scores, iou_threshold, score_threshold) -> torch.Tensor:
-    """Launch the kernel on checked CUDA tensors -> the (N,) bool kept mask."""
+def _launch(boxes, scores, iou_threshold, score_threshold, max_out) -> torch.Tensor:
+    """Launch both passes on checked CUDA tensors (one counted launch) ->
+    the (N,) int32 ranks."""
     global LAUNCHES
     if boxes.device.type != "cuda":
         raise ValueError(f"the blocked NMS kernel takes CUDA tensors, got {boxes.device}")
@@ -139,16 +142,19 @@ def _launch(boxes, scores, iou_threshold, score_threshold) -> torch.Tensor:
     lib = build()
     if n > lib.nms_blocked_max_n():
         raise ValueError(f"N={n} boxes exceed the kernel's limit ({lib.nms_blocked_max_n()})")
-    kept = torch.empty((n,), dtype=torch.bool, device=boxes.device)
+    rank = torch.empty((n,), dtype=torch.int32, device=boxes.device)
     if n == 0:
-        return kept
+        return rank
     mask = torch.empty((lib.nms_blocked_mask_words(n),), dtype=torch.int64, device=boxes.device)
+    if mask.data_ptr() % 16:
+        raise ValueError("the blocked NMS scan's bulk copies need a 16-byte aligned mask")
+    stream = _cuda_build.stream_of(boxes)
     with torch.cuda.device(boxes.device):
-        err = lib.nms_blocked_launch(
-            boxes.data_ptr(), scores.data_ptr(), mask.data_ptr(), kept.data_ptr(),
-            n, float(iou_threshold), float(score_threshold),
-            _cuda_build.stream_of(boxes),
-        )
-    _cuda_build.check(err, "nms_blocked_launch")
+        _cuda_build.check(lib.nms_blocked_mask_launch(
+            boxes.data_ptr(), mask.data_ptr(), n, float(iou_threshold), stream),
+            "nms_blocked_mask_launch")
+        _cuda_build.check(lib.nms_blocked_scan_launch(
+            scores.data_ptr(), mask.data_ptr(), rank.data_ptr(), n, float(score_threshold),
+            int(max_out), stream), "nms_blocked_scan_launch")
     LAUNCHES += 1
-    return kept
+    return rank

@@ -48,18 +48,27 @@ from dan_tpu_torch.config import (
 from dan_tpu_torch.data.synthetic import synthetic_batch
 from dan_tpu_torch.eval.tta import TTARunner
 from dan_tpu_torch.models.detector import DANDetector
-from dan_tpu_torch.ops import bbox_vote_cuda, conv12_wgrad_cuda, matching_cuda, nms_cuda, phase_pool_cuda
+from dan_tpu_torch.ops import (
+    bbox_vote_cuda,
+    conv12_wgrad_cuda,
+    matching_cuda,
+    nms_cuda,
+    phase_pool_cuda,
+    upsample_cuda,
+)
 from dan_tpu_torch.ops.preprocess import AugmentDraws
 from dan_tpu_torch.parallel.mesh import Mesh, make_mesh, place_replicated, shard_batch
 from dan_tpu_torch.train.loop import create_train_state, preprocess_and_match, train_step
 from dan_tpu_torch.train.loss import class_ce, hard_negatives
 
 # The kernels a rank launches: the train step's (K3 + K4 in one matcher
-# call, K5, K6) and the TTA run's (K1 a bucket launch, K7 a vote launch).
+# call, K5, K6, the LFPN's three upsample gradients) and the TTA run's (K1 a
+# bucket launch, K7 a vote launch).
 KERNEL_COUNTERS = {
     "matcher": matching_cuda,
     "phase_pool_bwd": phase_pool_cuda,
     "conv12_wgrad": conv12_wgrad_cuda,
+    "upsample2x_bwd": upsample_cuda,
     "nms": nms_cuda,
     "bbox_vote": bbox_vote_cuda,
 }

@@ -12,8 +12,10 @@ synthetic runs' recipe (warm-up 50 steps, global-norm clip 10) on
 threshold 0.05) over eval_n images drawn from np.random.default_rng(10_000).
 The whole run is reproducible: it runs under deterministic() --
 torch.use_deterministic_algorithms(True) with cuDNN's autotuner off, so
-two runs on one card train the same model bit for bit (the LFPN's
-upsample then takes a gradient without atomic adds, models/layers.py).
+two runs on one card train the same model bit for bit.  (The LFPN's
+upsample takes a gradient without atomic adds on the card in every mode,
+models/layers.py; the mode holds every other op to a deterministic
+algorithm.)
 --int8 also quantizes the trained detector (Detector.quantize_int8, 8 more
 held-out images for calibration) and scores the int8 detect path the same
 way.  The reference's gates: exit 1 if the hard AP is under 0.5, or, with
@@ -66,9 +68,13 @@ def parse_args(argv=None):
 @contextlib.contextmanager
 def deterministic():
     """torch.use_deterministic_algorithms(True) and cuDNN's autotuner off,
-    restored on exit.  The mode refuses cuBLAS unless CUBLAS_WORKSPACE_CONFIG
-    is set: it is set here (unless the environment sets it) and unset again
-    on exit.  cuBLAS reads it once, at a process's first cuBLAS call, so it
+    restored on exit.  The LFPN upsample does not depend on it on the card:
+    its gradient is csrc/upsample2x_bwd.cu's gather in every mode
+    (models/layers.py); the mode keeps cuBLAS's workspace and cuDNN to
+    deterministic algorithms, and makes any op without one raise.  The
+    mode refuses cuBLAS unless CUBLAS_WORKSPACE_CONFIG is set: it is set
+    here (unless the environment sets it) and unset again on exit.  cuBLAS
+    reads it once, at a process's first cuBLAS call, so it
     sizes the workspace only where nothing called cuBLAS before (as in
     `python -m dan_tpu_torch.tools.smoke_e2e`); elsewhere it only satisfies
     the mode's check.  The mode's filling of every new uninitialized tensor
