@@ -53,8 +53,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      64-pixel segment), on a border-only o1 and dr, and exactly 0 on an
      all-negative o1; the LFPN upsample's gradient kernel bit for bit
      (torch.equal) and run to run at a step's three shapes (g (32, 512,
-     40, 40), (32, 512, 80, 80), (32, 256, 160, 160)) and at odd sizes, in
-     bf16 and float32;
+     40, 40), (32, 512, 80, 80), (32, 256, 160, 160)), at planes that fill
+     a ring stage's item exactly and that do not, at odd sizes and W =
+     1,500, and on g views one pair off 16 bytes, in bf16 and float32,
+     then 200 times more at each train shape (a race in the ring shows as
+     a launch that differs);
  10. train the default config at batch 32, 640x640, bf16, on synthetic
      data (warm-up 50, clip 10): 6 steps on one batch must lower the loss;
      10 timed steps on fresh batches give ms/step, img/s, the split into
@@ -68,7 +71,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      (torch.profiler), cuDNN's weight gradient beside the conv1_2'
      kernel, and ATen's upsample_bilinear2d_backward (the atomic backward
      the upsample kernel replaces) beside a step's three upsample gradients
-     (the PyTorch calls that compute a kernel's function);
+     (the PyTorch calls that compute a kernel's function); each upsample
+     call alone beside its own bound, and the three at ring stages of 12,
+     16 and 24 KB; one call of each kernel must launch what a train step
+     launches (PER_STEP);
  12. hold the vote kernel and the blocked-NMS kernel against their plain
      versions on the card: the vote at (7, 6000) -> 750 on seeded rows
      (clusters, an empty row, a full row, score ties, a pair at IoU exactly
@@ -294,6 +300,7 @@ import dataclasses
 import functools
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1340,31 +1347,77 @@ def phase9(cfg, dev):
 
 def compare_upsample(gen, dev):
     """The upsample gradient kernel against its plain version, bit for bit
-    (torch.equal), at a train step's three shapes and at odd sizes, in bf16
-    and float32, twice each."""
-    odd = ((2, 3, 10, 14), (1, 1, 2, 2), (3, 5, 6, 4), (2, 7, 130, 66), (1, 2, 2, 322))
+    (torch.equal), in bf16 and float32, twice each: at a train step's three
+    shapes (each many times more items than the grid has blocks times the
+    ring's stages, so every block's ring wraps many times); at planes that
+    fill an item's stage exactly (2 bf16 planes of 64x64 = 16 KB; 6 planes
+    and 7, whose last item holds one) and planes that do not (the train
+    shapes: 5 x 3.2 KB); at odd sizes (odd W, W not a multiple of a
+    thread's group, one pixel, uneven bands); at W = 1,500 (items of one
+    output row); and on g views that start one pair of elements into their
+    storage (on a pair, off 16 bytes: every span's head and tail go by plain
+    loads, and a thread makes one output).  Then each train shape 200 times
+    more against plain: a ring that lets a stage be read before its bytes
+    land, or refilled while a warp still reads it, shows as a launch that
+    differs."""
+    odd = ((2, 3, 10, 14), (1, 1, 2, 2), (3, 5, 6, 4), (2, 7, 130, 66), (1, 2, 2, 322),
+           (2, 3, 12, 18), (1, 3, 40, 22), (2, 3, 8, 12))
+    items = ((2, 3, 64, 64), (1, 7, 64, 64), (1, 2, 8, 3000))
+    for shape in UPSAMPLE_SHAPES:
+        p = upsample_cuda.plan(shape[0] * shape[1], shape[2] // 2, shape[3] // 2, 2)
+        grid = upsample_cuda.grid(p, 2)
+        log(f"  upsample plan at g {shape} bf16: {p.items} items of {p.per_item} plane(s) / "
+            f"{p.bands} band(s) a plane, {p.stage_bytes} B stages, groups of {p.group}; "
+            f"grid {grid} blocks: each ring wraps {p.items / (grid * upsample_cuda.STAGES):.1f} "
+            f"times")
+        if p.items <= grid * upsample_cuda.STAGES:
+            raise AssertionError(f"the upsample plan at {shape} does not wrap the ring")
+
+    def check(g, what):
+        got = upsample_cuda.upsample2x_bwd(g)
+        again = upsample_cuda.upsample2x_bwd(g)
+        want = upsample_cuda.upsample2x_bwd_plain(g)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and same_bits(got, again)):
+            raise AssertionError(f"upsample gradient kernel != plain at {what}: "
+                                 f"{int((got != want).sum())} elements differ")
+
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in UPSAMPLE_SHAPES + odd:
-            g = torch.randn(shape, generator=gen, device=dev).to(dtype)
-            got = upsample_cuda.upsample2x_bwd(g)
-            again = upsample_cuda.upsample2x_bwd(g)
-            want = upsample_cuda.upsample2x_bwd_plain(g)
-            torch.cuda.synchronize()
-            if not (torch.equal(got, want) and same_bits(got, again)):
-                raise AssertionError(f"upsample gradient kernel != plain at {shape} {dtype}: "
-                                     f"{int((got != want).sum())} elements differ")
-    # A contiguous g whose storage starts inside a pair of elements is
-    # refused (the kernel loads and stores pairs), not a fault.
+        for shape in UPSAMPLE_SHAPES + items + odd:
+            check(torch.randn(shape, generator=gen, device=dev).to(dtype), f"{shape} {dtype}")
+        for shape in (UPSAMPLE_SHAPES[0], (2, 3, 10, 14), (1, 7, 64, 64)):
+            flat = torch.randn(math.prod(shape) + 2, generator=gen, device=dev).to(dtype)
+            g = flat[2:].view(shape)
+            if g.data_ptr() % 16 == 0:
+                raise AssertionError("the pair-offset view starts on 16 bytes")
+            check(g, f"{shape} {dtype}, one pair into its storage")
+    # A contiguous g whose storage starts inside a pair of elements, and a W
+    # over the kernel's limit, are refused, not a fault.
     flat = torch.zeros(2 * 3 * 10 * 14 + 1, dtype=torch.bfloat16, device=dev)
-    try:
-        upsample_cuda.upsample2x_bwd(flat[1:].view(2, 3, 10, 14))
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("the upsample gradient kernel took a g that is not pair-aligned")
+    max_w = upsample_cuda.max_w(2)
+    for bad in (flat[1:].view(2, 3, 10, 14),
+                torch.zeros((1, 1, 2, 2 * max_w + 2), dtype=torch.bfloat16, device=dev)):
+        try:
+            upsample_cuda.upsample2x_bwd(bad)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"the upsample gradient kernel took g {tuple(bad.shape)} at "
+                                 f"{bad.data_ptr() % 4} bytes past a pair")
     log(f"phase 9: upsample gradient kernel == plain (torch.equal) and run to run bit-identical "
-        f"at g {list(UPSAMPLE_SHAPES)} and {list(odd)}, bf16 and float32; a g off a pair's "
-        f"alignment refused")
+        f"at g {list(UPSAMPLE_SHAPES + items + odd)}, bf16 and float32, and on views one pair "
+        f"into their storage; a g off a pair's alignment and W = {max_w + 1} (limit {max_w} "
+        f"in bf16) refused")
+    for shape in UPSAMPLE_SHAPES:
+        g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        want = upsample_cuda.upsample2x_bwd_plain(g)
+        bad = sum(not torch.equal(upsample_cuda.upsample2x_bwd(g), want) for _ in range(200))
+        if bad:
+            raise AssertionError(f"upsample gradient kernel != plain in {bad} of 200 launches "
+                                 f"at {shape}")
+        del g, want
+    log(f"phase 9: upsample gradient kernel == plain in 200 of 200 launches at each of "
+        f"{list(UPSAMPLE_SHAPES)} bf16")
 
 
 def phase10(cfg, dev, smi):
@@ -1510,8 +1563,17 @@ def phase11(cases, smi):
                            lambda *gs: [upsample_cuda.upsample2x_bwd_plain(g) for g in gs]),
     }
     out = {}
+    launched = {}
     for name, (kernel, plain) in fns.items():
         args = cases[name]
+        # One call launches what one train step launches.
+        mod = TRAIN_KERNELS[name][0]
+        mod.LAUNCHES = 0
+        kernel(*args)
+        launched[name] = mod.LAUNCHES
+        if launched[name] != PER_STEP[name]:
+            raise AssertionError(f"phase 11: {name} launched {launched[name]} times a call, "
+                                 f"not {PER_STEP[name]}")
         out[name] = turns(lambda: kernel(*args), lambda: plain(*args), 10, 3)
         log(f"phase 11: {name}: kernel {out[name]['kernel']:.4f} ms, plain "
             f"{out[name]['plain']:.4f} ms ({smi})")
@@ -1556,13 +1618,47 @@ def phase11(cases, smi):
     e_ups = max(rel_l2(a, k) for a, k in zip(aten_ups(), fns["upsample2x_bwd"][0](*ups)))
     torch.cuda.synchronize()
     out["upsample2x_bwd"]["library"] = cuda_ms(aten_ups, 10)
-    per_call = [(cuda_ms(lambda: upsample_cuda.upsample2x_bwd(g), 20),
-                 cuda_ms(lambda: aten_ups_one(g), 20)) for g in ups]
+    log(f"phase 11: launches a call == PER_STEP: {launched}")
     log(f"phase 11: upsample2x_bwd, a step's three calls at g {[tuple(g.shape) for g in ups]} "
         f"bf16: kernel {out['upsample2x_bwd']['kernel']:.4f} ms, plain "
         f"{out['upsample2x_bwd']['plain']:.4f} ms, ATen's upsample_bilinear2d_backward "
-        f"{out['upsample2x_bwd']['library']:.4f} ms (rel L2 to the kernel {e_ups:.3e}); a call "
-        f"(kernel, ATen): " + ", ".join(f"{k:.4f} / {a:.4f}" for k, a in per_call) + f" ({smi})")
+        f"{out['upsample2x_bwd']['library']:.4f} ms (rel L2 to the kernel {e_ups:.3e}) ({smi})")
+    # Each call alone beside its own bound (bytes: g read once, gx written
+    # once): the kernel's device time (profiler) and the call's time back to
+    # back (CUDA events; the wrapper's host time a call beside it), ATen's
+    # backward and the plain version of the same call.
+    alone = []
+    for g in ups:
+        ms_b, _ = bound(nbytes(g) * 5 // 4, 21 * g.numel() // 4, PEAK_F32)
+        call = lambda: upsample_cuda.upsample2x_bwd(g)  # noqa: E731
+        dev_t, how = device_ms(call, 20, ("upsample2x_bwd_kernel",), alone=call)
+        ms_d, ms_k = dev_t["upsample2x_bwd_kernel"], cuda_ms(call, 20)
+        alone.append((ms_d, ms_k, ms_b))
+        log(f"  g {tuple(g.shape)}: kernel {ms_d:.4f} ms ({how}), bound {ms_b:.4f} ms "
+            f"({nbytes(g) * 5 // 4 / 1e6:.1f} MB): {100 * ms_b / ms_d:.1f} % of it; the call "
+            f"back to back {ms_k:.4f} ms (host {host_ms(call):.4f} ms); ATen "
+            f"{cuda_ms(lambda: aten_ups_one(g), 20):.4f} ms, plain "
+            f"{cuda_ms(lambda: upsample_cuda.upsample2x_bwd_plain(g), 3):.4f} ms")
+    d_sum, k_sum, b_sum = (sum(a[i] for a in alone) for i in range(3))
+    log(f"  the three calls alone: kernels {d_sum:.4f} ms ({k_sum:.4f} ms back to back) against "
+        f"a bound of {b_sum:.4f} ms: {100 * b_sum / d_sum:.1f} % of it (the first design: "
+        f"0.5368 ms, 47 %) ({smi})")
+    # The ring's stage size: a step's three calls with 12, 16 (the default)
+    # and 24 KB stages, in turns.
+    sizes = (12 * 1024, upsample_cuda.STAGE_BYTES, 24 * 1024)
+    ref = [upsample_cuda.upsample2x_bwd(g) for g in ups]
+    for sb in sizes:
+        if not all(torch.equal(upsample_cuda._launch(g, sb), r) for g, r in zip(ups, ref)):
+            raise AssertionError(f"upsample gradient kernel with {sb} B stages != the default's")
+    del ref
+    stage_ms = {sb: [] for sb in sizes}
+    for sb in sizes + sizes[::-1]:
+        step = lambda: [upsample_cuda._launch(g, sb) for g in ups]  # noqa: E731
+        step()
+        stage_ms[sb].append(cuda_ms(step, 10))
+    log("  stage size (a step's three calls, ms, two turns): " + ", ".join(
+        f"{sb // 1024} KB {np.mean(v):.4f} ({v[0]:.4f} / {v[1]:.4f})"
+        for sb, v in stage_ms.items()))
     if not e_ups < 1e-2:
         raise AssertionError("ATen's upsample backward does not compute the kernel's function")
 

@@ -2,10 +2,12 @@
 kernel csrc/upsample2x_bwd.cu) against the JAX package: the plain version
 (slice sums in float32, rounded once) against jax.vjp of
 dan_tpu.models.layers.upsample2x (XLA's transpose of jax.image.resize's
-dots), NHWC <-> NCHW.  A numpy model of the kernel's gather (bands of output
-rows, each output from its clamped 4x4 patch, the same float32 operations in
-the same order) equals the plain version bit for bit, which is what the card
-checks of chip_smoke.py hold the kernel to."""
+dots), NHWC <-> NCHW.  A numpy model of the kernel's gather (the wrapper's
+plan: items of several whole planes or of bands of output rows, each a span
+of g that a ring stage holds; outputs in groups along a row, each from the
+clamped patch of its four g rows; the same float32 operations in the same
+order) equals the plain version bit for bit, which is what the card checks
+of chip_smoke.py hold the kernel to."""
 import numpy as np
 import pytest
 import torch
@@ -66,48 +68,120 @@ def test_plain_gradient_vs_jax_vjp(h, w, c, dtype):
         np.testing.assert_allclose(got, want, rtol=0, atol=2.0**-6 * gmax)
 
 
-def _kernel_model(g, band):
-    """csrc/upsample2x_bwd.cu in numpy float32: one block a band of `band`
-    output rows of a plane; the band's g rows lo..hi; the H pass into a
-    float32 band, then the W pass, each sum ((0.25 a + 0.75 b) + 0.75 c) +
-    0.25 d with every product and sum rounded to float32; one cast."""
+def _items(p, planes, h, w):
+    """The kernel's item_at: (first plane, planes, first output row, output
+    rows, first g row, span start, span elements) of each item of plan p."""
+    for it in range(p.items):
+        if p.bands == 1:
+            p0, np_, i0, rows = it * p.per_item, min(p.per_item, planes - it * p.per_item), 0, h
+        else:
+            p0, b = divmod(it, p.bands)
+            np_, i0 = 1, b * p.band
+            rows = min(p.band, h - i0)
+        lo, hi = max(2 * i0 - 1, 0), min(2 * (i0 + rows), 2 * h - 1)
+        yield (p0, np_, i0, rows, lo, (p0 * 2 * h + lo) * 2 * w,
+               ((np_ - 1) * 2 * h + hi - lo + 1) * 2 * w)
+
+
+def _kernel_model(g, stage_bytes, aligned=True):
+    """csrc/upsample2x_bwd.cu in numpy float32, cut as upsample_cuda.plan cuts
+    it: each item's span of g alone (what a ring stage holds), its outputs in
+    groups of plan.group along a row, each group from the clamped patch of
+    its four g rows and 2G + 2 columns (the H-pass values t at the group's
+    two edge columns recomputed, as a lane at a warp's edge does), each sum
+    ((0.25 a + 0.75 b) + 0.75 c) + 0.25 d with every product and sum rounded
+    to float32; one cast.  Every output is written exactly once."""
     n, c, h2, w2 = g.shape
     h, w = h2 // 2, w2 // 2
+    p = upsample_cuda.plan(n * c, h, w, g.element_size(), aligned, stage_bytes)
     f = np.float32
-    gf = g.float().numpy().reshape(n * c, h2, w2)
-    out = np.empty((n * c, h, w), np.float32)
+    flat = g.float().numpy().reshape(-1)
+    out = np.full((n * c, h, w), np.nan, np.float32)
 
     def adjoint4(a, b, cc, d):
         s = (f(0.25) * a).astype(f) + (f(0.75) * b).astype(f)
         s = s.astype(f) + (f(0.75) * cc).astype(f)
         return (s.astype(f) + (f(0.25) * d).astype(f)).astype(f)
 
-    for p in range(n * c):
-        for i0 in range(0, h, band):
-            rows = min(band, h - i0)
-            lo, hi = max(2 * i0 - 1, 0), min(2 * (i0 + rows), h2 - 1)
-            gs = gf[p, lo:hi + 1]
-            t = np.empty((rows, w2), np.float32)
-            for r in range(rows):
-                i = i0 + r
-                t[r] = adjoint4(gs[max(2 * i - 1, 0) - lo], gs[2 * i - lo], gs[2 * i + 1 - lo],
-                                gs[min(2 * i + 2, h2 - 1) - lo])
-            j = np.arange(w)
-            out[p, i0:i0 + rows] = adjoint4(t[:, np.maximum(2 * j - 1, 0)], t[:, 2 * j],
-                                            t[:, 2 * j + 1], t[:, np.minimum(2 * j + 2, w2 - 1)])
+    gs = p.group
+    for p0, np_, i0, rows, lo, begin, count in _items(p, n * c, h, w):
+        assert count * g.element_size() <= p.stage_bytes
+        stage = flat[begin:begin + count]
+        lp, r, j = np.meshgrid(np.arange(np_), np.arange(rows), np.arange(0, w, gs), indexing="ij")
+        i = i0 + r
+        base = lp * h2 - lo
+        g_rows = [base + np.maximum(2 * i - 1, 0), base + 2 * i, base + 2 * i + 1,
+                  base + np.minimum(2 * i + 2, h2 - 1)]
+        # t at columns 2j - 1 .. 2j + 2G, clamped: the group's 2G + its two edges.
+        t = []
+        for k in range(-1, 2 * gs + 1):
+            col = np.clip(2 * j + k, 0, w2 - 1)
+            idx = [gr * w2 + col for gr in g_rows]
+            assert all(x.min() >= 0 and x.max() < count for x in idx)
+            t.append(adjoint4(*(stage[x] for x in idx)))
+        for m in range(gs):
+            o = adjoint4(t[2 * m], t[2 * m + 1], t[2 * m + 2], t[2 * m + 3])
+            at = (p0 + lp, i, j + m)
+            assert np.isnan(out[at]).all()
+            out[at] = o
+    assert not np.isnan(out).any()
     return torch.from_numpy(out.reshape(n, c, h, w)).to(g.dtype)
 
 
-@pytest.mark.parametrize("h,w", [(1, 1), (5, 7), (20, 20), (40, 40)])
+def _stage_cases(h, w, elem):
+    """Stage sizes that make items of one output row (0: the least stage,
+    four g rows), of a few rows, and of several whole planes."""
+    row = 2 * w * elem
+    return sorted({0, 8 * row, 2 * h * row * 3, upsample_cuda.STAGE_BYTES})
+
+
+# (H, W): the earlier band cases, then several planes an item (3 x 8), a W
+# that is no multiple of a bf16 group (6 x 6), odd W (4 x 9) and a plane cut
+# into uneven bands (7 x 12).
+@pytest.mark.parametrize("h,w", [(1, 1), (5, 7), (20, 20), (40, 40), (3, 8), (6, 6), (4, 9),
+                                 (7, 12)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_model_equals_plain_bit_for_bit(h, w, dtype):
-    """Bands of 1, 3 and all rows (the band edges: two rows of g shared with
-    the neighbour, clamped at the plane's first and last row)."""
+    """Items of bands of 1 and a few rows (the band edges: two rows of g
+    shared with the neighbour, clamped at the plane's first and last row)
+    and of whole planes, several an item with a shorter last item; groups
+    of 8 // elem outputs and of 1 (a g off 16 bytes, a W no multiple of the
+    group)."""
     gen = torch.Generator().manual_seed(h * 7 + w)
     g = torch.randn(2, 3, 2 * h, 2 * w, generator=gen).to(dtype)
     want = upsample2x_bwd_plain(g)
-    for band in sorted({1, 3, h}):
-        assert torch.equal(_kernel_model(g, band), want), band
+    elem = g.element_size()
+    kinds = set()
+    for stage in _stage_cases(h, w, elem):
+        for aligned in (True, False):
+            p = upsample_cuda.plan(6, h, w, elem, aligned, stage)
+            kinds.add((p.bands > 1, p.per_item > 1, p.group))
+            assert torch.equal(_kernel_model(g, stage, aligned), want), (stage, aligned, p)
+    if h > 1:
+        assert (True, False, 1) in kinds  # bands
+    assert any(k[1] for k in kinds)  # several planes an item
+    if w % (8 // elem) == 0:
+        assert any(k[2] == 8 // elem for k in kinds)
+
+
+@pytest.mark.parametrize("shape,per_item,bands", [((32, 512, 40, 40), 5, 1),
+                                                  ((32, 512, 80, 80), 1, 1),
+                                                  ((32, 256, 160, 160), 1, 4)])
+def test_plan_at_the_train_shapes_covers_every_output_row_once(shape, per_item, bands):
+    """A train step's three bf16 gradients: whole planes, 5 an item (16 KB),
+    one plane an item (12.8 KB), or bands of 20 rows (13.4 KB with the
+    halo); groups of 4 outputs; every output row of every plane in exactly
+    one item, every span within its stage."""
+    n, c, h2, w2 = shape
+    h, w = h2 // 2, w2 // 2
+    p = upsample_cuda.plan(n * c, h, w, 2)
+    assert (p.per_item, p.bands, p.group, p.stage_bytes) == (per_item, bands, 4, 16 * 1024)
+    seen = np.zeros((n * c, h), np.int32)
+    for p0, np_, i0, rows, lo, begin, count in _items(p, n * c, h, w):
+        assert count * 2 <= p.stage_bytes
+        assert begin == (p0 * h2 + lo) * w2  # a contiguous span
+        seen[p0:p0 + np_, i0:i0 + rows] += 1
+    assert (seen == 1).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
