@@ -4,6 +4,7 @@ data parallelism, int8 deployment, checkpoint loading, tools and host C++
 helpers on one CUDA card and its host, and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --teardown TREE [ROUNDS]   # phase 15d alone, on TREE's train CLI
 
 Phases (each raises on failure; the exit code is 0 only if all pass):
   1. require a CUDA card; print its name and power limit (nvidia-smi);
@@ -69,9 +70,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
  11. time each train-step kernel against its plain version at the train
      shapes, the matcher call beside its three kernels' own device time
      (torch.profiler), cuDNN's weight gradient beside the conv1_2'
-     kernel, and ATen's upsample_bilinear2d_backward (the atomic backward
-     the upsample kernel replaces) beside a step's three upsample gradients
-     (the PyTorch calls that compute a kernel's function); each upsample
+     kernel, ATen's max_pool2d_with_indices_backward (K5's routing in the
+     unpacked layout, in turns with K5) and ATen's
+     upsample_bilinear2d_backward (the atomic backward the upsample kernel
+     replaces) beside a step's three upsample gradients (the PyTorch calls
+     that compute a kernel's function); each upsample
      call alone beside its own bound, and the three at ring stages of 12,
      16 and 24 KB; one call of each kernel must launch what a train step
      launches (PER_STEP);
@@ -149,9 +152,17 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      arithmetic a rank; on every leg no rank's allocation
      ran out of device memory (cuDNN would then take another algorithm and
      other bits); ms a step and the all-reduce's
-     share; the three legs of tools/dryrun_multichip.py; (c) NCCL over
+     share; the three legs of tools/dryrun_multichip.py (the restored
+     state's step bit-identical to the original's); (c) NCCL over
      min(cards, 4) cards with the same checks and images/s against one
-     card, or one line saying why it did not run.
+     card, or one line saying why it did not run; (d) the train CLI's
+     teardown under torchrun on NCCL: `python -m torch.distributed.run
+     --standalone --nproc_per_node 1 -m dan_tpu_torch.train --synthetic
+     --batch_size 32 --steps 1 --checkpoint_every 1`, then `--steps 2
+     --resume`, three times over: every launch exits 0 and prints the
+     seconds it took, the log holds steps [1, 2], and when the rank's
+     interpreter starts to shut down no thread but its main one is alive
+     (a sitecustomize on the rank's PYTHONPATH prints them).
 
  16. int8 deployment (dan_tpu_torch/quant.py): calibrate on 8 bench images
      and quantize the random-init detector; print the int8 kernel's ptxas
@@ -1608,6 +1619,33 @@ def phase11(cases, smi):
         raise AssertionError("the library call does not compute the kernel's function")
     del x, g, want
 
+    # K5's library call: ATen's max-pool backward routes each gradient to
+    # its window's winner by an index, the same routing in the unpacked
+    # layout: g (32, 64, 320, 320) bf16 and the indices of the 2x2 max pool
+    # of a (32, 64, 640, 640) input.  Timed in turns with K5 at the train
+    # shape; called nowhere in the port.
+    pool_in = torch.randn((TRAIN_BATCH, 64, 640, 640), generator=gen, device="cuda",
+                          dtype=torch.bfloat16)
+    _, idx = torch.nn.functional.max_pool2d(pool_in, 2, 2, return_indices=True)
+    g_lib = torch.randn(idx.shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    pool_lib = lambda: torch.ops.aten.max_pool2d_with_indices_backward(  # noqa: E731
+        g_lib, pool_in, [2, 2], [2, 2], [0, 0], [1, 1], False, idx)
+    routed = pool_lib()
+    lib_routes = torch.equal(routed.flatten(2).gather(2, idx.flatten(2)), g_lib.flatten(2)) \
+        and int((routed != 0).sum()) == int((g_lib != 0).sum())
+    del routed
+    k5 = fns["phase_pool_bwd"][0]
+    pool_turns = turns(lambda: k5(*cases["phase_pool_bwd"]), pool_lib, 10, 10)
+    out["phase_pool_bwd"]["library"] = pool_turns["plain"]
+    log(f"phase 11: phase_pool_bwd beside aten::max_pool2d_with_indices_backward (g "
+        f"{tuple(g_lib.shape)} bf16, indices of a 2x2 max pool of {tuple(pool_in.shape)}), in "
+        f"turns library, K5, K5, library: library {pool_turns['plain']:.4f} ms, K5 "
+        f"{pool_turns['kernel']:.4f} ms; the library routes every gradient to its index: "
+        f"{lib_routes} ({smi})")
+    if not lib_routes:
+        raise AssertionError("the max-pool backward does not route g by its indices")
+    del pool_in, idx, g_lib
+
     # The upsample gradient's library call: ATen's upsample_bilinear2d_backward
     # (atomic adds), the backward the port took before the kernel.
     ups = cases["upsample2x_bwd"]
@@ -2526,6 +2564,77 @@ def check_tta_ranks(check, ranks, ref, items, runner, label):
               f"({bucket}, {vote}); the run {r['s']:.3f} s")
 
 
+# Phase 15d: the train CLI under torchrun, launched in pairs (one step with a
+# checkpoint, then one more resumed from it), TEARDOWN_ROUNDS times.
+TEARDOWN_ROUNDS = 3
+# A sitecustomize for the torchrun workers: when the interpreter starts to
+# shut down (threading's exit hooks run before it joins the non-daemon
+# threads), it prints the threads other than the main one that are alive.
+EXIT_THREADS_HOOK = """import json, os, sys, threading
+
+
+def _exit_threads():
+    alive = [[t.name, t.daemon] for t in threading.enumerate()
+             if t is not threading.main_thread() and t.is_alive()]
+    sys.stderr.write("exit threads " + json.dumps(
+        {"rank": int(os.environ["RANK"]), "threads": alive}) + "\\n")
+    sys.stderr.flush()
+
+
+if "LOCAL_RANK" in os.environ:
+    threading._register_atexit(_exit_threads)
+"""
+
+
+def phase15d(check, smi, repo=None, rounds=TEARDOWN_ROUNDS):
+    """The train CLI under torchrun on NCCL, one rank on cuda:0, as a user
+    launches it: one step with a checkpoint, then one more resumed from it,
+    `rounds` times.  Every launch must exit 0, the second say it resumed
+    from step 1 and the log hold steps [1, 2]; when the rank's interpreter
+    starts to shut down (after the process group's teardown) no thread but
+    the main one may be alive.  repo: the checkout whose CLI runs (default
+    this one)."""
+    repo = repo or REPO
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    launch = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+              "1", "-m", "dan_tpu_torch.train", "--synthetic", "--batch_size", str(TRAIN_BATCH),
+              "--checkpoint_every", "1", "--log_every", "1"]
+    secs, fails = [], []
+    with tempfile.TemporaryDirectory(prefix="dan_teardown_") as d:
+        with open(os.path.join(d, "sitecustomize.py"), "w") as f:
+            f.write(EXIT_THREADS_HOOK)
+        env["PYTHONPATH"] = os.pathsep.join([d, repo])
+        for r in range(rounds):
+            model_dir = os.path.join(d, f"run_{r}")
+            for extra in (["--steps", "1"], ["--steps", "2", "--resume"]):
+                t0 = time.perf_counter()
+                proc = subprocess.run(launch + ["--model_dir", model_dir] + extra, cwd=repo,
+                                      env=env, capture_output=True, text=True, timeout=300)
+                secs.append(time.perf_counter() - t0)
+                exits = [json.loads(line[len("exit threads "):])
+                         for line in proc.stderr.splitlines() if line.startswith("exit threads ")]
+                resumed = proc.stderr.count("resumed from step 1") == (extra[-1] == "--resume")
+                ok = proc.returncode == 0 and resumed and exits == [{"rank": 0, "threads": []}]
+                log(f"  phase 15d round {r} {' '.join(extra)}: rc {proc.returncode} in "
+                    f"{secs[-1]:.1f} s; threads alive at the rank's exit {exits}")
+                if not ok:
+                    fails.append(f"round {r} {' '.join(extra)}")
+                    log("    its stderr ends: " + proc.stderr[-3000:].replace("\n", "\n    "))
+            log_path = os.path.join(model_dir, "train_metrics.jsonl")
+            steps = []
+            if os.path.exists(log_path):
+                with open(log_path) as f:
+                    steps = [json.loads(line)["step"] for line in f]
+            if steps != [1, 2]:
+                fails.append(f"round {r}: logged steps {steps}")
+    log(f"phase 15d: torchrun --standalone --nproc_per_node 1 -m dan_tpu_torch.train (NCCL) at "
+        f"batch {TRAIN_BATCH}, {rounds} x (--steps 1, then --steps 2 --resume) in {repo}: seconds "
+        f"a launch {[round(t, 1) for t in secs]} ({smi})")
+    check(not fails, f"15d: {2 * rounds} torchrun launches of the train CLI exit 0, "
+          f"log steps [1, 2] and leave only the main thread at exit (failed: {fails})")
+
+
 def phase15(cfg, tcfg, dev, smi):
     """Data parallelism on the card; returns the per-rank launches of the
     2-rank leg."""
@@ -2617,6 +2726,9 @@ def phase15(cfg, tcfg, dev, smi):
         log(f"phase 15c: TTA over {n} cards: {DP_TTA_IMAGES / s_n:.2f} images/s against one "
             f"card's {DP_TTA_IMAGES / tta_one_s:.2f}")
         check_tta_ranks(check, tn, ref, items, runner, f"15c NCCL x{n}")
+
+    # (d) the train CLI's teardown under torchrun.
+    phase15d(check, smi)
     if check.failed:
         raise AssertionError("phase 15: " + "; ".join(check.failed))
     return {"train": [r["launches"] for r in r2], "tta": [r["launches"] for r in t2]}
@@ -4445,5 +4557,22 @@ def phase22(cfg, dev, smi, bench_img_s, train_ms, int8_img_s):
     return launches
 
 
+def teardown_main(argv) -> int:
+    """`python3 chip_smoke.py --teardown TREE [ROUNDS]`: phase 15d alone, on
+    the train CLI of the checkout TREE (e.g. a parent commit unpacked with
+    `git archive`, to compare its teardown with this one's on one card);
+    exit 1 if a launch failed its checks."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log(smi)
+    check = Checks()
+    phase15d(check, smi, os.path.abspath(argv[0]), int(argv[1]) if len(argv) > 1
+             else TEARDOWN_ROUNDS)
+    return 1 if check.failed else 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(teardown_main(sys.argv[2:]) if sys.argv[1:2] == ["--teardown"] else main())

@@ -249,34 +249,66 @@ def _put_or_stop(q, item, stop) -> bool:
     return False
 
 
+# Names of the threads this module starts: a caller (or a test) can tell
+# from threading.enumerate() whether a stream or a pipeline was left running.
+PREFETCH_THREAD = "dan_tpu_torch.prefetch"
+PRODUCER_THREAD = "dan_tpu_torch.producer"
+# How long closing a prefetch stream waits for its thread before it raises.
+PREFETCH_JOIN_S = 60.0
+_END = object()
+
+
+def _prefetch_worker(items, q, stop, transform) -> None:
+    """iter_prefetch's thread.  It closes the iterator it drew from on its
+    way out (a generator's `finally`, such as the train CLI's
+    TrainPipeline.stop(), runs here), so joining the thread waits for that
+    too."""
+    it = iter(items)
+    try:
+        for item in it:
+            if stop.is_set():
+                return
+            if transform is not None:
+                item = transform(item)
+            if not _put_or_stop(q, item, stop):
+                return
+        _put_or_stop(q, _END, stop)
+    except BaseException as e:  # propagate, don't die silently
+        _put_or_stop(q, e, stop)
+    finally:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
+
+
+def _drain(q) -> None:
+    try:
+        while True:
+            q.get_nowait()
+    except queue.Empty:
+        pass
+
+
 def iter_prefetch(items, depth: int = 2, transform=None):
     """Run an iterator (plus an optional per-item `transform`) on a
     background thread, staying `depth` items ahead of the consumer.
 
     The eval CLI uses it to overlap host JPEG decode with device TTA work
     (decode releases the GIL, and the consumer's blocking device fetches
-    leave the core idle otherwise).  Worker exceptions propagate to the consumer
-    (they must not read as a clean end-of-stream); closing the consumer
-    unblocks and stops the worker.
-    """
+    leave the core idle otherwise).  Worker exceptions propagate to the
+    consumer (they must not read as a clean end-of-stream).
+
+    The stream ends its thread before it ends, raises or is closed: it
+    stops the thread, drops what is queued and joins the thread (which
+    finishes the item it is building and closes `items`), and raises
+    RuntimeError if the thread is still running PREFETCH_JOIN_S later.  A
+    consumer that stops early must close() the stream: a thread left
+    running when the interpreter shuts down can abort the process (it
+    frees torch tensors after the interpreter has begun to finalize)."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = threading.Event()
-    _END = object()
-
-    def worker():
-        try:
-            for it in items:
-                if stop.is_set():
-                    return
-                if transform is not None:
-                    it = transform(it)
-                if not _put_or_stop(q, it, stop):
-                    return
-            _put_or_stop(q, _END, stop)
-        except BaseException as e:  # propagate, don't die silently
-            _put_or_stop(q, e, stop)
-
-    t = threading.Thread(target=worker, daemon=True)
+    t = threading.Thread(target=_prefetch_worker, args=(items, q, stop, transform),
+                         name=PREFETCH_THREAD, daemon=True)
     t.start()
     try:
         while True:
@@ -288,6 +320,12 @@ def iter_prefetch(items, depth: int = 2, transform=None):
             yield item
     finally:
         stop.set()
+        _drain(q)  # a worker blocked on a full queue puts, sees stop, ends
+        t.join(PREFETCH_JOIN_S)
+        _drain(q)
+        if t.is_alive():
+            raise RuntimeError(
+                f"the prefetch thread did not end within {PREFETCH_JOIN_S} s of the stream's end")
 
 
 def device_prefetch(batches, device, depth: int = 2):
@@ -297,7 +335,8 @@ def device_prefetch(batches, device, depth: int = 2):
     own device, mesh.device).  Yields dicts of device tensors with the
     host `seed` array kept, which train_step takes as they are.  On a card
     the thread pins each batch and queues its copy on the current stream,
-    ahead of the steps that read it."""
+    ahead of the steps that read it.  An iter_prefetch stream: close() it
+    when done, and it closes `batches`."""
     import torch  # not for the host-only users of this module
 
     from dan_tpu_torch.train.loop import to_device
@@ -414,7 +453,8 @@ class TrainPipeline:
         return out
 
     def _producer(self, k: int, stop: threading.Event, q: "queue.Queue"):
-        pool = ThreadPoolExecutor(max_workers=self.num_workers)
+        pool = ThreadPoolExecutor(max_workers=self.num_workers,
+                                  thread_name_prefix=f"{PRODUCER_THREAD}-{k}.decode")
         sample_seed = int(
             np.random.default_rng(self.seed).integers(0, 2**31)
         )
@@ -464,7 +504,8 @@ class TrainPipeline:
         # Generators still holding the old event keep seeing it set.
         self._stop = stop = threading.Event()
         self._threads = [
-            threading.Thread(target=self._producer, args=(k, stop, qs[k]), daemon=True)
+            threading.Thread(target=self._producer, args=(k, stop, qs[k]),
+                             name=f"{PRODUCER_THREAD}-{k}", daemon=True)
             for k in range(self.num_producers)
         ]
         for t in self._threads:

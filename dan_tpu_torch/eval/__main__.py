@@ -102,15 +102,17 @@ def run_single_scale(det, records, t0):
 
     predictions = {}
     decoded = iter_prefetch(records, depth=4, transform=lambda r: (r, load_image_rgb(r.path)))
-    for i, (rec, img) in enumerate(decoded):
-        out = det.detect(img)
-        if i == 0:
-            print(f"first detect (incl. kernel build): {time.time() - t0:.1f}s", file=sys.stderr)
-            t0 = time.time()
-        predictions[_stem(rec)] = _with_scores(out)
-        if (i + 1) % 50 == 0:
-            ips = i / max(time.time() - t0, 1e-9)
-            print(f"{i + 1}/{len(records)} images ({ips:.2f} img/s)", file=sys.stderr)
+    with contextlib.closing(decoded):
+        for i, (rec, img) in enumerate(decoded):
+            out = det.detect(img)
+            if i == 0:
+                print(f"first detect (incl. kernel build): {time.time() - t0:.1f}s",
+                      file=sys.stderr)
+                t0 = time.time()
+            predictions[_stem(rec)] = _with_scores(out)
+            if (i + 1) % 50 == 0:
+                ips = i / max(time.time() - t0, 1e-9)
+                print(f"{i + 1}/{len(records)} images ({ips:.2f} img/s)", file=sys.stderr)
     return predictions, t0
 
 
@@ -138,14 +140,15 @@ def run_tta(det, records, args, mesh=None):
         records, depth=4, transform=lambda r: (_stem(r), load_image_rgb(r.path))
     )
     t_run = time.time()
-    results = runner.run_dataset(
-        items,
-        batch_per_device=args.tta_batch,
-        progress_every=50,
-        vote_batch=args.vote_batch,
-        max_pending=args.max_pending,
-        mesh=mesh,
-    )
+    with contextlib.closing(items):
+        results = runner.run_dataset(
+            items,
+            batch_per_device=args.tta_batch,
+            progress_every=50,
+            vote_batch=args.vote_batch,
+            max_pending=args.max_pending,
+            mesh=mesh,
+        )
     dt = time.time() - t_run
     print(
         f"[tta] {len(results)} images in {dt:.1f}s "

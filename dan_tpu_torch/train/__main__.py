@@ -130,10 +130,14 @@ def batches(args, cfg, start: int, mesh=None):
 
         records = load_split(args.wider_root, "train")
         print(f"loaded {len(records)} train images", file=sys.stderr)
-        yield from TrainPipeline(
+        pipe = TrainPipeline(
             records, cfg, seed=args.seed, start_step=start,
             rank=mesh.rank if mesh else 0, num_ranks=mesh.size if mesh else 1,
         )
+        try:
+            yield from pipe
+        finally:  # closing this generator joins the producers
+            pipe.stop()
 
 
 
@@ -143,12 +147,17 @@ def main(argv=None) -> int:
         raise SystemExit("pass --synthetic or --wider_root")
     cfg = make_config(args)
     mesh = torchrun_mesh(cfg.mesh, args.device)
-    # On a mesh every rank meets a barrier before the teardown, unless it raised.
+    # On a mesh every rank meets a barrier before the teardown, unless it
+    # raised; train() has joined its data threads by then.
     with mesh if mesh is not None else contextlib.nullcontext():
         return train(args, cfg, mesh)
 
 
 def train(args, cfg, mesh) -> int:
+    """The step loop; returns the exit code.  Whether it returns or raises,
+    the batch stream's thread (and a TrainPipeline's producers) have ended
+    by then, so that none is left inside torch while the caller tears down
+    the process group and the interpreter."""
     total_steps = args.steps or cfg.train.total_steps
     log_every = args.log_every or cfg.train.log_every
     device = mesh.device if mesh else resolve_device(args.device)
@@ -193,6 +202,7 @@ def train(args, cfg, mesh) -> int:
                 if step % cfg.train.checkpoint_every == 0 or step == total_steps:
                     say(f"saving {ckpt.save(args.model_dir, step, state, mesh)}")
     finally:
+        data.close()
         if logger:
             logger.close()
     return 0

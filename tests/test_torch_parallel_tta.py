@@ -1,7 +1,7 @@
 """Data parallelism of the port without the JAX package: the mesh helpers,
-the sharded TTA run, the three legs of tools/dryrun_multichip.py, the
-launcher's hang guards, TrainPipeline's start step and rank rows, and the
-max_pending default.
+the sharded TTA run, the three legs of tools/dryrun_multichip.py (and its
+card default), the launcher's hang guards, TrainPipeline's start step and
+rank rows, the prefetch stream's thread, and the max_pending default.
 
 Ranks are spawned processes on the CPU with gloo, one thread each, meeting
 at a file:// init method under the test's tmp_path.  They import this
@@ -9,9 +9,11 @@ module, which imports no JAX, for the rank functions defined here.  The
 sharded TTA run is held bit for bit against the one-rank run at the same
 batch_per_device: each rank's launches are those of the one-rank run.
 """
+import contextlib
 import datetime
 import inspect
 import os
+import threading
 import time
 
 import numpy as np
@@ -21,7 +23,13 @@ import torch.distributed as dist
 
 from dan_tpu_torch.api import Detector
 from dan_tpu_torch.config import MeshConfig
-from dan_tpu_torch.data.pipeline import TrainPipeline, device_prefetch
+from dan_tpu_torch.data import pipeline
+from dan_tpu_torch.data.pipeline import (
+    PREFETCH_THREAD,
+    TrainPipeline,
+    device_prefetch,
+    iter_prefetch,
+)
 from dan_tpu_torch.data.synthetic import synthetic_batch
 from dan_tpu_torch.data.widerface import load_split
 from dan_tpu_torch.eval import __main__ as eval_cli
@@ -270,6 +278,15 @@ def test_dryrun_multichip_three_legs(capsys):
     assert r0["tta_stats"]["images"] == 4
 
 
+def test_dryrun_multichip_defaults_to_the_card():
+    """Without --device the dryrun runs on the cards: here, with none, it
+    raises before it spawns a rank."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card: the default device exists")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dry.main(["2"])
+
+
 # -- queue-3 repairs: the pipeline's start step, the max_pending default ----------
 
 
@@ -311,6 +328,68 @@ def test_device_prefetch_feeds_the_same_step():
         assert float(ma["loss"]) == float(mb["loss"])
     for p, q in zip(a.model.parameters(), b.model.parameters()):
         assert torch.equal(p, q)
+
+
+def _prefetch_threads(before):
+    return [t for t in threading.enumerate() if t.name == PREFETCH_THREAD and t not in before]
+
+
+@pytest.mark.parametrize("end", ["ran_out", "close", "with", "source_raises"])
+def test_prefetch_stream_leaves_no_thread(end):
+    """A device_prefetch stream's thread has ended, and has closed the
+    generator it drew from, once the stream ran out, once the consumer
+    closed it part way (close(), or the end of a `with`), and once the
+    generator raised (the error reaches the consumer)."""
+    cfg = dry.tiny_config(1)
+    closed = []
+
+    def source(n, fail=False):
+        try:
+            for s in range(n):
+                yield synthetic_batch(cfg, 2, seed=s)
+            if fail:
+                raise ValueError("a bad record")
+        finally:
+            closed.append(threading.current_thread().name)
+
+    before = set(threading.enumerate())
+    if end == "ran_out":
+        assert len(list(device_prefetch(source(3), "cpu"))) == 3
+    elif end == "close":
+        stream = device_prefetch(source(100), "cpu")
+        next(stream)
+        stream.close()
+        assert next(stream, None) is None
+    elif end == "with":
+        with contextlib.closing(device_prefetch(source(100), "cpu", depth=1)) as stream:
+            assert int(next(stream)["seed"][0]) == int(synthetic_batch(cfg, 2, seed=0)["seed"][0])
+    else:
+        with pytest.raises(ValueError, match="a bad record"):
+            list(device_prefetch(source(2, fail=True), "cpu"))
+    assert not _prefetch_threads(before)
+    assert closed == [PREFETCH_THREAD]
+
+
+def test_prefetch_close_raises_when_the_thread_does_not_end(monkeypatch):
+    """close() waits for the thread for at most PREFETCH_JOIN_S and raises
+    if the thread is still running then."""
+    monkeypatch.setattr(pipeline, "PREFETCH_JOIN_S", 0.2)
+    release = threading.Event()
+
+    def blocked():
+        yield 0
+        release.wait(30)
+        yield 1
+
+    before = set(threading.enumerate())
+    stream = iter_prefetch(blocked(), depth=1)
+    assert next(stream) == 0
+    with pytest.raises(RuntimeError, match="did not end within 0.2 s"):
+        stream.close()
+    release.set()
+    for t in _prefetch_threads(before):
+        t.join(30)
+    assert not _prefetch_threads(before)
 
 
 def test_max_pending_defaults_read_the_runner_constant(monkeypatch):

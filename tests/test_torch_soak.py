@@ -100,7 +100,8 @@ def test_tools_default_to_the_card(tmp_path):
     for module, args in (("demo", ["--image", image]),
                          ("soak_fixture_e2e", ["--steps", "1", "--work_dir", str(tmp_path)]),
                          ("profile", ["detect", "--batch", "1"]),
-                         ("profile", ["train", "--device", "cpu"])):
+                         ("profile", ["train", "--device", "cpu"]),
+                         ("dryrun_multichip", ["2"])):
         proc = subprocess.run([sys.executable, "-m", f"dan_tpu_torch.tools.{module}", *args],
                               cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
                               capture_output=True, text=True, timeout=300)

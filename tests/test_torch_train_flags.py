@@ -4,15 +4,20 @@ written, the log keys are the reference's (images_per_sec_per_chip), a NaN
 injected into one parameter makes --debug_nans raise naming the module
 before any update and with no checkpoint written, a non-finite loss writes
 its record before exit 6, and train_step(debug_nans=True) leaves a clean
-step's numbers as they are."""
+step's numbers as they are.  train() ends its data threads (the prefetch
+stream's, a TrainPipeline's producers) before it returns or raises, and
+main() tears the process group down only after that."""
 import json
 import os
+import shutil
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import jax
 
@@ -27,6 +32,7 @@ from dan_tpu.train.loop import make_train_step
 from dan_tpu_torch.config import DANConfig, MatchConfig, ModelConfig, PreprocessConfig, TrainConfig
 from dan_tpu_torch.data.synthetic import synthetic_batch
 from dan_tpu_torch.models.detector import DANDetector
+from dan_tpu_torch.parallel import mesh as pmesh
 from dan_tpu_torch.train import __main__ as train_cli
 from dan_tpu_torch.train.loop import check_finite, create_train_state, train_step
 from dan_tpu_torch.utils.profiling import trace_path
@@ -34,6 +40,7 @@ from dan_tpu_torch.utils.profiling import trace_path
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIX = os.path.join(REPO, "tests", "fixtures", "mini_wider")
 
 
 def tiny(batch=2, **train):
@@ -164,3 +171,69 @@ def test_non_finite_loss_writes_its_record_then_exits_6(tmp_path):
     assert rc == 6 and recs and not np.isfinite(recs[-1]["loss"])
     assert "images_per_sec_per_chip" not in recs[-1]
     assert all(np.isfinite(r["loss"]) for r in recs[:-1])
+
+
+def _data_threads(before):
+    """The threads started since `before` that still run: train() starts
+    only data threads (the prefetch stream's, TrainPipeline's producers and
+    their decode pools)."""
+    return [t.name for t in threading.enumerate() if t not in before]
+
+
+def _wider_train_root(tmp_path):
+    """A WIDER layout whose train split is the fixture's val split."""
+    root = tmp_path / "wider"
+    (root / "wider_face_split").mkdir(parents=True)
+    os.symlink(os.path.join(FIX, "WIDER_val"), root / "WIDER_train")
+    shutil.copy(os.path.join(FIX, "wider_face_split", "wider_face_val_bbx_gt.txt"),
+                root / "wider_face_split" / "wider_face_train_bbx_gt.txt")
+    return str(root)
+
+
+@pytest.mark.parametrize("end", ["steps_done", "exit_6", "raises", "wider_pipeline"])
+def test_train_ends_its_data_threads(tmp_path, end):
+    """No prefetch, producer or decode thread outlives train(): after the
+    last step, after exit 6, after a FloatingPointError, and on the WIDER
+    path (TrainPipeline's producers joined)."""
+    d = str(tmp_path / "run")
+    before = set(threading.enumerate())
+    if end == "steps_done":
+        assert train_cli.train(_args(d, "--steps", "2"), tiny(), None) == 0
+    elif end == "exit_6":
+        assert train_cli.train(_args(d, "--steps", "3", "--lr", "1e30"),
+                               tiny(learning_rate=1e30), None) == 6
+    elif end == "raises":
+        args = _args(d, "--steps", "2", "--debug_nans", "--warm_start", _poisoned(tmp_path))
+        with pytest.raises(FloatingPointError):
+            train_cli.train(args, tiny(), None)
+    else:
+        args = train_cli.parse_args(["--wider_root", _wider_train_root(tmp_path),
+                                     "--model_dir", d, "--steps", "2", "--log_every", "1",
+                                     "--device", "cpu"])
+        assert train_cli.train(args, tiny(), None) == 0
+        assert [r["step"] for r in _records(d)] == [1, 2]
+    assert not _data_threads(before)
+
+
+def test_main_tears_the_group_down_after_the_data_threads(tmp_path, monkeypatch):
+    """main() on a one-rank gloo mesh: when Mesh.close destroys the process
+    group, train() has already ended its data threads; the group is gone
+    when main() returns."""
+    before = set(threading.enumerate())
+    seen = []
+    close = pmesh.Mesh.close
+
+    def spy(self, sync=True):
+        seen.append((_data_threads(before), dist.is_initialized(), sync))
+        close(self, sync)
+
+    monkeypatch.setattr(pmesh.Mesh, "close", spy)
+    monkeypatch.setattr(train_cli, "make_config", lambda args: tiny())
+    monkeypatch.setattr(train_cli, "torchrun_mesh", lambda config, device: pmesh.make_mesh(
+        config, device, backend="gloo", rank=0, world_size=1,
+        init_method=f"file://{tmp_path}/pg"))
+    d = str(tmp_path / "run")
+    assert train_cli.main(["--synthetic", "--model_dir", d, "--steps", "2", "--log_every", "1",
+                           "--device", "cpu"]) == 0
+    assert seen == [([], True, True)] and not dist.is_initialized()
+    assert [r["step"] for r in _records(d)] == [1, 2] and not _data_threads(before)
