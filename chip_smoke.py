@@ -4,7 +4,6 @@ data parallelism, int8 deployment, checkpoint loading, tools and host C++
 helpers on one CUDA card and its host, and check them.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --teardown TREE [ROUNDS]   # phase 15d alone, on TREE's train CLI
 
 Phases (each raises on failure; the exit code is 0 only if all pass):
   1. require a CUDA card; print its name and power limit (nvidia-smi);
@@ -2570,7 +2569,8 @@ TEARDOWN_ROUNDS = 3
 # A sitecustomize for the torchrun workers: when the interpreter starts to
 # shut down (threading's exit hooks run before it joins the non-daemon
 # threads), it prints the threads other than the main one that are alive.
-EXIT_THREADS_HOOK = """import json, os, sys, threading
+# It then runs the sitecustomize that it shadows, if the environment has one.
+EXIT_THREADS_HOOK = """import importlib.machinery, importlib.util, json, os, sys, threading
 
 
 def _exit_threads():
@@ -2583,18 +2583,22 @@ def _exit_threads():
 
 if "LOCAL_RANK" in os.environ:
     threading._register_atexit(_exit_threads)
+
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p or ".") != _here])
+if _spec is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
 """
 
 
-def phase15d(check, smi, repo=None, rounds=TEARDOWN_ROUNDS):
+def phase15d(check, smi):
     """The train CLI under torchrun on NCCL, one rank on cuda:0, as a user
     launches it: one step with a checkpoint, then one more resumed from it,
-    `rounds` times.  Every launch must exit 0, the second say it resumed
-    from step 1 and the log hold steps [1, 2]; when the rank's interpreter
-    starts to shut down (after the process group's teardown) no thread but
-    the main one may be alive.  repo: the checkout whose CLI runs (default
-    this one)."""
-    repo = repo or REPO
+    TEARDOWN_ROUNDS times.  Every launch must exit 0, the second say it
+    resumed from step 1 and the log hold steps [1, 2]; when the rank's
+    interpreter starts to shut down (after the process group's teardown) no
+    thread but the main one may be alive."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
     launch = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
@@ -2604,12 +2608,12 @@ def phase15d(check, smi, repo=None, rounds=TEARDOWN_ROUNDS):
     with tempfile.TemporaryDirectory(prefix="dan_teardown_") as d:
         with open(os.path.join(d, "sitecustomize.py"), "w") as f:
             f.write(EXIT_THREADS_HOOK)
-        env["PYTHONPATH"] = os.pathsep.join([d, repo])
-        for r in range(rounds):
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (d, REPO, env.get("PYTHONPATH")) if p)
+        for r in range(TEARDOWN_ROUNDS):
             model_dir = os.path.join(d, f"run_{r}")
             for extra in (["--steps", "1"], ["--steps", "2", "--resume"]):
                 t0 = time.perf_counter()
-                proc = subprocess.run(launch + ["--model_dir", model_dir] + extra, cwd=repo,
+                proc = subprocess.run(launch + ["--model_dir", model_dir] + extra, cwd=REPO,
                                       env=env, capture_output=True, text=True, timeout=300)
                 secs.append(time.perf_counter() - t0)
                 exits = [json.loads(line[len("exit threads "):])
@@ -2629,9 +2633,9 @@ def phase15d(check, smi, repo=None, rounds=TEARDOWN_ROUNDS):
             if steps != [1, 2]:
                 fails.append(f"round {r}: logged steps {steps}")
     log(f"phase 15d: torchrun --standalone --nproc_per_node 1 -m dan_tpu_torch.train (NCCL) at "
-        f"batch {TRAIN_BATCH}, {rounds} x (--steps 1, then --steps 2 --resume) in {repo}: seconds "
+        f"batch {TRAIN_BATCH}, {TEARDOWN_ROUNDS} x (--steps 1, then --steps 2 --resume): seconds "
         f"a launch {[round(t, 1) for t in secs]} ({smi})")
-    check(not fails, f"15d: {2 * rounds} torchrun launches of the train CLI exit 0, "
+    check(not fails, f"15d: {2 * TEARDOWN_ROUNDS} torchrun launches of the train CLI exit 0, "
           f"log steps [1, 2] and leave only the main thread at exit (failed: {fails})")
 
 
@@ -4243,16 +4247,13 @@ def phase21d(dev, smi, synth):
     pipe = TrainPipeline(synth, cfg, seed=SEED, num_workers=4)
 
     def run():
-        it = iter(pipe)
-        feed = device_prefetch(it, dev)
+        feed = device_prefetch(iter(pipe), dev)
         try:
             out = [train_step(state, next(feed)) for _ in range(NATIVE_STEPS)]
             torch.cuda.synchronize()
             return out
         finally:
-            feed.close()
-            it.close()
-            pipe.stop()
+            feed.close()  # closes the pipeline's stream, which joins its producers
 
     t0 = time.perf_counter()
     metrics, c = counted(run)
@@ -4557,22 +4558,5 @@ def phase22(cfg, dev, smi, bench_img_s, train_ms, int8_img_s):
     return launches
 
 
-def teardown_main(argv) -> int:
-    """`python3 chip_smoke.py --teardown TREE [ROUNDS]`: phase 15d alone, on
-    the train CLI of the checkout TREE (e.g. a parent commit unpacked with
-    `git archive`, to compare its teardown with this one's on one card);
-    exit 1 if a launch failed its checks."""
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
-        return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    log(smi)
-    check = Checks()
-    phase15d(check, smi, os.path.abspath(argv[0]), int(argv[1]) if len(argv) > 1
-             else TEARDOWN_ROUNDS)
-    return 1 if check.failed else 0
-
-
 if __name__ == "__main__":
-    sys.exit(teardown_main(sys.argv[2:]) if sys.argv[1:2] == ["--teardown"] else main())
+    sys.exit(main())

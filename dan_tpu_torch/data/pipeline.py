@@ -249,10 +249,9 @@ def _put_or_stop(q, item, stop) -> bool:
     return False
 
 
-# Names of the threads this module starts: a caller (or a test) can tell
-# from threading.enumerate() whether a stream or a pipeline was left running.
+# The name of iter_prefetch's thread: a caller (or a test) can tell from
+# threading.enumerate() whether a stream was left running.
 PREFETCH_THREAD = "dan_tpu_torch.prefetch"
-PRODUCER_THREAD = "dan_tpu_torch.producer"
 # How long closing a prefetch stream waits for its thread before it raises.
 PREFETCH_JOIN_S = 60.0
 _END = object()
@@ -260,19 +259,16 @@ _END = object()
 
 def _prefetch_worker(items, q, stop, transform) -> None:
     """iter_prefetch's thread.  It closes the iterator it drew from on its
-    way out (a generator's `finally`, such as the train CLI's
-    TrainPipeline.stop(), runs here), so joining the thread waits for that
-    too."""
+    way out (a generator's `finally`, such as TrainPipeline's join of its
+    producers, runs here), so joining the thread waits for that too."""
     it = iter(items)
     try:
-        for item in it:
-            if stop.is_set():
-                return
-            if transform is not None:
+        while not stop.is_set():  # a closed stream draws nothing more
+            item = next(it, _END)
+            if item is not _END and transform is not None:
                 item = transform(item)
-            if not _put_or_stop(q, item, stop):
+            if not _put_or_stop(q, item, stop) or item is _END:
                 return
-        _put_or_stop(q, _END, stop)
     except BaseException as e:  # propagate, don't die silently
         _put_or_stop(q, e, stop)
     finally:
@@ -453,8 +449,7 @@ class TrainPipeline:
         return out
 
     def _producer(self, k: int, stop: threading.Event, q: "queue.Queue"):
-        pool = ThreadPoolExecutor(max_workers=self.num_workers,
-                                  thread_name_prefix=f"{PRODUCER_THREAD}-{k}.decode")
+        pool = ThreadPoolExecutor(max_workers=self.num_workers)
         sample_seed = int(
             np.random.default_rng(self.seed).integers(0, 2**31)
         )
@@ -503,12 +498,11 @@ class TrainPipeline:
         # exit without ever enqueuing (consumer hangs on q.get() forever).
         # Generators still holding the old event keep seeing it set.
         self._stop = stop = threading.Event()
-        self._threads = [
-            threading.Thread(target=self._producer, args=(k, stop, qs[k]),
-                             name=f"{PRODUCER_THREAD}-{k}", daemon=True)
+        self._threads = threads = [
+            threading.Thread(target=self._producer, args=(k, stop, qs[k]), daemon=True)
             for k in range(self.num_producers)
         ]
-        for t in self._threads:
+        for t in threads:
             t.start()
         try:
             i = 0
@@ -518,13 +512,18 @@ class TrainPipeline:
                     raise item
                 yield item
                 i += 1
-        finally:
-            stop.set()
+        finally:  # closing the stream, or an error out of it, joins the producers
+            _stop_and_join(stop, threads)
 
     def stop(self):
         """Stop the producers and wait until they and their decode threads
         are done (a producer finishes the batch it is building), so that no
-        read of a record's file outlives the call."""
-        self._stop.set()
-        for t in self._threads:
-            t.join()
+        read of a record's file outlives the call.  Closing the stream that
+        iter() returned does the same."""
+        _stop_and_join(self._stop, self._threads)
+
+
+def _stop_and_join(stop: threading.Event, threads) -> None:
+    stop.set()
+    for t in threads:
+        t.join()

@@ -190,8 +190,7 @@ def measure(records, args) -> dict:
             for _ in range(args.steps):
                 next(it)
             dt = time.perf_counter() - t0
-            it.close()
-            pipe.stop()
+            it.close()  # joins the producers
             ips[path][n_prod] = args.steps * args.batch / dt
             print(f"pipeline {path} num_producers={n_prod}: {ips[path][n_prod]:.1f} img/s "
                   f"(batch {args.batch}, {os.cpu_count()} host cores; images by path "

@@ -109,8 +109,7 @@ def run(args, config: Optional[DANConfig] = None) -> dict:
                 print(f"step {i + 1}: loss={loss:.3f} npos={float(m['num_pos']):.0f} "
                       f"({ips:.1f} img/s)", file=sys.stderr)
     finally:
-        it.close()
-        pipe.stop()
+        it.close()  # closes the pipeline's stream, which joins its producers
     if loss is None or not math.isfinite(loss):
         raise AssertionError(f"diverged: {loss}")
     path = ckpt.save(model_dir, args.steps, state)

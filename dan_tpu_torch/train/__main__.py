@@ -130,14 +130,10 @@ def batches(args, cfg, start: int, mesh=None):
 
         records = load_split(args.wider_root, "train")
         print(f"loaded {len(records)} train images", file=sys.stderr)
-        pipe = TrainPipeline(
+        yield from TrainPipeline(
             records, cfg, seed=args.seed, start_step=start,
             rank=mesh.rank if mesh else 0, num_ranks=mesh.size if mesh else 1,
         )
-        try:
-            yield from pipe
-        finally:  # closing this generator joins the producers
-            pipe.stop()
 
 
 

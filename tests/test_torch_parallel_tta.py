@@ -278,15 +278,6 @@ def test_dryrun_multichip_three_legs(capsys):
     assert r0["tta_stats"]["images"] == 4
 
 
-def test_dryrun_multichip_defaults_to_the_card():
-    """Without --device the dryrun runs on the cards: here, with none, it
-    raises before it spawns a rank."""
-    if torch.cuda.is_available():
-        pytest.skip("this machine has a CUDA card: the default device exists")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        dry.main(["2"])
-
-
 # -- queue-3 repairs: the pipeline's start step, the max_pending default ----------
 
 
@@ -390,6 +381,28 @@ def test_prefetch_close_raises_when_the_thread_does_not_end(monkeypatch):
     for t in _prefetch_threads(before):
         t.join(30)
     assert not _prefetch_threads(before)
+
+
+def test_closed_prefetch_stream_draws_nothing_more():
+    """Closing a stream whose thread waits on a full queue lets that put
+    through and ends the thread before it draws another item."""
+    drawn = []
+
+    def source():
+        for i in range(100):
+            drawn.append(i)
+            yield i
+
+    before = set(threading.enumerate())
+    stream = iter_prefetch(source(), depth=1)
+    assert next(stream) == 0
+    deadline = time.monotonic() + 30
+    while len(drawn) < 3 and time.monotonic() < deadline:  # 1 queued, 2 waiting to be
+        time.sleep(0.01)
+    time.sleep(0.2)
+    assert drawn == [0, 1, 2]
+    stream.close()
+    assert drawn == [0, 1, 2] and not _prefetch_threads(before)
 
 
 def test_max_pending_defaults_read_the_runner_constant(monkeypatch):

@@ -132,6 +132,29 @@ def test_pipeline_stop_joins_its_producers():
     assert len(pipe._threads) == 4 and not any(t.is_alive() for t in pipe._threads)
 
 
+def test_closing_the_pipeline_stream_joins_its_producers():
+    """Closing the stream that iter(TrainPipeline) returned (as the train
+    CLI's prefetch thread does at the end of train()) returns once every
+    producer and its decode pool is done, without a call to stop()."""
+    import threading
+
+    from dan_tpu_torch.data.pipeline import TrainPipeline
+    from dan_tpu_torch.data.widerface import load_split
+
+    cfg = DANConfig(model=ModelConfig(image_size=64), preprocess=PreprocessConfig(
+        train_image_size=64, canvas_size=128), match=MatchConfig(max_gt=8))
+    records = load_split(os.path.join(REPO, "tests", "fixtures", "mini_wider"), "val")
+    before = set(threading.enumerate())
+    pipe = TrainPipeline(records, cfg, batch_size=4, num_workers=3, num_producers=2)
+    it = iter(pipe)
+    assert next(it)["canvas"].shape == (4, 128, 128, 3)
+    closer = threading.Thread(target=it.close)
+    closer.start()
+    closer.join(60)
+    assert not closer.is_alive()
+    assert not [t for t in threading.enumerate() if t not in before and t.is_alive()]
+
+
 def test_profile_kernel_table_links_kernels_to_ops():
     """tools/profile.py's table from made-up profiler events: a kernel under
     the op that launched it, the FLOPs of an enclosing op shared by kernel
