@@ -39,7 +39,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      sorted rows with one swapped pair; the tile scan must be the faster;
   8. print the build time and the ptxas registers, spills and shared
      memory of the train-step kernels (matching.cu, phase_pool.cu,
-     conv12_wgrad.cu, upsample2x_bwd.cu) and the TTA ones;
+     conv12_wgrad.cu, conv12_wgrad_f32.cu, upsample2x_bwd.cu) and the TTA
+     ones;
   9. hold each train-step kernel against its plain version on the card at
      the train shapes (batch 32, 640x640): the matcher (A = 34125, G = 256)
      with all four MatchTargets leaves bit-identical, on the
@@ -47,11 +48,14 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      gts and one with a gt in slot >= 128, and on that with one image
      added whose 256 gts are all valid; the phase-pool
      backward bit for bit on winners from a real packed forward; the
-     conv1_2' weight grad within relative L2 1e-4 of float32 and
-     bit-identical across two runs, at the train shape, at batch 1 and 3,
-     at o1 (2, 37, 53, 256) and (1, 64, 65, 256) (rows that end inside a
-     64-pixel segment), on a border-only o1 and dr, and exactly 0 on an
-     all-negative o1; the LFPN upsample's gradient kernel bit for bit
+     conv1_2' weight grad's bf16 kernel within relative L2 1e-4 of the
+     plain version in float32 (TF32 off), and its float32 kernel on the
+     same values in float32 within 1e-5 of a float64 oracle and 1e-4 of the
+     plain version, each bit-identical across two runs and launched on its
+     own dtype alone, at the train shape, at batch 1 and 3, at o1 (2, 37,
+     53, 256), (1, 64, 65, 256) and (3, 1, 70, 256) (rows that end inside a
+     segment, a single row), on a border-only o1 and dr, and exactly 0 on
+     an all-negative o1; the LFPN upsample's gradient kernel bit for bit
      (torch.equal) and run to run at a step's three shapes (g (32, 512,
      40, 40), (32, 512, 80, 80), (32, 256, 160, 160)), at planes that fill
      a ring stage's item exactly and that do not, at odd sizes and W =
@@ -65,11 +69,27 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      memory; each train kernel must have launched its expected count per
      step (K3 + K4, K5, K6 once, the upsample gradient three times); then
      2 steps through `python -m dan_tpu_torch.train`'s main(),
-     the second resumed from the first one's checkpoint;
+     the second resumed from the first one's checkpoint; K6's float32
+     kernel must never launch;
+ 10f. train the same config in float32 (TF32 off) at batch 8, 640x640,
+     through create_train_state and train_step: two runs of 4 steps on one
+     batch from seed 0, the loss falling and the runs bit-identical in
+     every parameter, momentum buffer and metric, K6's float32 kernel once
+     a step and its bf16 kernel never (every train kernel counted), ms a
+     step printed, and the same runs without cuDNN's deterministic mode
+     (which the float32 step sets) beside them; then one float32 step at
+     64x64 and at 128x128, batch 8, on the card and on the CPU (oneDNN
+     off) from the same state and batch: the loss within 1e-4 relative,
+     num_pos and the selected negatives equal, the parameters within rtol
+     1e-4 / atol 1e-6, the momentum (the step's gradient) element by element
+     within rtol 1e-4 + atol 2e-4 of its tensor's largest at 64 px (the CPU
+     parity test's size and tolerance) and within relative L2 1e-3 at 128
+     px (near-ties move a few hundred gradients of a tensor further);
  11. time each train-step kernel against its plain version at the train
      shapes, the matcher call beside its three kernels' own device time
      (torch.profiler), cuDNN's weight gradient beside the conv1_2'
-     kernel, ATen's max_pool2d_with_indices_backward (K5's routing in the
+     kernels (bf16, and float32 with TF32 off in turns), ATen's
+     max_pool2d_with_indices_backward (K5's routing in the
      unpacked layout, in turns with K5) and ATen's
      upsample_bilinear2d_backward (the atomic backward the upsample kernel
      replaces) beside a step's three upsample gradients (the PyTorch calls
@@ -151,17 +171,22 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      arithmetic a rank; on every leg no rank's allocation
      ran out of device memory (cuDNN would then take another algorithm and
      other bits); ms a step and the all-reduce's
-     share; the three legs of tools/dryrun_multichip.py (the restored
-     state's step bit-identical to the original's); (c) NCCL over
+     share; the three legs of tools/dryrun_multichip.py in float32, as the
+     JAX dry run trains (the restored state's step bit-identical to the
+     original's; K6's float32 kernel once a step on each rank, its bf16
+     kernel never); (c) NCCL over
      min(cards, 4) cards with the same checks and images/s against one
      card, or one line saying why it did not run; (d) the train CLI's
      teardown under torchrun on NCCL: `python -m torch.distributed.run
      --standalone --nproc_per_node 1 -m dan_tpu_torch.train --synthetic
      --batch_size 32 --steps 1 --checkpoint_every 1`, then `--steps 2
-     --resume`, three times over: every launch exits 0 and prints the
-     seconds it took, the log holds steps [1, 2], and when the rank's
-     interpreter starts to shut down no thread but its main one is alive
-     (a sitecustomize on the rank's PYTHONPATH prints them).
+     --resume`, twice over, then `-m dan_tpu_torch.eval` on 4 images of
+     the fixture with TTA and with --no_tta: every launch exits 0 and
+     prints the seconds it took, the train log holds steps [1, 2], the
+     eval CLI prints its AP line, and when the rank's interpreter starts to
+     shut down no Python thread but its main one is alive (a
+     sitecustomize on the rank's PYTHONPATH prints them, and the names of
+     the process's other threads: NCCL's, gloo's and the rest).
 
  16. int8 deployment (dan_tpu_torch/quant.py): calibrate on 8 bench images
      and quantize the random-init detector; print the int8 kernel's ptxas
@@ -349,6 +374,7 @@ from dan_tpu_torch.ops import (
     _cuda_build,
     bbox_vote_cuda,
     conv12_wgrad_cuda,
+    conv12_wgrad_f32_cuda,
     conv_i8_cuda,
     matching_cuda,
     quantize_i8_cuda,
@@ -368,6 +394,7 @@ from dan_tpu_torch.tools import smoke_e2e
 from dan_tpu_torch.ops.bbox_vote import bbox_vote_batched
 from dan_tpu_torch.ops.preprocess import sample_augment_batch, train_preprocess
 from dan_tpu_torch.train import __main__ as train_cli
+from dan_tpu_torch.train import loop as train_loop
 from dan_tpu_torch.train.loop import (
     create_train_state,
     loss_and_grads,
@@ -395,15 +422,35 @@ TRAIN_KERNELS = {  # module, source, the TPU kernel it replaces
                        "dan_tpu/ops/phase_pool_pallas.py:60"),
     "conv12_wgrad": (conv12_wgrad_cuda, "conv12_wgrad",
                      "dan_tpu/ops/conv12_wgrad_pallas.py:51"),
+    "conv12_wgrad_f32": (conv12_wgrad_f32_cuda, "conv12_wgrad_f32",
+                         "dan_tpu/ops/conv12_wgrad_pallas.py:51 (float32 operands)"),
     "upsample2x_bwd": (upsample_cuda, "upsample2x_bwd",
                        "dan_tpu/models/layers.py:105 (no TPU kernel: XLA's transpose of "
                        "jax.image.resize's dots)"),
 }
 TRAIN_NAMES = tuple(TRAIN_KERNELS)
-# Launches per train step: one each (the matcher counts calls of its C
-# entry point, each of which launches both of its passes), and the LFPN's
-# three upsample gradients.
-PER_STEP = {"matcher": 1, "phase_pool_bwd": 1, "conv12_wgrad": 1, "upsample2x_bwd": 3}
+# Launches per train step in bf16 (the default): one each (the matcher
+# counts calls of its C entry point, each of which launches both of its
+# passes), and the LFPN's three upsample gradients; K6's float32 kernel
+# none.  A float32 step launches K6's float32 kernel instead of its bf16 one.
+PER_STEP = {"matcher": 1, "phase_pool_bwd": 1, "conv12_wgrad": 1, "conv12_wgrad_f32": 0,
+            "upsample2x_bwd": 3}
+PER_STEP_F32 = dict(PER_STEP, conv12_wgrad=0, conv12_wgrad_f32=1)
+# The conv1_2' weight-gradient kernels against the plain version in float32
+# (relative L2): the bf16 kernel's tensor cores add with less than float32's
+# rounding, an error that grows with the chain (PERF.md).  The float32
+# kernel differs from the plain version only in the order of its sums, but
+# the plain version (cuDNN's float32 weight gradient) is itself about 3e-5
+# from the exact value at the train shape (phase 9 prints it against a
+# float64 oracle), so the float32 kernel is held to 1e-5 of that oracle,
+# and to 1e-4 of the plain version.
+WGRAD_RTOL = {torch.bfloat16: 1e-4, torch.float32: 1e-4}
+WGRAD_F64_RTOL = 1e-5
+# The float32 train phase (10f): batch, steps a run, and the image sizes of
+# the steps held against the CPU (the CPU parity test's 64 px, and 128).
+F32_BATCH = 8
+F32_STEPS = 4
+F32_CPU_SIZES = (64, 128)
 # The upsample gradients of one train step at batch 32, 640x640: g of the
 # fc7 -> conv5_3, conv5_3 -> conv4_3 and conv4_3 -> conv3_3 blocks.
 UPSAMPLE_SHAPES = ((TRAIN_BATCH, 512, 40, 40), (TRAIN_BATCH, 512, 80, 80),
@@ -1040,8 +1087,9 @@ def main() -> int:
     tcfg = train_config(cfg)
     errs, cases = phase9(tcfg, dev)
 
-    # -- 10. the train step, counted ------------------------------------------
+    # -- 10. the train step, counted; 10f. in float32 -----------------------------
     launches, train_step_ms = phase10(tcfg, dev, smi)
+    launches["conv12_wgrad_f32"] = phase10f(tcfg, dev, smi)
 
     # -- 11. train kernel timing -----------------------------------------------
     train_ms, train_bounds = phase11(cases, smi)
@@ -1112,13 +1160,13 @@ def main() -> int:
             "ms": train_ms[name]["kernel"], "plain_ms": train_ms[name]["plain"],
             "library_ms": train_ms[name].get("library"),
             "launches_dp_ranks": [r[name] for r in dp_launches["train"]],
+            "launches_dryrun_ranks": [r[name] for r in dp_launches["dryrun"]],
             "launches_ckpt": ck["train"][name], "launches_tools": tools[name],
             "launches_native": nat[name], "launches_bench": bl[name]}
-        if name == "conv12_wgrad":
-            plan = train_bounds["conv12_wgrad tiling"]
-            seg = conv12_wgrad_cuda.SEGMENT
-            entry.update(partials=plan.partials, flush_pixels=plan.flush_segs * seg,
-                         pixels_per_block=plan.segs_per_range * seg)
+        if name in ("conv12_wgrad", "conv12_wgrad_f32"):
+            plan = train_bounds[f"{name} tiling"]
+            entry.update(partials=plan.partials, flush_pixels=plan.flush_segs * plan.seg,
+                         pixels_per_block=plan.segs_per_range * plan.seg)
         if name != "matcher":
             ms_b, by = train_bounds[name]
             kernels.append(dict(entry, bound_ms=ms_b, bound_by=by))
@@ -1217,24 +1265,88 @@ def edge_case_batch(cfg):
     return batch
 
 
+def wgrad_f64(o1, dr):
+    """The conv1_2' weight gradient in float64 (cuDNN's): the oracle of the
+    float32 kernel."""
+    x = torch.relu(o1).double().permute(0, 3, 1, 2)
+    return torch.nn.grad.conv2d_weight(x, (dr.shape[3], o1.shape[3], 2, 2),
+                                       dr.double().permute(0, 3, 1, 2), padding=1)
+
+
 def compare_wgrad(o1, dr, what) -> float:
-    """The conv1_2' weight-gradient kernel against its plain version in
-    float32 (TF32 off): relative L2 <= 1e-4 and two runs bit-identical, or
-    raise.  Returns max |diff|."""
+    """The conv1_2' weight-gradient kernel of o1's dtype against its plain
+    version in float32 (TF32 off): that kernel launched twice, relative L2
+    <= WGRAD_RTOL[dtype], two runs bit-identical and every value finite, or
+    raise; a float32 kernel also within WGRAD_F64_RTOL of wgrad_f64.
+    Returns max |kernel - plain|."""
+    mod = conv12_wgrad_f32_cuda if o1.dtype == torch.float32 else conv12_wgrad_cuda
+    before = (conv12_wgrad_cuda.LAUNCHES, conv12_wgrad_f32_cuda.LAUNCHES)
     k_a = conv12_wgrad_cuda.conv12_wgrad(o1, dr)
-    plan = conv12_wgrad_cuda.LAST_TILING
+    plan = mod.LAST_TILING
     k_b = conv12_wgrad_cuda.conv12_wgrad(o1, dr)
     plain = conv12_wgrad_cuda.conv12_wgrad_plain(o1, dr)
     torch.cuda.synchronize()
+    launched = (conv12_wgrad_cuda.LAUNCHES - before[0], conv12_wgrad_f32_cuda.LAUNCHES - before[1])
     e_w = rel_l2(k_a, plain)
     e_abs = float((k_a - plain).abs().max())
-    same = torch.equal(k_a, k_b)
-    log(f"phase 9: conv12 wgrad kernel vs plain (f32, TF32 off) at o1 {tuple(o1.shape)}, dr "
-        f"{tuple(dr.shape)} ({what}): rel L2 {e_w:.3e} (limit 1e-4), max |diff| {e_abs:.3e}; "
-        f"two runs identical: {same}; {plan.partials} partials of {plan.segs_per_range} "
-        f"segments, a chain ends every {plan.flush_segs * conv12_wgrad_cuda.SEGMENT} pixels")
-    if not (e_w <= 1e-4 and same and bool(torch.isfinite(k_a).all())):
+    same = same_bits(k_a, k_b)
+    limit = WGRAD_RTOL[o1.dtype]
+    e_64 = e_plain_64 = 0.0
+    oracle = ""
+    if o1.dtype == torch.float32:
+        exact = wgrad_f64(o1, dr)
+        e_64, e_plain_64 = rel_l2(k_a, exact), rel_l2(plain, exact)
+        oracle = (f"; against float64: kernel {e_64:.3e} (limit {WGRAD_F64_RTOL:g}), plain "
+                  f"{e_plain_64:.3e}")
+        del exact
+    log(f"phase 9: conv12 wgrad {mod.SOURCE} kernel vs plain (f32, TF32 off) at o1 "
+        f"{tuple(o1.shape)}, dr {tuple(dr.shape)} {o1.dtype} ({what}): rel L2 {e_w:.3e} (limit "
+        f"{limit:g}), max |diff| {e_abs:.3e}{oracle}; two runs bit-identical: {same}; "
+        f"{plan.partials} partials of {plan.segs_per_range} segments of {plan.seg} pixels, a "
+        f"chain ends every {plan.flush_segs * plan.seg} pixels")
+    want = (2, 0) if mod is conv12_wgrad_cuda else (0, 2)
+    if launched != want:
+        raise AssertionError(f"conv12 wgrad on {o1.dtype}: (bf16, float32) kernel launches "
+                             f"{launched}, not {want}")
+    if not (e_w <= limit and e_64 <= WGRAD_F64_RTOL and same and bool(torch.isfinite(k_a).all())):
         raise AssertionError(f"conv12 wgrad kernel out of tolerance or not deterministic ({what})")
+    return e_abs
+
+
+def compare_wgrad_shapes(o1, dr, gen) -> float:
+    """compare_wgrad at the train shape (o1 from a real packed forward),
+    batch 1 and 3, rows that end inside a segment (W = 53 and 65, and H = 1),
+    a border-only o1 and dr, and dW exactly 0 on an all-negative o1, all in
+    o1's dtype.  Returns the train shape's max |diff|."""
+    dev = o1.device
+    e_abs = compare_wgrad(o1, dr, "the train shape, o1 from a real packed forward")
+    compare_wgrad(o1[:1].contiguous(), dr[:1].contiguous(), "batch 1 at 640x640")
+    compare_wgrad(o1[:3].contiguous(), dr[:3].contiguous(), "batch 3 at 640x640")
+    # Rows that are no multiple of a segment (64 pixels in bf16, 16 in
+    # float32): a ragged last segment, one pixel over a segment (the kernel
+    # reads zeros past W), and a single row.
+    for shape in ((2, 37, 53, 256), (1, 64, 65, 256), (3, 1, 70, 256)):
+        small = torch.randn(shape, generator=gen, device=dev).to(o1.dtype)
+        small_dr = torch.randn((shape[0], shape[1] + 1, shape[2] + 1, 256), generator=gen,
+                               device=dev).to(o1.dtype)
+        compare_wgrad(small, small_dr, "an odd size")
+    # Nothing passes the relu: dW is exactly 0.
+    zero = conv12_wgrad_cuda.conv12_wgrad(-o1[:2].abs() - 1.0, dr[:2].contiguous())
+    if float(zero.abs().max()) != 0.0:
+        raise AssertionError(f"conv12 wgrad of an all-negative {o1.dtype} o1 is not exactly 0")
+    log(f"  all-negative {o1.dtype} o1: dW exactly 0")
+    # Only the border: o1 positive on its outer rows and columns alone, dr
+    # nonzero on its outer rows and columns alone -- the taps next to the
+    # zero padding carry everything.
+    edge = -o1[:2].abs() - 1.0
+    for sl in ((slice(None), 0), (slice(None), -1), (slice(None), slice(None), 0),
+               (slice(None), slice(None), -1)):
+        edge[sl] = o1[:2][sl].abs()
+    edge_dr = torch.zeros_like(dr[:2])
+    for sl in ((slice(None), 0), (slice(None), -1), (slice(None), slice(None), 0),
+               (slice(None), slice(None), -1)):
+        edge_dr[sl] = dr[:2][sl]
+    compare_wgrad(edge, edge_dr, "border-only o1 and dr")
     return e_abs
 
 
@@ -1316,41 +1428,18 @@ def phase9(cfg, dev):
         f"{[int(c) for c in counts[:4]]}, clamped (255) {int(counts[255])}")
     del got, want
 
-    # conv1_2' weight grad at the train shape, then at other shapes.
+    # conv1_2' weight grad at the train shape, then at other shapes: the
+    # bf16 kernel, then the float32 one on the same values in float32.
     o1 = nhwc(o1_pre)
     del o1_pre
     dr = torch.randn((TRAIN_BATCH, o1.shape[1] + 1, o1.shape[2] + 1, 256),
                      generator=gen, device=dev, dtype=torch.bfloat16)
-    e_abs = compare_wgrad(o1, dr, "the train shape, o1 from a real packed forward")
-    compare_wgrad(o1[:1].contiguous(), dr[:1].contiguous(), "batch 1 at 640x640")
-    compare_wgrad(o1[:3].contiguous(), dr[:3].contiguous(), "batch 3 at 640x640")
-    # Rows that are no multiple of the 64-pixel segment: a ragged last
-    # segment, and one pixel over a segment (the kernel reads zeros past W).
-    for shape in ((2, 37, 53, 256), (1, 64, 65, 256)):
-        small = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
-        small_dr = torch.randn((shape[0], shape[1] + 1, shape[2] + 1, 256), generator=gen,
-                               device=dev, dtype=torch.bfloat16)
-        compare_wgrad(small, small_dr, "an odd size")
-    # Nothing passes the relu: dW is exactly 0.
-    zero = conv12_wgrad_cuda.conv12_wgrad(-o1[:2].abs() - 1.0, dr[:2].contiguous())
-    if float(zero.abs().max()) != 0.0:
-        raise AssertionError("conv12 wgrad of an all-negative o1 is not exactly 0")
-    log("  all-negative o1: dW exactly 0")
-    # Only the border: o1 positive on its outer rows and columns alone, dr
-    # nonzero on its outer rows and columns alone -- the taps next to the
-    # zero padding carry everything.
-    edge = -o1[:2].abs() - 1.0
-    for sl in ((slice(None), 0), (slice(None), -1), (slice(None), slice(None), 0),
-               (slice(None), slice(None), -1)):
-        edge[sl] = o1[:2][sl].abs()
-    edge_dr = torch.zeros_like(dr[:2])
-    for sl in ((slice(None), 0), (slice(None), -1), (slice(None), slice(None), 0),
-               (slice(None), slice(None), -1)):
-        edge_dr[sl] = dr[:2][sl]
-    compare_wgrad(edge, edge_dr, "border-only o1 and dr")
-    del zero, edge, edge_dr
+    e_abs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        e_abs[dtype] = compare_wgrad_shapes(o1.to(dtype), dr.to(dtype), gen)
     compare_upsample(gen, dev)
-    errs = {"matcher": 0.0, "phase_pool_bwd": 0.0, "conv12_wgrad": e_abs, "upsample2x_bwd": 0.0}
+    errs = {"matcher": 0.0, "phase_pool_bwd": 0.0, "conv12_wgrad": e_abs[torch.bfloat16],
+            "conv12_wgrad_f32": e_abs[torch.float32], "upsample2x_bwd": 0.0}
     cases = {"matcher": margs, "phase_pool_bwd": (g, win), "conv12_wgrad": (o1, dr)}
     return errs, cases
 
@@ -1520,6 +1609,150 @@ def phase10(cfg, dev, smi):
     return launches, float(step_ms.mean())
 
 
+def f32_config(cfg, **preprocess):
+    """cfg in float32 at batch F32_BATCH, with the preprocess fields given."""
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, compute_dtype="float32"),
+        preprocess=dataclasses.replace(cfg.preprocess, **preprocess),
+        train=dataclasses.replace(cfg.train, batch_size=F32_BATCH))
+
+
+def f32_run(cfg, dev, batch):
+    """F32_STEPS train_step calls on one batch from create_train_state(SEED),
+    every train kernel counted (0 just before, read just after) -> (losses,
+    the last step's metrics, the state payload, launches, host ms a step,
+    synchronised)."""
+    state = create_train_state(cfg, SEED, dev)
+    for mod, _, _ in TRAIN_KERNELS.values():
+        mod.LAUNCHES = 0
+    losses, ms = [], []
+    for _ in range(F32_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    launches = {name: mod.LAUNCHES for name, (mod, _, _) in TRAIN_KERNELS.items()}
+    return (losses, {k: float(v) for k, v in m.items()}, ckpt.state_payload(state), launches,
+            ms)
+
+
+@contextlib.contextmanager
+def plain_cpu_conv():
+    """oneDNN off: its float32 conv is too inexact to hold the card against
+    (the port's CPU tests turn it off the same way)."""
+    prev = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = prev
+
+
+def f32_card_vs_cpu(cfg, dev, smi, size):
+    """One float32 train_step at size x size (canvas 2 x size, the CPU parity
+    test's irregular crop scaled) on the card and on the CPU from
+    create_train_state(SEED) on one batch: the loss within 1e-4 relative,
+    num_pos and the selected negatives equal, every parameter within rtol
+    1e-4 / atol 1e-6 (tests/test_torch_train_step.py's tolerance).  The
+    momentum (the first step's gradient) is held as that test holds it,
+    each element within rtol 1e-4 + atol 2e-4 of its tensor's largest, at
+    the test's own 64 px; at larger sizes near-ties in the max pools and
+    relus (recorded in ROADMAP.md) move a few hundred gradients of a tensor by
+    more, so there the whole momentum is held to relative L2 1e-3 and the
+    elements outside the test's tolerance are printed."""
+    scfg = f32_config(cfg, train_image_size=size, canvas_size=2 * size)
+    batch = synthetic_batch(scfg, F32_BATCH, seed=SEED)
+    # An irregular crop window, as the CPU parity test's (7 and 111 of a
+    # 128-pixel canvas): a 2:1 crop of the 4x-upsampled noise canvas makes
+    # constant 2x2 blocks whose max-pool windows tie exactly.
+    batch["crop_x0"][:] = 7.0 * size / 64
+    batch["crop_size"][:] = 111.0 * size / 64
+    out = {}
+    for where in ("cpu", dev):
+        state = create_train_state(scfg, SEED, where)
+        t0 = time.perf_counter()
+        with plain_cpu_conv():
+            m = train_step(state, batch)
+        metrics = {k: float(v) for k, v in m.items()}
+        params = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+        out[str(where)] = (metrics, params, {n: v.cpu() for n, v in state.momentum.items()},
+                           time.perf_counter() - t0)
+    (mc, pc, vc, sc), (mg, pg, vg, sg) = out["cpu"], out[str(dev)]
+    loss_rel = abs(mg["loss"] - mc["loss"]) / abs(mc["loss"])
+    params_ok = all(bool(((pg[n] - pc[n]).abs() <= 1e-4 * pc[n].abs() + 1e-6).all()) for n in pc)
+    worst, outside, total = 0.0, 0, 0
+    for n, want in vc.items():
+        diff = (vg[n] - want).abs()
+        top = want.abs().max().clamp_min(1e-30)
+        worst = max(worst, float((diff - 1e-4 * want.abs()).max() / top))
+        outside += int((diff > 1e-4 * want.abs() + 2e-4 * top).sum())
+        total += want.numel()
+    mom_l2 = math.sqrt(sum(float((vg[n] - vc[n]).double().square().sum()) for n in vc)
+                       / sum(float(v.double().square().sum()) for v in vc.values()))
+    mom_ok = worst <= 2e-4 if size == 64 else mom_l2 <= 1e-3
+    log(f"phase 10f: one float32 step at {size}x{size}, batch {F32_BATCH}, card against CPU "
+        f"(oneDNN off; {sg:.1f} s and {sc:.1f} s on the host clock): loss {mg['loss']!r} / "
+        f"{mc['loss']!r} (rel {loss_rel:.3e}, limit 1e-4); num_pos {mg['num_pos']:g} / "
+        f"{mc['num_pos']:g}, selected negatives {mg['num_neg_selected']:g} / "
+        f"{mc['num_neg_selected']:g}; parameters within rtol 1e-4 / atol 1e-6: {params_ok}; "
+        f"momentum: worst element {worst:.3e} of its tensor's largest beyond rtol 1e-4, "
+        f"{outside} of {total} elements outside atol 2e-4 of it"
+        + (" (limit 2e-4)" if size == 64 else "") + f", relative L2 {mom_l2:.3e}"
+        + ("" if size == 64 else " (limit 1e-3)") + f" ({smi})")
+    if not (loss_rel <= 1e-4 and mg["num_pos"] == mc["num_pos"] > 0
+            and mg["num_neg_selected"] == mc["num_neg_selected"] and params_ok and mom_ok):
+        raise AssertionError(f"phase 10f: the float32 step at {size} px on the card differs "
+                             "from the CPU's")
+
+
+def phase10f(cfg, dev, smi):
+    """The float32 train step on the card, at full width (640x640) and batch
+    F32_BATCH: two runs of F32_STEPS steps on one batch from
+    create_train_state(SEED); the loss falls, the runs are bit-identical,
+    and each step launches K6's float32 kernel once and its bf16 kernel
+    never.  Then f32_card_vs_cpu.  Returns the float32 kernel's launches."""
+    fcfg = f32_config(cfg)
+    batch = synthetic_batch(fcfg, F32_BATCH, seed=SEED)
+    t0 = time.perf_counter()
+    (losses, m, st, launches, ms), (losses_b, m_b, st_b, launches_b, ms_b) = (
+        f32_run(fcfg, dev, batch) for _ in range(2))
+    params = differing(st_b["model"], st["model"])
+    moms = differing(st_b["momentum"], st["momentum"])
+    # The same two runs without cuDNN's deterministic mode, which
+    # loss_and_grads sets for a float32 model: what the mode buys and costs.
+    keep = train_loop._deterministic_convs
+    train_loop._deterministic_convs = lambda on: contextlib.nullcontext()
+    try:
+        free = [f32_run(fcfg, dev, batch) for _ in range(2)]
+    finally:
+        train_loop._deterministic_convs = keep
+    free_diff = len(differing(free[1][2]["model"], free[0][2]["model"]))
+    log(f"phase 10f: without cuDNN's deterministic mode: {free_diff} of {len(st['model'])} "
+        f"parameter tensors differ between two runs; ms a step "
+        f"{[round(x, 3) for x in free[1][4]]} against {[round(x, 3) for x in ms_b]} with it")
+    log(f"phase 10f: {F32_STEPS} float32 steps on one batch ({F32_BATCH}x640x640, TF32 off, "
+        f"warm-up 50, clip 10), twice from create_train_state({SEED}) "
+        f"({time.perf_counter() - t0:.1f} s): loss {' '.join(f'{x:.5f}' for x in losses)}; "
+        f"ms a step (host clock, synchronised) {[round(x, 3) for x in ms]} then "
+        f"{[round(x, 3) for x in ms_b]} = {np.mean(ms_b[1:]):.3f} ms = "
+        f"{F32_BATCH / np.mean(ms_b[1:]) * 1e3:.1f} img/s warm ({smi}); the second run: "
+        f"{len(params)} parameter and {len(moms)} momentum tensors differ, metrics "
+        f"{'identical' if (losses_b, m_b) == (losses, m) else 'differ'}; launches {launches}")
+    want = {name: PER_STEP_F32[name] * F32_STEPS for name in TRAIN_NAMES}
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError("phase 10f: the float32 loss did not fall")
+    if launches != want or launches_b != want:
+        raise AssertionError(f"phase 10f: launches {launches} and {launches_b}, not {want}")
+    if params or moms or (losses_b, m_b) != (losses, m):
+        raise AssertionError(f"phase 10f: two float32 runs differ ({(params + moms)[:4]})")
+    del st, st_b
+    for size in F32_CPU_SIZES:
+        f32_card_vs_cpu(cfg, dev, smi, size)
+    return 2 * launches["conv12_wgrad_f32"]
+
+
 def profile_steps(step, batches):
     """torch.profiler over a few steady train steps: device kernel time
     per step against the steps' event time (the device's busy share), and
@@ -1561,13 +1794,17 @@ def phase11(cases, smi):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     cases = dict(cases, upsample2x_bwd=tuple(
         torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-        for shape in UPSAMPLE_SHAPES))
+        for shape in UPSAMPLE_SHAPES), conv12_wgrad_f32=tuple(
+        t.float() for t in cases["conv12_wgrad"]))
     fns = {
         "matcher": (matching_cuda.match_anchors_cuda, match_anchors),
         "phase_pool_bwd": (phase_pool_cuda.phase_pool_bwd,
                            phase_pool_cuda.phase_pool_bwd_plain),
         "conv12_wgrad": (conv12_wgrad_cuda.conv12_wgrad,
                          conv12_wgrad_cuda.conv12_wgrad_plain),
+        # The same function on the same values in float32: its own kernel.
+        "conv12_wgrad_f32": (conv12_wgrad_cuda.conv12_wgrad,
+                             conv12_wgrad_cuda.conv12_wgrad_plain),
         # A step's three upsample gradients, one call each.
         "upsample2x_bwd": (lambda *gs: [upsample_cuda.upsample2x_bwd(g) for g in gs],
                            lambda *gs: [upsample_cuda.upsample2x_bwd_plain(g) for g in gs]),
@@ -1576,14 +1813,15 @@ def phase11(cases, smi):
     launched = {}
     for name, (kernel, plain) in fns.items():
         args = cases[name]
-        # One call launches what one train step launches.
+        # One call launches what one train step in its dtype launches.
         mod = TRAIN_KERNELS[name][0]
         mod.LAUNCHES = 0
         kernel(*args)
         launched[name] = mod.LAUNCHES
-        if launched[name] != PER_STEP[name]:
+        per_call = max(PER_STEP[name], PER_STEP_F32[name])
+        if launched[name] != per_call:
             raise AssertionError(f"phase 11: {name} launched {launched[name]} times a call, "
-                                 f"not {PER_STEP[name]}")
+                                 f"not {per_call}")
         out[name] = turns(lambda: kernel(*args), lambda: plain(*args), 10, 3)
         log(f"phase 11: {name}: kernel {out[name]['kernel']:.4f} ms, plain "
             f"{out[name]['plain']:.4f} ms ({smi})")
@@ -1617,6 +1855,22 @@ def phase11(cases, smi):
     if not e_lib < 2e-2:
         raise AssertionError("the library call does not compute the kernel's function")
     del x, g, want
+    # The same in float32 (TF32 off), in turns library, kernel, kernel,
+    # library with K6's float32 kernel.
+    o1f, drf = cases["conv12_wgrad_f32"]
+    xf = torch.nn.functional.pad(torch.relu(o1f).permute(0, 3, 1, 2), (1, 1, 1, 1)).contiguous(
+        memory_format=torch.channels_last)
+    lib_f = lambda: torch.nn.grad.conv2d_weight(xf, size, drf.permute(0, 3, 1, 2))  # noqa: E731
+    e_lib_f = rel_l2(lib_f(), conv12_wgrad_cuda.conv12_wgrad(o1f, drf))
+    f32_turns = turns(lambda: conv12_wgrad_cuda.conv12_wgrad(o1f, drf), lib_f, 5, 3)
+    out["conv12_wgrad_f32"]["library"] = f32_turns["plain"]
+    log(f"phase 11: conv12_wgrad_f32 beside torch.nn.grad.conv2d_weight (cuDNN, float32, TF32 "
+        f"off, materialised input), in turns library, kernel, kernel, library: library "
+        f"{f32_turns['plain']:.4f} ms, kernel {f32_turns['kernel']:.4f} ms; rel L2 to the "
+        f"kernel {e_lib_f:.3e} ({smi})")
+    if not e_lib_f < 1e-4:
+        raise AssertionError("the float32 library call does not compute the kernel's function")
+    del xf
 
     # K5's library call: ATen's max-pool backward routes each gradient to
     # its window's winner by an index, the same routing in the unpacked
@@ -1720,6 +1974,8 @@ def phase11(cases, smi):
                                 pool_out, PEAK_F32),
         "conv12_wgrad": bound(nbytes(o1, dr) + 4 * ci * co * 4,
                               2 * b * h * w * 4 * ci * co, PEAK_BF16),
+        "conv12_wgrad_f32": bound(nbytes(o1f, drf) + 4 * ci * co * 4,
+                                  2 * b * h * w * 4 * ci * co, PEAK_F32),
         # g read once, gx (a quarter of g) written once; 21 float32
         # operations an output (two H sums of 7, one W sum).
         "upsample2x_bwd": bound(sum(nbytes(g) * 5 // 4 for g in ups),
@@ -1728,7 +1984,9 @@ def phase11(cases, smi):
     for name, (ms_b, by) in bounds.items():
         log(f"  bound {name}: {ms_b:.4f} ms by {by}")
     conv12_wgrad_cuda.conv12_wgrad(o1, dr)
+    conv12_wgrad_cuda.conv12_wgrad(o1f, drf)
     bounds["conv12_wgrad tiling"] = conv12_wgrad_cuda.LAST_TILING
+    bounds["conv12_wgrad_f32 tiling"] = conv12_wgrad_f32_cuda.LAST_TILING
     return out, bounds
 
 
@@ -2564,20 +2822,33 @@ def check_tta_ranks(check, ranks, ref, items, runner, label):
 
 
 # Phase 15d: the train CLI under torchrun, launched in pairs (one step with a
-# checkpoint, then one more resumed from it), TEARDOWN_ROUNDS times.
-TEARDOWN_ROUNDS = 3
+# checkpoint, then one more resumed from it), TEARDOWN_ROUNDS times; then the
+# eval CLI, with TTA and without, on EVAL_LIMIT images of the fixture.
+TEARDOWN_ROUNDS = 2
+EVAL_LIMIT = 4
 # A sitecustomize for the torchrun workers: when the interpreter starts to
 # shut down (threading's exit hooks run before it joins the non-daemon
-# threads), it prints the threads other than the main one that are alive.
-# It then runs the sitecustomize that it shadows, if the environment has one.
+# threads), it prints the Python threads other than the main one that are
+# alive, and the names of the process's other threads (/proc: NCCL's,
+# gloo's, CUDA's and torch's own, which Python does not see).  It then runs
+# the sitecustomize that it shadows, if the environment has one.
 EXIT_THREADS_HOOK = """import importlib.machinery, importlib.util, json, os, sys, threading
 
 
 def _exit_threads():
     alive = [[t.name, t.daemon] for t in threading.enumerate()
              if t is not threading.main_thread() and t.is_alive()]
+    python = {t.native_id for t in threading.enumerate()}
+    native = []
+    for tid in sorted(os.listdir("/proc/self/task"), key=int):
+        if int(tid) not in python:
+            try:
+                with open(f"/proc/self/task/{tid}/comm") as f:
+                    native.append(f.read().strip())
+            except OSError:
+                pass
     sys.stderr.write("exit threads " + json.dumps(
-        {"rank": int(os.environ["RANK"]), "threads": alive}) + "\\n")
+        {"rank": int(os.environ["RANK"]), "threads": alive, "native": native}) + "\\n")
     sys.stderr.flush()
 
 
@@ -2592,18 +2863,55 @@ if _spec is not None:
 """
 
 
+def native_groups(names):
+    """A rank's other threads at exit by owner: NCCL's, gloo's, the rest."""
+    low = [(n, n.lower()) for n in names]
+    return {"nccl": [n for n, m in low if "nccl" in m],
+            "gloo": [n for n, m in low if "gloo" in m],
+            "other": sorted(collections.Counter(
+                n for n, m in low if "nccl" not in m and "gloo" not in m).items())}
+
+
+def torchrun_once(module, args, d, env, what, fails, secs):
+    """`python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+    module args` in REPO with the exit hook on its PYTHONPATH.  Logs its
+    exit code, seconds and the threads alive at the rank's exit; a launch
+    that exits non-zero or leaves a Python thread but the main one alive
+    goes into `fails`.  Returns the finished process."""
+    launch = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+              "1", "-m", module] + args
+    t0 = time.perf_counter()
+    proc = subprocess.run(launch, cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    secs.append(time.perf_counter() - t0)
+    exits = [json.loads(line[len("exit threads "):])
+             for line in proc.stderr.splitlines() if line.startswith("exit threads ")]
+    ok = proc.returncode == 0 and [(e["rank"], e["threads"]) for e in exits] == [(0, [])]
+    log(f"  phase 15d {what}: rc {proc.returncode} in {secs[-1]:.1f} s; Python threads alive at "
+        f"the rank's exit {[e['threads'] for e in exits]}; its other threads "
+        f"{[native_groups(e['native']) for e in exits]}")
+    if not ok:
+        fails.append(what)
+        log("    its stderr ends: " + proc.stderr[-3000:].replace("\n", "\n    "))
+    return proc
+
+
 def phase15d(check, smi):
     """The train CLI under torchrun on NCCL, one rank on cuda:0, as a user
     launches it: one step with a checkpoint, then one more resumed from it,
-    TEARDOWN_ROUNDS times.  Every launch must exit 0, the second say it
-    resumed from step 1 and the log hold steps [1, 2]; when the rank's
+    TEARDOWN_ROUNDS times; then the eval CLI the same way on EVAL_LIMIT
+    images of the fixture, with TTA and with --no_tta (each runs its
+    decode on an iter_prefetch stream).  Every launch must exit 0, the
+    second train launch say it resumed from step 1 and the log hold steps
+    [1, 2], the eval launches print their AP line; when the rank's
     interpreter starts to shut down (after the process group's teardown) no
-    thread but the main one may be alive."""
+    Python thread but the main one may be alive.  The process's other
+    threads are printed by owner."""
+    from dan_tpu_torch.tools import soak_fixture_e2e as soak
+
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
-    launch = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-              "1", "-m", "dan_tpu_torch.train", "--synthetic", "--batch_size", str(TRAIN_BATCH),
-              "--checkpoint_every", "1", "--log_every", "1"]
+    train = ["--synthetic", "--batch_size", str(TRAIN_BATCH), "--checkpoint_every", "1",
+             "--log_every", "1"]
     secs, fails = [], []
     with tempfile.TemporaryDirectory(prefix="dan_teardown_") as d:
         with open(os.path.join(d, "sitecustomize.py"), "w") as f:
@@ -2612,19 +2920,11 @@ def phase15d(check, smi):
         for r in range(TEARDOWN_ROUNDS):
             model_dir = os.path.join(d, f"run_{r}")
             for extra in (["--steps", "1"], ["--steps", "2", "--resume"]):
-                t0 = time.perf_counter()
-                proc = subprocess.run(launch + ["--model_dir", model_dir] + extra, cwd=REPO,
-                                      env=env, capture_output=True, text=True, timeout=300)
-                secs.append(time.perf_counter() - t0)
-                exits = [json.loads(line[len("exit threads "):])
-                         for line in proc.stderr.splitlines() if line.startswith("exit threads ")]
-                resumed = proc.stderr.count("resumed from step 1") == (extra[-1] == "--resume")
-                ok = proc.returncode == 0 and resumed and exits == [{"rank": 0, "threads": []}]
-                log(f"  phase 15d round {r} {' '.join(extra)}: rc {proc.returncode} in "
-                    f"{secs[-1]:.1f} s; threads alive at the rank's exit {exits}")
-                if not ok:
-                    fails.append(f"round {r} {' '.join(extra)}")
-                    log("    its stderr ends: " + proc.stderr[-3000:].replace("\n", "\n    "))
+                what = f"train round {r} {' '.join(extra)}"
+                proc = torchrun_once("dan_tpu_torch.train", train + ["--model_dir", model_dir]
+                                     + extra, d, env, what, fails, secs)
+                if proc.stderr.count("resumed from step 1") != (extra[-1] == "--resume"):
+                    fails.append(f"{what}: resumed?")
             log_path = os.path.join(model_dir, "train_metrics.jsonl")
             steps = []
             if os.path.exists(log_path):
@@ -2632,11 +2932,24 @@ def phase15d(check, smi):
                     steps = [json.loads(line)["step"] for line in f]
             if steps != [1, 2]:
                 fails.append(f"round {r}: logged steps {steps}")
-    log(f"phase 15d: torchrun --standalone --nproc_per_node 1 -m dan_tpu_torch.train (NCCL) at "
-        f"batch {TRAIN_BATCH}, {TEARDOWN_ROUNDS} x (--steps 1, then --steps 2 --resume): seconds "
-        f"a launch {[round(t, 1) for t in secs]} ({smi})")
-    check(not fails, f"15d: {2 * TEARDOWN_ROUNDS} torchrun launches of the train CLI exit 0, "
-          f"log steps [1, 2] and leave only the main thread at exit (failed: {fails})")
+        for extra in ([], ["--no_tta"]):
+            what = f"eval {' '.join(extra) or '(TTA)'}"
+            proc = torchrun_once(
+                "dan_tpu_torch.eval", ["--wider_root", soak.FIX, "--gt_mats", os.path.join(
+                    soak.FIX, "eval_tools", "ground_truth"), "--limit", str(EVAL_LIMIT),
+                    "--output_dir", os.path.join(d, f"eval{len(extra)}")] + extra,
+                d, env, what, fails, secs)
+            last = proc.stdout.strip().splitlines()[-1:] or [""]
+            log(f"    its last line: {last[0]}")
+            if "WIDER FACE" not in last[0]:
+                fails.append(f"{what}: no AP line")
+    log(f"phase 15d: torchrun --standalone --nproc_per_node 1 (NCCL): -m dan_tpu_torch.train at "
+        f"batch {TRAIN_BATCH}, {TEARDOWN_ROUNDS} x (--steps 1, then --steps 2 --resume), then -m "
+        f"dan_tpu_torch.eval on {EVAL_LIMIT} fixture images with TTA and --no_tta: seconds a "
+        f"launch {[round(t, 1) for t in secs]} ({smi})")
+    check(not fails, f"15d: {2 * TEARDOWN_ROUNDS} torchrun launches of the train CLI and 2 of "
+          f"the eval CLI exit 0, the train CLI logs steps [1, 2], the eval CLI its AP line, and "
+          f"each leaves only the main Python thread at exit (failed: {fails})")
 
 
 def phase15(cfg, tcfg, dev, smi):
@@ -2706,9 +3019,13 @@ def phase15(cfg, tcfg, dev, smi):
     check_train_ranks(check, r2, one, start, "15b gloo x2", exact=False)
     t2 = ranks_of(dry.tta_rank, 2, "gloo", tta_args)
     check_tta_ranks(check, t2, ref, items, runner, "15b gloo x2")
+    dry_launches = []
     try:
-        dry.dryrun_multichip(2, "cuda", "gloo")
-        check(True, "15b: tools/dryrun_multichip.py's three legs on 2 ranks sharing cuda:0")
+        dry_launches = [r["launches"] for r in dry.dryrun_multichip(2, "cuda", "gloo")]
+        k6 = [(r["conv12_wgrad_f32"], r["conv12_wgrad"]) for r in dry_launches]
+        check(k6 == [(3, 0)] * 2, f"15b: tools/dryrun_multichip.py's three legs in float32 on 2 "
+              f"ranks sharing cuda:0; (float32, bf16) K6 launches a rank {k6}: the float32 "
+              f"kernel once a step (3 steps), the bf16 kernel never")
     except (AssertionError, RuntimeError) as e:
         check(False, f"15b: tools/dryrun_multichip.py on 2 ranks sharing cuda:0: {e}")
 
@@ -2735,7 +3052,8 @@ def phase15(cfg, tcfg, dev, smi):
     phase15d(check, smi)
     if check.failed:
         raise AssertionError("phase 15: " + "; ".join(check.failed))
-    return {"train": [r["launches"] for r in r2], "tta": [r["launches"] for r in t2]}
+    return {"train": [r["launches"] for r in r2], "tta": [r["launches"] for r in t2],
+            "dryrun": dry_launches}
 
 
 
@@ -3707,7 +4025,8 @@ def phase19(cfg, dev, smi, d):
 REPO = os.path.dirname(os.path.abspath(__file__))
 COUNTERS = {"nms": nms_cuda, "vote": bbox_vote_cuda, "blocked": nms_blocked_cuda,
             "matcher": matching_cuda, "phase_pool_bwd": phase_pool_cuda,
-            "conv12_wgrad": conv12_wgrad_cuda, "conv_i8": conv_i8_cuda,
+            "conv12_wgrad": conv12_wgrad_cuda, "conv12_wgrad_f32": conv12_wgrad_f32_cuda,
+            "conv_i8": conv_i8_cuda,
             "quantize_i8": quantize_i8_cuda, "upsample2x_bwd": upsample_cuda}
 TOOLS_STEPS = 3  # train CLI steps of phase 20b
 SOAK_N = 320  # images of phase 20f's synthetic-val soak (the documented one: 3,226)

@@ -1,5 +1,7 @@
-"""Weight gradient of the packed conv1_2': the CUDA kernel
-(csrc/conv12_wgrad.cu) and its plain PyTorch version.
+"""Weight gradient of the packed conv1_2': the CUDA kernels
+(csrc/conv12_wgrad.cu for bf16 operands, csrc/conv12_wgrad_f32.cu for
+float32 ones, through ops/conv12_wgrad_f32_cuda.py) and their plain
+PyTorch version.
 
     dk2 = conv12_wgrad(o1_pre (B, H, W, CI), dr (B, H+1, W+1, CO))
         -> (CO, CI, 2, 2) float32
@@ -13,13 +15,16 @@ dan_tpu/ops/conv12_wgrad_pallas.py with relu_input=True.  Unlike the TPU
 kernel it has no batch-size rule.
 
 A CPU tensor goes through `conv12_wgrad_plain`; a CUDA tensor launches the
-kernel (bf16 operands; built on first use by ops/_cuda_build.py) or raises.
+kernel of its dtype (built on first use by ops/_cuda_build.py) or raises:
+bf16 and float32 are taken, nothing else.
 
-The kernel (TMA loads, wgmma, one producer warp and two consumer
+The bf16 kernel (TMA loads, wgmma, one producer warp and two consumer
 warpgroups) gives a block 128 rows of dW -- one tap, 128 input channels --
 by 256 output channels and a contiguous range of the pixels of o1, cut into
-segments of 64 along x.  `tiling` computes the ranges; the launch uses it
-and the CPU tests can call it.
+segments of 64 along x.  The float32 kernel (FFMA, cp.async) shares the
+pixels out the same way, in segments of its own length (`plan`).  `tiling`
+computes the bf16 kernel's ranges; the launch uses it and the CPU tests can
+call it.
 """
 from __future__ import annotations
 
@@ -45,17 +50,18 @@ SEGMENT = 64  # pixels of one row of o1 a pipeline stage holds
 FLUSH_PIXELS = 16384
 _SMS = 132  # an H100's; `tiling` takes the card's own count from the launch
 
-# Kernel launches since the last reset (set to 0 to reset).
+# Launches of the bf16 kernel since the last reset (set to 0 to reset); the
+# float32 kernel counts its own (conv12_wgrad_f32_cuda.LAUNCHES).
 LAUNCHES = 0
-# The tiling of the last launch.
+# The tiling of the bf16 kernel's last launch.
 LAST_TILING = None
 
 
 @dataclasses.dataclass(frozen=True)
 class Tiling:
     """How the pixels of o1 (B, H, W) are shared out.  Row (b, y) is cut
-    into `segs_x` segments of 64 pixels (the last one ragged when W is not
-    a multiple of 64: the kernel reads zeros past W); the b*h*segs_x
+    into `segs_x` segments of `seg` pixels (the last one ragged when W is
+    not a multiple of seg: the kernel reads zeros past W); the b*h*segs_x
     segments, in (b, y, x) order, are dealt to `ranges` blocks of
     `segs_per_range` each (the last may be short), and a block ends an
     accumulation chain every `flush_segs` segments.  There is one float32
@@ -64,6 +70,7 @@ class Tiling:
     b: int
     h: int
     w: int
+    seg: int
     segs_x: int
     total_segs: int
     ranges: int
@@ -81,7 +88,7 @@ class Tiling:
         for q in range(lo, min(self.total_segs, lo + self.segs_per_range)):
             row, sx = divmod(q, self.segs_x)
             b, y = divmod(row, self.h)
-            yield b, y, sx * SEGMENT, min(self.w, (sx + 1) * SEGMENT)
+            yield b, y, sx * self.seg, min(self.w, (sx + 1) * self.seg)
 
     def chains(self, r: int):
         """Pixels of each accumulation chain of range r."""
@@ -89,15 +96,20 @@ class Tiling:
         return [sum(px[i:i + self.flush_segs]) for i in range(0, len(px), self.flush_segs)]
 
 
-def tiling(b: int, h: int, w: int, ci: int, co: int, sms: int = _SMS) -> Tiling:
-    """One block an SM where the pixels allow: the 4*ci/128 x co/256 tiles
-    of dW times as many pixel ranges as fit `sms`, no range empty."""
-    segs_x = -(-w // SEGMENT)
+def plan(b: int, h: int, w: int, seg: int, tiles: int, slots: int, flush_pixels: int) -> Tiling:
+    """`tiles` tiles of dW times as many pixel ranges as fit `slots` blocks
+    on the card at once (the pixels allowing), no range empty; segments of
+    `seg` pixels, a chain ended every `flush_pixels`."""
+    segs_x = -(-w // seg)
     total = b * h * segs_x
-    tiles = (4 * ci // TILE_M) * (co // TILE_N)
-    ranges = max(1, min(sms // max(tiles, 1), total))
+    ranges = max(1, min(slots // max(tiles, 1), total))
     per = -(-total // ranges)
-    return Tiling(b, h, w, segs_x, total, -(-total // per), per, FLUSH_PIXELS // SEGMENT)
+    return Tiling(b, h, w, seg, segs_x, total, -(-total // per), per, flush_pixels // seg)
+
+
+def tiling(b: int, h: int, w: int, ci: int, co: int, sms: int = _SMS) -> Tiling:
+    """The bf16 kernel's: one block an SM, the 4*ci/128 x co/256 tiles of dW."""
+    return plan(b, h, w, SEGMENT, (4 * ci // TILE_M) * (co // TILE_N), sms, FLUSH_PIXELS)
 
 
 def build() -> ctypes.CDLL:
@@ -125,7 +137,8 @@ def _check(o1_pre: torch.Tensor, dr: torch.Tensor) -> None:
 
 
 def conv12_wgrad(o1_pre: torch.Tensor, dr: torch.Tensor) -> torch.Tensor:
-    """CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    """CPU tensors take the plain version; CUDA tensors launch the kernel of
+    their dtype."""
     _check(o1_pre, dr)
     if o1_pre.device.type == "cpu":
         return conv12_wgrad_plain(o1_pre, dr)
@@ -133,11 +146,11 @@ def conv12_wgrad(o1_pre: torch.Tensor, dr: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_takes(o1_pre: torch.Tensor, dr: torch.Tensor) -> None:
-    """Raise on what the kernel does not take (beyond `_check`): anything but
-    contiguous, 16-byte aligned bf16 NHWC operands with CI a multiple of 128
-    and CO of 256."""
-    if o1_pre.dtype != torch.bfloat16:
-        raise TypeError(f"the wgrad kernel takes bf16 operands, got {o1_pre.dtype}")
+    """Raise on what the kernels do not take (beyond `_check`): anything but
+    contiguous, 16-byte aligned bf16 or float32 NHWC operands with CI a
+    multiple of 128 and CO of 256."""
+    if o1_pre.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the wgrad kernels take bf16 or float32 operands, got {o1_pre.dtype}")
     if not (o1_pre.is_contiguous() and dr.is_contiguous()):
         raise ValueError("the wgrad kernel takes contiguous NHWC o1_pre and dr")
     ci, co = o1_pre.shape[-1], dr.shape[-1]
@@ -155,6 +168,10 @@ def _launch(o1_pre: torch.Tensor, dr: torch.Tensor) -> torch.Tensor:
     if o1_pre.device.type != "cuda":
         raise ValueError(f"the wgrad kernel takes CUDA tensors, got {o1_pre.device}")
     kernel_takes(o1_pre, dr)
+    if o1_pre.dtype == torch.float32:
+        from dan_tpu_torch.ops import conv12_wgrad_f32_cuda
+
+        return conv12_wgrad_f32_cuda.launch(o1_pre, dr)
     b, h, w, ci = o1_pre.shape
     co = dr.shape[-1]
     sms = torch.cuda.get_device_properties(dr.device).multi_processor_count
@@ -177,8 +194,8 @@ def _launch(o1_pre: torch.Tensor, dr: torch.Tensor) -> torch.Tensor:
 
 
 def conv12_wgrad_plain(o1_pre: torch.Tensor, dr: torch.Tensor) -> torch.Tensor:
-    """The plain version: torch's conv weight gradient in float32 (call it
-    with TF32 off on a card for a float32 reference)."""
+    """The plain version of both kernels: torch's conv weight gradient in
+    float32 (call it with TF32 off on a card for a float32 reference)."""
     _check(o1_pre, dr)
     ci, co = o1_pre.shape[-1], dr.shape[-1]
     x = F.relu(o1_pre).float().permute(0, 3, 1, 2)

@@ -7,7 +7,8 @@
      one more step on each: the same metrics and bit for bit the same
      parameters, on the CPU and on a card alike (the train step is
      deterministic on both: on a card the LFPN upsample's gradient is a
-     gather kernel, not ATen's atomic adds);
+     gather kernel, not ATen's atomic adds, and the conv1_2' weight
+     gradient's float32 kernel sums its partials in a fixed order);
   3. sharded TTA eval of 4 images at batch_per_device 1: every image has
      detections, and every rank returns every image.
 
@@ -17,7 +18,8 @@
     python -m dan_tpu_torch.tools.dryrun_multichip 2 --device cpu   # 2 ranks, CPU, gloo
 
 Like every entry point of the port it runs on the CUDA cards unless
---device cpu is given, and raises without a card.
+--device cpu is given, and raises without a card.  It trains in float32 on
+either, as the JAX dryrun does.
 
 Ranks are spawned processes (dan_tpu_torch/parallel/spawn.py); on cards
 rank r takes cuda:(r % device count).  The rank functions `train_rank` and
@@ -55,6 +57,7 @@ from dan_tpu_torch.models.detector import DANDetector
 from dan_tpu_torch.ops import (
     bbox_vote_cuda,
     conv12_wgrad_cuda,
+    conv12_wgrad_f32_cuda,
     matching_cuda,
     nms_cuda,
     phase_pool_cuda,
@@ -66,12 +69,14 @@ from dan_tpu_torch.train.loop import create_train_state, preprocess_and_match, t
 from dan_tpu_torch.train.loss import class_ce, hard_negatives
 
 # The kernels a rank launches: the train step's (K3 + K4 in one matcher
-# call, K5, K6, the LFPN's three upsample gradients) and the TTA run's (K1 a
-# bucket launch, K7 a vote launch).
+# call, K5, K6 -- the bf16 or the float32 kernel, by the compute dtype --,
+# the LFPN's three upsample gradients) and the TTA run's (K1 a bucket
+# launch, K7 a vote launch).
 KERNEL_COUNTERS = {
     "matcher": matching_cuda,
     "phase_pool_bwd": phase_pool_cuda,
     "conv12_wgrad": conv12_wgrad_cuda,
+    "conv12_wgrad_f32": conv12_wgrad_f32_cuda,
     "upsample2x_bwd": upsample_cuda,
     "nms": nms_cuda,
     "bbox_vote": bbox_vote_cuda,
@@ -86,12 +91,11 @@ KERNEL_COUNTERS = {
 CARD_SHARE = 0.9
 
 
-def tiny_config(n_ranks: int, compute_dtype: str = "float32") -> DANConfig:
-    """The JAX dryrun's config: 64 px, canvas 128, 8 gts, float32 (on a
-    card bfloat16: the conv1_2' weight-gradient kernel takes bf16), a
-    global batch of 8 a rank."""
+def tiny_config(n_ranks: int) -> DANConfig:
+    """The JAX dryrun's config: 64 px, canvas 128, 8 gts, float32, a global
+    batch of 8 a rank."""
     return DANConfig(
-        model=ModelConfig(image_size=64, compute_dtype=compute_dtype),
+        model=ModelConfig(image_size=64, compute_dtype="float32"),
         preprocess=PreprocessConfig(train_image_size=64, canvas_size=128),
         match=MatchConfig(max_gt=8),
         train=TrainConfig(batch_size=8 * max(n_ranks, 1), hnm_min_negatives=8),
@@ -320,9 +324,11 @@ def _sync(device: torch.device) -> None:
 
 def legs_rank(rank: int, world_size: int, init_method: str, device: str,
               backend: Optional[str], model_dir: str) -> dict:
-    """The three legs on this rank; returns what rank 0 reports."""
+    """The three legs on this rank; returns what rank 0 reports, and the
+    kernels' launches in them ("launches")."""
     with rank_mesh(rank, world_size, init_method, device, backend) as mesh:
-        cfg = tiny_config(world_size, "float32" if mesh.device.type == "cpu" else "bfloat16")
+        reset_counters()
+        cfg = tiny_config(world_size)
         state = create_train_state(cfg, 0, mesh.device)
         place_replicated(state, mesh)
 
@@ -360,7 +366,8 @@ def legs_rank(rank: int, world_size: int, init_method: str, device: str,
             if det["bboxes"].shape != (len(det["scores"]), 4) or not len(det["scores"]):
                 raise AssertionError(f"no detections for {key}")
         return {"train": m1, "continuity": (ma["loss"], mb["loss"], rel),
-                "digest": digest, "dets": {k: len(v["scores"]) for k, v in results.items()},
+                "digest": digest, "launches": counters(),
+                "dets": {k: len(v["scores"]) for k, v in results.items()},
                 "results": results, "tta_stats": dict(runner.last_run_stats)}
 
 

@@ -144,15 +144,37 @@ def loss_and_grads(
 ):
     """Forward, loss and the gradients of every parameter, by name.
     total_pos: the global batch's positives when these are one rank's rows
-    (train/loss.py::detection_loss)."""
+    (train/loss.py::detection_loss).
+
+    A float32 model runs under cuDNN's deterministic mode: on an H100,
+    cuDNN's default choices for the float32 backward with TF32 off made two
+    runs from one seed differ (chip_smoke.py phase 10f prints by how much),
+    while its bf16 choices are deterministic; so the step trains one model
+    a seed in either dtype."""
     named = dict(state.model.named_parameters())
-    cls_logits, loc_preds = state.model(images)
-    loss, metrics = detection_loss(
-        cls_logits, loc_preds, targets.cls_target, targets.loc_target, state.config.train,
-        total_pos,
-    )
-    grads = torch.autograd.grad(loss, list(named.values()))
+    with _deterministic_convs(state.config.model.compute_dtype == "float32"):
+        cls_logits, loc_preds = state.model(images)
+        loss, metrics = detection_loss(
+            cls_logits, loc_preds, targets.cls_target, targets.loc_target, state.config.train,
+            total_pos,
+        )
+        grads = torch.autograd.grad(loss, list(named.values()))
     return dict(zip(named, grads)), metrics
+
+
+@contextlib.contextmanager
+def _deterministic_convs(on: bool) -> Iterator[None]:
+    """cudnn.deterministic set to True while the block runs when `on` (the
+    other cuDNN flags as they are), restored after it."""
+    if not on:
+        yield
+        return
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
 
 
 def _all_finite(out) -> bool:

@@ -2,6 +2,7 @@
 JAX package's, importable with `dan_tpu` and `jax` blocked, and entry
 points that refuse to run without a card unless asked for the CPU."""
 import dataclasses
+import inspect
 import os
 import pkgutil
 import subprocess
@@ -68,6 +69,28 @@ def test_from_reference_round_trip():
     hash(port)  # stays hashable: generate_anchors_np caches on it
     assert from_reference(port) == port
     assert from_reference(ref_config.default_config()) == port_config.default_config()
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_dryrun_config_is_the_reference_dryrun_config(n):
+    """tools/dryrun_multichip.py trains in float32 on the card and on the
+    CPU alike: its config is the one the JAX package's dry run builds
+    (__graft_entry__.py::dryrun_multichip), field by field, and takes no
+    dtype or device."""
+    from dan_tpu_torch.tools import dryrun_multichip as dry
+
+    ref = ref_config.DANConfig(
+        model=ref_config.ModelConfig(image_size=64, compute_dtype="float32"),
+        preprocess=ref_config.PreprocessConfig(train_image_size=64, canvas_size=128),
+        match=ref_config.MatchConfig(max_gt=8),
+        train=ref_config.TrainConfig(batch_size=8 * max(n, 1), hnm_min_negatives=8),
+    )
+    got = dry.tiny_config(n)
+    for field in dataclasses.fields(ref):
+        assert dataclasses.asdict(getattr(got, field.name)) == dataclasses.asdict(
+            getattr(ref, field.name)), field.name
+    assert got == from_reference(ref) and got.model.compute_dtype == "float32"
+    assert list(inspect.signature(dry.tiny_config).parameters) == ["n_ranks"]
 
 
 def test_synthetic_batch_copy_equals_the_reference():

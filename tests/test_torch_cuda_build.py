@@ -26,8 +26,19 @@ def test_the_iou_sources_share_one_header():
         assert [os.path.basename(p) for p in _cuda_build.sources(name)] == [
             f"{name}.cu", "box_iou.cuh"]
         assert "-fmad=false" in _cuda_build._flags(name)
-    for name in ("phase_pool", "conv12_wgrad"):
+    for name in ("phase_pool", "conv12_wgrad", "conv12_wgrad_f32"):
         assert len(_cuda_build.sources(name)) == 1
+
+
+def test_every_source_is_built_for_sm_90a():
+    """Every kernel source in csrc/, the float32 conv1_2' weight gradient's
+    among them, gets its own library name and the sm_90a target."""
+    names = sorted(f[:-3] for f in os.listdir(_cuda_build.CSRC) if f.endswith(".cu"))
+    assert "conv12_wgrad_f32" in names and "conv12_wgrad" in names
+    targets = {_cuda_build._target(n) for n in names}
+    assert len(targets) == len(names)
+    for name in names:
+        assert "arch=compute_90a,code=sm_90a" in _cuda_build._flags(name)
 
 
 def test_two_processes_building_one_source_leave_one_whole_library(tmp_path):

@@ -276,6 +276,8 @@ def test_dryrun_multichip_three_legs(capsys):
     for k in r0["results"]:
         np.testing.assert_array_equal(r0["results"][k]["bboxes"], r1["results"][k]["bboxes"])
     assert r0["tta_stats"]["images"] == 4
+    # On the CPU no kernel launches: every wrapper takes its plain version.
+    assert r0["launches"] == r1["launches"] == dict.fromkeys(dry.KERNEL_COUNTERS, 0)
 
 
 # -- queue-3 repairs: the pipeline's start step, the max_pending default ----------

@@ -44,6 +44,7 @@ from dan_tpu_torch.config import from_reference
 from dan_tpu_torch.ckpt.bridge import opt_state_from_jax, params_from_jax, params_to_jax
 from dan_tpu_torch.models.detector import DANDetector
 from dan_tpu_torch.train import TrainState, create_train_state, train_step
+from dan_tpu_torch.train.loop import loss_and_grads, preprocess_and_match
 from dan_tpu_torch.train.__main__ import make_config, parse_args
 
 torch.set_num_threads(1)
@@ -146,6 +147,27 @@ def test_save_restore_resume_is_bit_identical(tmp_path):
     for (name, a), b in zip(straight.model.named_parameters(), resumed.model.parameters()):
         assert torch.equal(a, b), name
         assert torch.equal(straight.momentum[name], resumed.momentum[name]), name
+
+
+@pytest.mark.parametrize("dtype,want", [("float32", True), ("bfloat16", False)])
+def test_float32_step_runs_cudnn_deterministic(dtype, want):
+    """loss_and_grads runs a float32 model's forward and backward under
+    cuDNN's deterministic mode (its default float32 choices on a card add
+    atomically), leaves a bf16 model's flags as they are, and restores the
+    flag after the step."""
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype=dtype))
+    state = create_train_state(from_reference(cfg), seed=0, device="cpu")
+    seen = []
+    record = lambda *_: seen.append(torch.backends.cudnn.deterministic)  # noqa: E731
+    state.model.register_forward_hook(record)
+    state.model.register_full_backward_hook(record)
+    images, targets = preprocess_and_match(synthetic_batch(cfg, 2, seed=0), state.config, "cpu")
+    before = torch.backends.cudnn.deterministic
+    grads, metrics = loss_and_grads(state, images, targets)
+    assert seen == [want or before] * 2
+    assert torch.backends.cudnn.deterministic == before
+    assert float(metrics["loss"]) > 0 and set(grads) == set(dict(state.model.named_parameters()))
 
 
 def test_checkpoints_keep_the_newest_five(tmp_path):

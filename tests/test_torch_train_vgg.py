@@ -222,7 +222,11 @@ def _jax_vjp_wgrad(o1_pre, dr):
     return np.asarray(vjp(jnp.asarray(dr))[0])
 
 
-@pytest.mark.parametrize("b,h,w,c", [(8, 6, 10, 128), (8, 1, 1, 128), (8, 5, 7, 256)])
+# The last case is the shape of the dry run's float32 step (tools/
+# dryrun_multichip.py, __graft_entry__.py): 8 images of 64 px, a 32 x 32
+# phase grid, 256 packed channels.
+@pytest.mark.parametrize("b,h,w,c", [(8, 6, 10, 128), (8, 1, 1, 128), (8, 5, 7, 256),
+                                     (8, 32, 32, 256)])
 def test_wgrad_plain_matches_pallas(b, h, w, c):
     rng = np.random.default_rng(b + h + w)
     o1 = rng.normal(size=(b, h, w, c)).astype(np.float32)
