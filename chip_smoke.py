@@ -71,20 +71,20 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      2 steps through `python -m dan_tpu_torch.train`'s main(),
      the second resumed from the first one's checkpoint; K6's float32
      kernel must never launch;
- 10f. train the same config in float32 (TF32 off) at batch 8, 640x640,
-     through create_train_state and train_step: two runs of 4 steps on one
-     batch from seed 0, the loss falling and the runs bit-identical in
+ 10f. train the same config in float32 at batch 8, 640x640, through
+     create_train_state and train_step, with TF32 allowed for convolutions
+     and matmuls as a caller may have it (PyTorch's default allows it for
+     convolutions): the model's forward must run with TF32 off and cuDNN
+     deterministic, as the float32 step sets them; two runs of 4 steps on
+     one batch from seed 0, the loss falling and the runs bit-identical in
      every parameter, momentum buffer and metric, K6's float32 kernel once
      a step and its bf16 kernel never (every train kernel counted), ms a
-     step printed, and the same runs without cuDNN's deterministic mode
-     (which the float32 step sets) beside them; then one float32 step at
-     64x64 and at 128x128, batch 8, on the card and on the CPU (oneDNN
-     off) from the same state and batch: the loss within 1e-4 relative,
-     num_pos and the selected negatives equal, the parameters within rtol
-     1e-4 / atol 1e-6, the momentum (the step's gradient) element by element
-     within rtol 1e-4 + atol 2e-4 of its tensor's largest at 64 px (the CPU
-     parity test's size and tolerance) and within relative L2 1e-3 at 128
-     px (near-ties move a few hundred gradients of a tensor further);
+     step printed; then one float32 step at 64x64, batch 8, on the card and
+     on the CPU (oneDNN off) from the same state and batch: the loss within
+     1e-4 relative, num_pos and the selected negatives equal, the
+     parameters within rtol 1e-4 / atol 1e-6, and the momentum (the step's
+     gradient) element by element within rtol 1e-4 + atol 2e-4 of its
+     tensor's largest (the CPU parity test's size and tolerance);
  11. time each train-step kernel against its plain version at the train
      shapes, the matcher call beside its three kernels' own device time
      (torch.profiler), cuDNN's weight gradient beside the conv1_2'
@@ -180,7 +180,7 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      teardown under torchrun on NCCL: `python -m torch.distributed.run
      --standalone --nproc_per_node 1 -m dan_tpu_torch.train --synthetic
      --batch_size 32 --steps 1 --checkpoint_every 1`, then `--steps 2
-     --resume`, twice over, then `-m dan_tpu_torch.eval` on 4 images of
+     --resume`, three times over, then `-m dan_tpu_torch.eval` on 4 images of
      the fixture with TTA and with --no_tta: every launch exits 0 and
      prints the seconds it took, the train log holds steps [1, 2], the
      eval CLI prints its AP line, and when the rank's interpreter starts to
@@ -374,7 +374,6 @@ from dan_tpu_torch.ops import (
     _cuda_build,
     bbox_vote_cuda,
     conv12_wgrad_cuda,
-    conv12_wgrad_f32_cuda,
     conv_i8_cuda,
     matching_cuda,
     quantize_i8_cuda,
@@ -394,7 +393,6 @@ from dan_tpu_torch.tools import smoke_e2e
 from dan_tpu_torch.ops.bbox_vote import bbox_vote_batched
 from dan_tpu_torch.ops.preprocess import sample_augment_batch, train_preprocess
 from dan_tpu_torch.train import __main__ as train_cli
-from dan_tpu_torch.train import loop as train_loop
 from dan_tpu_torch.train.loop import (
     create_train_state,
     loss_and_grads,
@@ -420,9 +418,9 @@ TRAIN_KERNELS = {  # module, source, the TPU kernel it replaces
                 "dan_tpu/ops/matching_pallas.py:87,208"),
     "phase_pool_bwd": (phase_pool_cuda, "phase_pool",
                        "dan_tpu/ops/phase_pool_pallas.py:60"),
-    "conv12_wgrad": (conv12_wgrad_cuda, "conv12_wgrad",
+    "conv12_wgrad": (conv12_wgrad_cuda.BF16, "conv12_wgrad",
                      "dan_tpu/ops/conv12_wgrad_pallas.py:51"),
-    "conv12_wgrad_f32": (conv12_wgrad_f32_cuda, "conv12_wgrad_f32",
+    "conv12_wgrad_f32": (conv12_wgrad_cuda.F32, "conv12_wgrad_f32",
                          "dan_tpu/ops/conv12_wgrad_pallas.py:51 (float32 operands)"),
     "upsample2x_bwd": (upsample_cuda, "upsample2x_bwd",
                        "dan_tpu/models/layers.py:105 (no TPU kernel: XLA's transpose of "
@@ -446,11 +444,11 @@ PER_STEP_F32 = dict(PER_STEP, conv12_wgrad=0, conv12_wgrad_f32=1)
 # and to 1e-4 of the plain version.
 WGRAD_RTOL = {torch.bfloat16: 1e-4, torch.float32: 1e-4}
 WGRAD_F64_RTOL = 1e-5
-# The float32 train phase (10f): batch, steps a run, and the image sizes of
-# the steps held against the CPU (the CPU parity test's 64 px, and 128).
+# The float32 train phase (10f): batch, steps a run, and the image size of
+# the step held against the CPU (the CPU parity test's).
 F32_BATCH = 8
 F32_STEPS = 4
-F32_CPU_SIZES = (64, 128)
+F32_CPU_SIZE = 64
 # The upsample gradients of one train step at batch 32, 640x640: g of the
 # fc7 -> conv5_3, conv5_3 -> conv4_3 and conv4_3 -> conv3_3 blocks.
 UPSAMPLE_SHAPES = ((TRAIN_BATCH, 512, 40, 40), (TRAIN_BATCH, 512, 80, 80),
@@ -1279,14 +1277,15 @@ def compare_wgrad(o1, dr, what) -> float:
     <= WGRAD_RTOL[dtype], two runs bit-identical and every value finite, or
     raise; a float32 kernel also within WGRAD_F64_RTOL of wgrad_f64.
     Returns max |kernel - plain|."""
-    mod = conv12_wgrad_f32_cuda if o1.dtype == torch.float32 else conv12_wgrad_cuda
-    before = (conv12_wgrad_cuda.LAUNCHES, conv12_wgrad_f32_cuda.LAUNCHES)
+    bf16, f32 = conv12_wgrad_cuda.BF16, conv12_wgrad_cuda.F32
+    mod = conv12_wgrad_cuda.KERNELS[o1.dtype]
+    before = (bf16.LAUNCHES, f32.LAUNCHES)
     k_a = conv12_wgrad_cuda.conv12_wgrad(o1, dr)
     plan = mod.LAST_TILING
     k_b = conv12_wgrad_cuda.conv12_wgrad(o1, dr)
     plain = conv12_wgrad_cuda.conv12_wgrad_plain(o1, dr)
     torch.cuda.synchronize()
-    launched = (conv12_wgrad_cuda.LAUNCHES - before[0], conv12_wgrad_f32_cuda.LAUNCHES - before[1])
+    launched = (bf16.LAUNCHES - before[0], f32.LAUNCHES - before[1])
     e_w = rel_l2(k_a, plain)
     e_abs = float((k_a - plain).abs().max())
     same = same_bits(k_a, k_b)
@@ -1304,7 +1303,7 @@ def compare_wgrad(o1, dr, what) -> float:
         f"{limit:g}), max |diff| {e_abs:.3e}{oracle}; two runs bit-identical: {same}; "
         f"{plan.partials} partials of {plan.segs_per_range} segments of {plan.seg} pixels, a "
         f"chain ends every {plan.flush_segs * plan.seg} pixels")
-    want = (2, 0) if mod is conv12_wgrad_cuda else (0, 2)
+    want = (2, 0) if mod is bf16 else (0, 2)
     if launched != want:
         raise AssertionError(f"conv12 wgrad on {o1.dtype}: (bf16, float32) kernel launches "
                              f"{launched}, not {want}")
@@ -1617,12 +1616,35 @@ def f32_config(cfg, **preprocess):
         train=dataclasses.replace(cfg.train, batch_size=F32_BATCH))
 
 
+def tf32_and_deterministic():
+    return (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.deterministic)
+
+
+@contextlib.contextmanager
+def tf32_allowed():
+    """TF32 allowed for cuDNN's convolutions and for matmuls, cuDNN free to
+    choose its algorithms, while inside (the script's flags restored
+    after): what a caller of the train step may have set."""
+    keep = tf32_and_deterministic()
+    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.deterministic) = True, True, False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = keep
+
+
 def f32_run(cfg, dev, batch):
     """F32_STEPS train_step calls on one batch from create_train_state(SEED),
     every train kernel counted (0 just before, read just after) -> (losses,
     the last step's metrics, the state payload, launches, host ms a step,
-    synchronised)."""
+    synchronised, the (TF32 for convolutions, TF32 for matmuls, cuDNN
+    deterministic) flags each forward of the model ran under)."""
     state = create_train_state(cfg, SEED, dev)
+    flags = []
+    state.model.register_forward_hook(lambda *_: flags.append(tf32_and_deterministic()))
     for mod, _, _ in TRAIN_KERNELS.values():
         mod.LAUNCHES = 0
     losses, ms = [], []
@@ -1635,7 +1657,7 @@ def f32_run(cfg, dev, batch):
         losses.append(float(m["loss"]))
     launches = {name: mod.LAUNCHES for name, (mod, _, _) in TRAIN_KERNELS.items()}
     return (losses, {k: float(v) for k, v in m.items()}, ckpt.state_payload(state), launches,
-            ms)
+            ms, flags)
 
 
 @contextlib.contextmanager
@@ -1650,30 +1672,24 @@ def plain_cpu_conv():
         torch.backends.mkldnn.enabled = prev
 
 
-def f32_card_vs_cpu(cfg, dev, smi, size):
-    """One float32 train_step at size x size (canvas 2 x size, the CPU parity
-    test's irregular crop scaled) on the card and on the CPU from
-    create_train_state(SEED) on one batch: the loss within 1e-4 relative,
-    num_pos and the selected negatives equal, every parameter within rtol
-    1e-4 / atol 1e-6 (tests/test_torch_train_step.py's tolerance).  The
-    momentum (the first step's gradient) is held as that test holds it,
-    each element within rtol 1e-4 + atol 2e-4 of its tensor's largest, at
-    the test's own 64 px; at larger sizes near-ties in the max pools and
-    relus (recorded in ROADMAP.md) move a few hundred gradients of a tensor by
-    more, so there the whole momentum is held to relative L2 1e-3 and the
-    elements outside the test's tolerance are printed."""
+def f32_card_vs_cpu(cfg, dev, smi):
+    """One float32 train_step at F32_CPU_SIZE px (canvas twice that, the CPU
+    parity test's irregular crop) on the card, TF32 allowed by the caller,
+    and on the CPU from create_train_state(SEED) on one batch: the loss
+    within 1e-4 relative, num_pos and the selected negatives equal, every
+    parameter within rtol 1e-4 / atol 1e-6 and every momentum element (the
+    step's gradient) within rtol 1e-4 + atol 2e-4 of its tensor's largest
+    (tests/test_torch_train_step.py's tolerances)."""
+    size = F32_CPU_SIZE
     scfg = f32_config(cfg, train_image_size=size, canvas_size=2 * size)
     batch = synthetic_batch(scfg, F32_BATCH, seed=SEED)
-    # An irregular crop window, as the CPU parity test's (7 and 111 of a
-    # 128-pixel canvas): a 2:1 crop of the 4x-upsampled noise canvas makes
-    # constant 2x2 blocks whose max-pool windows tie exactly.
-    batch["crop_x0"][:] = 7.0 * size / 64
-    batch["crop_size"][:] = 111.0 * size / 64
+    batch["crop_x0"][:] = 7.0
+    batch["crop_size"][:] = 111.0
     out = {}
     for where in ("cpu", dev):
         state = create_train_state(scfg, SEED, where)
         t0 = time.perf_counter()
-        with plain_cpu_conv():
+        with plain_cpu_conv(), tf32_allowed():
             m = train_step(state, batch)
         metrics = {k: float(v) for k, v in m.items()}
         params = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
@@ -1682,65 +1698,57 @@ def f32_card_vs_cpu(cfg, dev, smi, size):
     (mc, pc, vc, sc), (mg, pg, vg, sg) = out["cpu"], out[str(dev)]
     loss_rel = abs(mg["loss"] - mc["loss"]) / abs(mc["loss"])
     params_ok = all(bool(((pg[n] - pc[n]).abs() <= 1e-4 * pc[n].abs() + 1e-6).all()) for n in pc)
-    worst, outside, total = 0.0, 0, 0
+    worst, worst_name = 0.0, None
     for n, want in vc.items():
         diff = (vg[n] - want).abs()
-        top = want.abs().max().clamp_min(1e-30)
-        worst = max(worst, float((diff - 1e-4 * want.abs()).max() / top))
-        outside += int((diff > 1e-4 * want.abs() + 2e-4 * top).sum())
-        total += want.numel()
-    mom_l2 = math.sqrt(sum(float((vg[n] - vc[n]).double().square().sum()) for n in vc)
-                       / sum(float(v.double().square().sum()) for v in vc.values()))
-    mom_ok = worst <= 2e-4 if size == 64 else mom_l2 <= 1e-3
-    log(f"phase 10f: one float32 step at {size}x{size}, batch {F32_BATCH}, card against CPU "
-        f"(oneDNN off; {sg:.1f} s and {sc:.1f} s on the host clock): loss {mg['loss']!r} / "
-        f"{mc['loss']!r} (rel {loss_rel:.3e}, limit 1e-4); num_pos {mg['num_pos']:g} / "
-        f"{mc['num_pos']:g}, selected negatives {mg['num_neg_selected']:g} / "
-        f"{mc['num_neg_selected']:g}; parameters within rtol 1e-4 / atol 1e-6: {params_ok}; "
-        f"momentum: worst element {worst:.3e} of its tensor's largest beyond rtol 1e-4, "
-        f"{outside} of {total} elements outside atol 2e-4 of it"
-        + (" (limit 2e-4)" if size == 64 else "") + f", relative L2 {mom_l2:.3e}"
-        + ("" if size == 64 else " (limit 1e-3)") + f" ({smi})")
+        e = float((diff - 1e-4 * want.abs()).max() / want.abs().max().clamp_min(1e-30))
+        if e > worst:
+            worst, worst_name = e, n
+    log(f"phase 10f: one float32 step at {size}x{size}, batch {F32_BATCH}, card (TF32 allowed "
+        f"by the caller) against CPU (oneDNN off; {sg:.1f} s and {sc:.1f} s on the host clock): "
+        f"loss {mg['loss']!r} / {mc['loss']!r} (rel {loss_rel:.3e}, limit 1e-4); num_pos "
+        f"{mg['num_pos']:g} / {mc['num_pos']:g}, selected negatives {mg['num_neg_selected']:g} "
+        f"/ {mc['num_neg_selected']:g}; parameters within rtol 1e-4 / atol 1e-6: {params_ok}; "
+        f"momentum: worst element {worst:.3e} of its tensor's largest beyond rtol 1e-4, in "
+        f"{worst_name} (limit 2e-4) ({smi})")
     if not (loss_rel <= 1e-4 and mg["num_pos"] == mc["num_pos"] > 0
-            and mg["num_neg_selected"] == mc["num_neg_selected"] and params_ok and mom_ok):
+            and mg["num_neg_selected"] == mc["num_neg_selected"] and params_ok
+            and worst <= 2e-4):
         raise AssertionError(f"phase 10f: the float32 step at {size} px on the card differs "
                              "from the CPU's")
 
 
 def phase10f(cfg, dev, smi):
     """The float32 train step on the card, at full width (640x640) and batch
-    F32_BATCH: two runs of F32_STEPS steps on one batch from
-    create_train_state(SEED); the loss falls, the runs are bit-identical,
-    and each step launches K6's float32 kernel once and its bf16 kernel
-    never.  Then f32_card_vs_cpu.  Returns the float32 kernel's launches."""
+    F32_BATCH, with TF32 allowed by the caller: two runs of F32_STEPS steps
+    on one batch from create_train_state(SEED); every forward runs with
+    TF32 off and cuDNN deterministic, the loss falls, the runs are
+    bit-identical, and each step launches K6's float32 kernel once and its
+    bf16 kernel never.  Then f32_card_vs_cpu.  Returns the float32
+    kernel's launches."""
     fcfg = f32_config(cfg)
     batch = synthetic_batch(fcfg, F32_BATCH, seed=SEED)
     t0 = time.perf_counter()
-    (losses, m, st, launches, ms), (losses_b, m_b, st_b, launches_b, ms_b) = (
-        f32_run(fcfg, dev, batch) for _ in range(2))
+    with tf32_allowed():
+        (losses, m, st, launches, ms, flags), (losses_b, m_b, st_b, launches_b, ms_b, flags_b) = (
+            f32_run(fcfg, dev, batch) for _ in range(2))
     params = differing(st_b["model"], st["model"])
     moms = differing(st_b["momentum"], st["momentum"])
-    # The same two runs without cuDNN's deterministic mode, which
-    # loss_and_grads sets for a float32 model: what the mode buys and costs.
-    keep = train_loop._deterministic_convs
-    train_loop._deterministic_convs = lambda on: contextlib.nullcontext()
-    try:
-        free = [f32_run(fcfg, dev, batch) for _ in range(2)]
-    finally:
-        train_loop._deterministic_convs = keep
-    free_diff = len(differing(free[1][2]["model"], free[0][2]["model"]))
-    log(f"phase 10f: without cuDNN's deterministic mode: {free_diff} of {len(st['model'])} "
-        f"parameter tensors differ between two runs; ms a step "
-        f"{[round(x, 3) for x in free[1][4]]} against {[round(x, 3) for x in ms_b]} with it")
-    log(f"phase 10f: {F32_STEPS} float32 steps on one batch ({F32_BATCH}x640x640, TF32 off, "
-        f"warm-up 50, clip 10), twice from create_train_state({SEED}) "
-        f"({time.perf_counter() - t0:.1f} s): loss {' '.join(f'{x:.5f}' for x in losses)}; "
+    exact = set(flags + flags_b) == {(False, False, True)}
+    log(f"phase 10f: {F32_STEPS} float32 steps on one batch ({F32_BATCH}x640x640, warm-up 50, "
+        f"clip 10), twice from create_train_state({SEED}), TF32 allowed by the caller; the "
+        f"forwards ran under (TF32 convolutions, TF32 matmuls, cuDNN deterministic) "
+        f"{sorted(set(flags + flags_b))} ({time.perf_counter() - t0:.1f} s): loss "
+        f"{' '.join(f'{x:.5f}' for x in losses)}; "
         f"ms a step (host clock, synchronised) {[round(x, 3) for x in ms]} then "
         f"{[round(x, 3) for x in ms_b]} = {np.mean(ms_b[1:]):.3f} ms = "
         f"{F32_BATCH / np.mean(ms_b[1:]) * 1e3:.1f} img/s warm ({smi}); the second run: "
         f"{len(params)} parameter and {len(moms)} momentum tensors differ, metrics "
         f"{'identical' if (losses_b, m_b) == (losses, m) else 'differ'}; launches {launches}")
     want = {name: PER_STEP_F32[name] * F32_STEPS for name in TRAIN_NAMES}
+    if not exact or len(flags) != F32_STEPS:
+        raise AssertionError("phase 10f: the float32 step's forward did not run with TF32 off "
+                             f"and cuDNN deterministic: {flags}")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError("phase 10f: the float32 loss did not fall")
     if launches != want or launches_b != want:
@@ -1748,8 +1756,7 @@ def phase10f(cfg, dev, smi):
     if params or moms or (losses_b, m_b) != (losses, m):
         raise AssertionError(f"phase 10f: two float32 runs differ ({(params + moms)[:4]})")
     del st, st_b
-    for size in F32_CPU_SIZES:
-        f32_card_vs_cpu(cfg, dev, smi, size)
+    f32_card_vs_cpu(cfg, dev, smi)
     return 2 * launches["conv12_wgrad_f32"]
 
 
@@ -1985,8 +1992,8 @@ def phase11(cases, smi):
         log(f"  bound {name}: {ms_b:.4f} ms by {by}")
     conv12_wgrad_cuda.conv12_wgrad(o1, dr)
     conv12_wgrad_cuda.conv12_wgrad(o1f, drf)
-    bounds["conv12_wgrad tiling"] = conv12_wgrad_cuda.LAST_TILING
-    bounds["conv12_wgrad_f32 tiling"] = conv12_wgrad_f32_cuda.LAST_TILING
+    bounds["conv12_wgrad tiling"] = conv12_wgrad_cuda.BF16.LAST_TILING
+    bounds["conv12_wgrad_f32 tiling"] = conv12_wgrad_cuda.F32.LAST_TILING
     return out, bounds
 
 
@@ -2824,7 +2831,7 @@ def check_tta_ranks(check, ranks, ref, items, runner, label):
 # Phase 15d: the train CLI under torchrun, launched in pairs (one step with a
 # checkpoint, then one more resumed from it), TEARDOWN_ROUNDS times; then the
 # eval CLI, with TTA and without, on EVAL_LIMIT images of the fixture.
-TEARDOWN_ROUNDS = 2
+TEARDOWN_ROUNDS = 3
 EVAL_LIMIT = 4
 # A sitecustomize for the torchrun workers: when the interpreter starts to
 # shut down (threading's exit hooks run before it joins the non-daemon
@@ -4025,7 +4032,7 @@ def phase19(cfg, dev, smi, d):
 REPO = os.path.dirname(os.path.abspath(__file__))
 COUNTERS = {"nms": nms_cuda, "vote": bbox_vote_cuda, "blocked": nms_blocked_cuda,
             "matcher": matching_cuda, "phase_pool_bwd": phase_pool_cuda,
-            "conv12_wgrad": conv12_wgrad_cuda, "conv12_wgrad_f32": conv12_wgrad_f32_cuda,
+            "conv12_wgrad": conv12_wgrad_cuda.BF16, "conv12_wgrad_f32": conv12_wgrad_cuda.F32,
             "conv_i8": conv_i8_cuda,
             "quantize_i8": quantize_i8_cuda, "upsample2x_bwd": upsample_cuda}
 TOOLS_STEPS = 3  # train CLI steps of phase 20b

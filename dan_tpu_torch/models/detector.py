@@ -5,7 +5,9 @@
     cls_logits, loc_preds = model(images)   # (B, H, W, 3) mean-subtracted
 
 Compute runs in config.compute_dtype (bf16 by default) with float32
-parameters; the logits come out in float32.  The public layout is the JAX
+parameters; the logits come out in float32.  A float32 model's forward
+runs in float32 arithmetic whatever the caller set: no TF32
+(device.float32_arithmetic).  The public layout is the JAX
 package's: NHWC images in, (B, A, 2) and (B, A, 4) out.
 """
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from torch import nn
 
 from dan_tpu_torch.config import ModelConfig
+from dan_tpu_torch.device import float32_arithmetic
 from dan_tpu_torch.models.heads import Heads
 from dan_tpu_torch.models.layers import L2Norm
 from dan_tpu_torch.models.lfpn import LFPN
@@ -46,8 +49,9 @@ class DANDetector(nn.Module):
 
     def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, H, W, 3) float -> (cls_logits (B, A, 2) f32, loc_preds (B, A, 4) f32)."""
-        x = images.to(compute_dtype(self.config)).permute(0, 3, 1, 2)
-        taps = self.lfpn(self.backbone(x))
-        for name, norm in self.l2norm.items():
-            taps[name] = norm(taps[name])
-        return self.heads(taps)
+        with float32_arithmetic(self.config.compute_dtype == "float32"):
+            x = images.to(compute_dtype(self.config)).permute(0, 3, 1, 2)
+            taps = self.lfpn(self.backbone(x))
+            for name, norm in self.l2norm.items():
+                taps[name] = norm(taps[name])
+            return self.heads(taps)

@@ -1,7 +1,6 @@
 """Weight gradient of the packed conv1_2': the CUDA kernels
 (csrc/conv12_wgrad.cu for bf16 operands, csrc/conv12_wgrad_f32.cu for
-float32 ones, through ops/conv12_wgrad_f32_cuda.py) and their plain
-PyTorch version.
+float32 ones) and their plain PyTorch version.
 
     dk2 = conv12_wgrad(o1_pre (B, H, W, CI), dr (B, H+1, W+1, CO))
         -> (CO, CI, 2, 2) float32
@@ -18,43 +17,30 @@ A CPU tensor goes through `conv12_wgrad_plain`; a CUDA tensor launches the
 kernel of its dtype (built on first use by ops/_cuda_build.py) or raises:
 bf16 and float32 are taken, nothing else.
 
-The bf16 kernel (TMA loads, wgmma, one producer warp and two consumer
-warpgroups) gives a block 128 rows of dW -- one tap, 128 input channels --
-by 256 output channels and a contiguous range of the pixels of o1, cut into
-segments of 64 along x.  The float32 kernel (FFMA, cp.async) shares the
-pixels out the same way, in segments of its own length (`plan`).  `tiling`
-computes the bf16 kernel's ranges; the launch uses it and the CPU tests can
-call it.
+Both kernels give a block 128 rows of dW -- one tap, 128 input channels --
+by TILE_N output channels and a contiguous range of the pixels of o1, cut
+into segments along x.  The bf16 kernel (TMA loads, wgmma, one producer
+warp and two consumer warpgroups) takes 256 output channels and segments
+of 64 pixels, one block an SM; the float32 kernel (register-blocked FFMA,
+cp.async; wgmma has no float32 operands) 128 and 16, two blocks an SM.  A
+block ends an accumulation chain every FLUSH_PIXELS pixels (its registers
+go into its float32 partial by plain adds and start again from zero), and
+the partials are summed in range order: two runs give the same bits.
+`BF16.tiling` and `F32.tiling` compute the ranges; the launch uses them
+and the CPU tests can call them.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from dan_tpu_torch.ops import _cuda_build
 
-SOURCE = "conv12_wgrad"
-TILE_M = 128  # rows of dW a block owns: CI must be a multiple of it
-TILE_N = 256  # columns of dW a block owns: CO must be a multiple of it
-SEGMENT = 64  # pixels of one row of o1 a pipeline stage holds
-# The error of a tensor-core accumulation grows with the length of the
-# chain: measured on the H100 against a float64 reference, chains of 8.6k
-# pixels were 7.6e-6 (rel. L2), 17k 1.6e-5, 26k 2.6e-5, 69k 7.2e-5.  A block
-# walks far more (about 200k at batch 32), so it ends a chain every
-# FLUSH_PIXELS pixels: its registers go into its float32 partial by plain
-# adds and start again from zero.
-FLUSH_PIXELS = 16384
 _SMS = 132  # an H100's; `tiling` takes the card's own count from the launch
-
-# Launches of the bf16 kernel since the last reset (set to 0 to reset); the
-# float32 kernel counts its own (conv12_wgrad_f32_cuda.LAUNCHES).
-LAUNCHES = 0
-# The tiling of the bf16 kernel's last launch.
-LAST_TILING = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,18 +93,50 @@ def plan(b: int, h: int, w: int, seg: int, tiles: int, slots: int, flush_pixels:
     return Tiling(b, h, w, seg, segs_x, total, -(-total // per), per, flush_pixels // seg)
 
 
-def tiling(b: int, h: int, w: int, ci: int, co: int, sms: int = _SMS) -> Tiling:
-    """The bf16 kernel's: one block an SM, the 4*ci/128 x co/256 tiles of dW."""
-    return plan(b, h, w, SEGMENT, (4 * ci // TILE_M) * (co // TILE_N), sms, FLUSH_PIXELS)
+@dataclasses.dataclass
+class Kernel:
+    """One of the two kernels: its source, its tile of dW, its segment, the
+    blocks an SM holds and the longest accumulation chain; and its launches
+    since the last reset (set LAUNCHES to 0 to reset) with the tiling of
+    its last launch.  The fields are named as the kernel modules name
+    theirs, so that launch counters read a Kernel as they read a module."""
+
+    SOURCE: str
+    TILE_M: int  # rows of dW a block owns: CI must be a multiple of it
+    TILE_N: int  # columns of dW a block owns: CO must be a multiple of it
+    SEGMENT: int  # pixels of one row of o1 a pipeline stage holds
+    BLOCKS_PER_SM: int
+    FLUSH_PIXELS: int
+    LAUNCHES: int = 0
+    LAST_TILING: Optional[Tiling] = None
+
+    def tiling(self, b: int, h: int, w: int, ci: int, co: int, sms: int = _SMS) -> Tiling:
+        """BLOCKS_PER_SM blocks an SM: the 4*ci/TILE_M x co/TILE_N tiles of
+        dW times as many pixel ranges as fit, no range empty."""
+        tiles = (4 * ci // self.TILE_M) * (co // self.TILE_N)
+        return plan(b, h, w, self.SEGMENT, tiles, self.BLOCKS_PER_SM * sms, self.FLUSH_PIXELS)
+
+    def build(self):
+        """The kernel's C launch function, its library built on first use."""
+        fn = getattr(_cuda_build.load(self.SOURCE), f"{self.SOURCE}_launch")
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        return fn
 
 
-def build() -> ctypes.CDLL:
-    lib = _cuda_build.load(SOURCE)
-    lib.conv12_wgrad_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p
-    ]
-    lib.conv12_wgrad_launch.restype = ctypes.c_int
-    return lib
+# The error of a tensor-core accumulation grows with the length of the
+# chain: measured on the H100 against a float64 reference, chains of 8.6k
+# pixels were 7.6e-6 (rel. L2), 17k 1.6e-5, 26k 2.6e-5, 69k 7.2e-5.  A block
+# walks far more (about 200k at batch 32), so it flushes every 16,384.
+BF16 = Kernel("conv12_wgrad", TILE_M=128, TILE_N=256, SEGMENT=64, BLOCKS_PER_SM=1,
+              FLUSH_PIXELS=16384)
+# The rounding error of a chain of n float32 products grows about as
+# sqrt(n), and 4,096 keeps it well under the 1e-5 relative L2 that the
+# kernel is held to against a float64 reference.  Two blocks an SM: 48 KB
+# of shared memory and at most 128 registers a thread.
+F32 = Kernel("conv12_wgrad_f32", TILE_M=128, TILE_N=128, SEGMENT=16, BLOCKS_PER_SM=2,
+             FLUSH_PIXELS=4096)
+KERNELS = {torch.bfloat16: BF16, torch.float32: F32}
 
 
 def _check(o1_pre: torch.Tensor, dr: torch.Tensor) -> None:
@@ -148,15 +166,16 @@ def conv12_wgrad(o1_pre: torch.Tensor, dr: torch.Tensor) -> torch.Tensor:
 def kernel_takes(o1_pre: torch.Tensor, dr: torch.Tensor) -> None:
     """Raise on what the kernels do not take (beyond `_check`): anything but
     contiguous, 16-byte aligned bf16 or float32 NHWC operands with CI a
-    multiple of 128 and CO of 256."""
-    if o1_pre.dtype not in (torch.bfloat16, torch.float32):
+    multiple of 128 and CO of 256 (the bf16 kernel's tile, which the
+    float32 kernel's divides)."""
+    if o1_pre.dtype not in KERNELS:
         raise TypeError(f"the wgrad kernels take bf16 or float32 operands, got {o1_pre.dtype}")
     if not (o1_pre.is_contiguous() and dr.is_contiguous()):
         raise ValueError("the wgrad kernel takes contiguous NHWC o1_pre and dr")
     ci, co = o1_pre.shape[-1], dr.shape[-1]
-    if ci % TILE_M or co % TILE_N:
-        raise ValueError(
-            f"the wgrad kernel needs CI a multiple of {TILE_M} and CO of {TILE_N}: {ci}, {co}")
+    if ci % BF16.TILE_M or co % BF16.TILE_N:
+        raise ValueError(f"the wgrad kernel needs CI a multiple of {BF16.TILE_M} and CO of "
+                         f"{BF16.TILE_N}: {ci}, {co}")
     if min(o1_pre.shape[:3]) < 1:
         raise ValueError(f"the wgrad kernel needs a non-empty o1_pre, got {tuple(o1_pre.shape)}")
     if o1_pre.data_ptr() % 16 or dr.data_ptr() % 16:
@@ -164,32 +183,28 @@ def kernel_takes(o1_pre: torch.Tensor, dr: torch.Tensor) -> None:
 
 
 def _launch(o1_pre: torch.Tensor, dr: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES, LAST_TILING
     if o1_pre.device.type != "cuda":
         raise ValueError(f"the wgrad kernel takes CUDA tensors, got {o1_pre.device}")
     kernel_takes(o1_pre, dr)
-    if o1_pre.dtype == torch.float32:
-        from dan_tpu_torch.ops import conv12_wgrad_f32_cuda
-
-        return conv12_wgrad_f32_cuda.launch(o1_pre, dr)
+    kernel = KERNELS[o1_pre.dtype]
     b, h, w, ci = o1_pre.shape
     co = dr.shape[-1]
     sms = torch.cuda.get_device_properties(dr.device).multi_processor_count
-    plan = tiling(b, h, w, ci, co, sms)
+    plan = kernel.tiling(b, h, w, ci, co, sms)
     if plan.total_segs >= 2**31:
         raise ValueError(f"{plan.total_segs} segments exceed the kernel's 32-bit index")
-    lib = build()
+    launch = kernel.build()
     partial = torch.empty((plan.partials, 4 * ci, co), dtype=torch.float32, device=dr.device)
     out = torch.empty((co, ci, 2, 2), dtype=torch.float32, device=dr.device)
     with torch.cuda.device(dr.device):
-        err = lib.conv12_wgrad_launch(
+        err = launch(
             o1_pre.data_ptr(), dr.data_ptr(), partial.data_ptr(), out.data_ptr(),
             b, h, w, ci, co, plan.ranges, plan.segs_per_range, plan.flush_segs,
             _cuda_build.stream_of(dr),
         )
-    _cuda_build.check(err, "conv12_wgrad_launch")
-    LAUNCHES += 1
-    LAST_TILING = plan
+    _cuda_build.check(err, f"{kernel.SOURCE}_launch")
+    kernel.LAUNCHES += 1
+    kernel.LAST_TILING = plan
     return out
 
 

@@ -57,7 +57,6 @@ from dan_tpu_torch.models.detector import DANDetector
 from dan_tpu_torch.ops import (
     bbox_vote_cuda,
     conv12_wgrad_cuda,
-    conv12_wgrad_f32_cuda,
     matching_cuda,
     nms_cuda,
     phase_pool_cuda,
@@ -75,8 +74,8 @@ from dan_tpu_torch.train.loss import class_ce, hard_negatives
 KERNEL_COUNTERS = {
     "matcher": matching_cuda,
     "phase_pool_bwd": phase_pool_cuda,
-    "conv12_wgrad": conv12_wgrad_cuda,
-    "conv12_wgrad_f32": conv12_wgrad_f32_cuda,
+    "conv12_wgrad": conv12_wgrad_cuda.BF16,
+    "conv12_wgrad_f32": conv12_wgrad_cuda.F32,
     "upsample2x_bwd": upsample_cuda,
     "nms": nms_cuda,
     "bbox_vote": bbox_vote_cuda,

@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from dan_tpu_torch.config import DANConfig
-from dan_tpu_torch.device import resolve_device
+from dan_tpu_torch.device import float32_arithmetic, resolve_device
 from dan_tpu_torch.box.anchors import generate_anchors
 from dan_tpu_torch.box.matching import MatchTargets, match_anchors_batch
 from dan_tpu_torch.models.detector import DANDetector
@@ -146,13 +146,13 @@ def loss_and_grads(
     total_pos: the global batch's positives when these are one rank's rows
     (train/loss.py::detection_loss).
 
-    A float32 model runs under cuDNN's deterministic mode: on an H100,
-    cuDNN's default choices for the float32 backward with TF32 off made two
-    runs from one seed differ (chip_smoke.py phase 10f prints by how much),
-    while its bf16 choices are deterministic; so the step trains one model
-    a seed in either dtype."""
+    A float32 model runs in float32 arithmetic (device.float32_arithmetic:
+    no TF32) and under cuDNN's deterministic mode: on an H100 cuDNN's
+    default choices for the float32 backward with TF32 off made two runs
+    from one seed differ, while its bf16 choices are deterministic, so the
+    step trains one model a seed in either dtype."""
     named = dict(state.model.named_parameters())
-    with _deterministic_convs(state.config.model.compute_dtype == "float32"):
+    with _float32_step(state):
         cls_logits, loc_preds = state.model(images)
         loss, metrics = detection_loss(
             cls_logits, loc_preds, targets.cls_target, targets.loc_target, state.config.train,
@@ -162,19 +162,9 @@ def loss_and_grads(
     return dict(zip(named, grads)), metrics
 
 
-@contextlib.contextmanager
-def _deterministic_convs(on: bool) -> Iterator[None]:
-    """cudnn.deterministic set to True while the block runs when `on` (the
-    other cuDNN flags as they are), restored after it."""
-    if not on:
-        yield
-        return
-    prev = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = prev
+def _float32_step(state: TrainState):
+    return float32_arithmetic(state.config.model.compute_dtype == "float32",
+                              deterministic=True)
 
 
 def _all_finite(out) -> bool:
@@ -271,7 +261,10 @@ def train_step(
     debug_nans: raise FloatingPointError before the update at the first
     non-finite module output, loss or gradient (see the module's
     docstring)."""
-    images, targets = preprocess_and_match(batch, state.config, state.device, draws)
+    # A float32 model's preprocessing (its resize is two matrix products)
+    # runs in float32 arithmetic too, as loss_and_grads does.
+    with _float32_step(state):
+        images, targets = preprocess_and_match(batch, state.config, state.device, draws)
     total_pos = None
     if mesh is not None:
         total_pos = all_reduce_sum((targets.cls_target == 1).sum(), mesh)

@@ -114,6 +114,29 @@ def nan_rank(rank, world_size, init_method, cfg, model_dir):
         return None
 
 
+def tf32_legs_rank(rank, world_size, init_method, model_dir):
+    """dryrun_multichip's three legs on a rank whose caller let TF32 run
+    everywhere, with the preprocessing and the loss of every train step
+    recorded: (the rank's report, the TF32 and cuDNN deterministic flags
+    each of them ran under)."""
+    from dan_tpu_torch.train import loop
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    seen = []
+
+    def spy(fn):
+        def call(*args, **kwargs):
+            seen.append((fn.__name__, torch.backends.cudnn.allow_tf32,
+                         torch.backends.cuda.matmul.allow_tf32,
+                         torch.backends.cudnn.deterministic))
+            return fn(*args, **kwargs)
+        return call
+
+    loop.preprocess_and_match = spy(loop.preprocess_and_match)
+    loop.detection_loss = spy(loop.detection_loss)
+    return dry.legs_rank(rank, world_size, init_method, "cpu", None, model_dir), seen
+
+
 def hang_rank(rank, world_size, init_method):
     """Rank 1 sleeps; rank 0 waits for it in an all-reduce."""
     _mesh(rank, world_size, init_method, timeout=300)
@@ -278,6 +301,20 @@ def test_dryrun_multichip_three_legs(capsys):
     assert r0["tta_stats"]["images"] == 4
     # On the CPU no kernel launches: every wrapper takes its plain version.
     assert r0["launches"] == r1["launches"] == dict.fromkeys(dry.KERNEL_COUNTERS, 0)
+
+
+def test_dryrun_ranks_train_in_float32_arithmetic(tmp_path):
+    """The dry run's ranks start with PyTorch's defaults, which let cuDNN
+    use TF32, and here matmuls too: each of the legs' three train steps
+    runs its preprocessing and its loss (and so its forward and backward)
+    with TF32 off and cuDNN deterministic, as train_step sets them for the
+    float32 model."""
+    (report, seen), = spawn(tf32_legs_rank, 1, (str(tmp_path / "ckpt"),), timeout=TIMEOUT,
+                            workdir=str(tmp_path))
+    assert dry.tiny_config(1).model.compute_dtype == "float32"
+    assert seen == [("preprocess_and_match", False, False, True),
+                    ("detection_loss", False, False, True)] * 3
+    assert report["continuity"][2] == 0.0
 
 
 # -- queue-3 repairs: the pipeline's start step, the max_pending default ----------

@@ -149,25 +149,67 @@ def test_save_restore_resume_is_bit_identical(tmp_path):
         assert torch.equal(straight.momentum[name], resumed.momentum[name]), name
 
 
-@pytest.mark.parametrize("dtype,want", [("float32", True), ("bfloat16", False)])
+def _tf32_and_deterministic():
+    return (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.deterministic)
+
+
+def _set_tf32_and_deterministic(flags):
+    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.deterministic) = flags
+
+
+@pytest.mark.parametrize("dtype,want", [("float32", (False, False, True)),
+                                        ("bfloat16", None)])
 def test_float32_step_runs_cudnn_deterministic(dtype, want):
-    """loss_and_grads runs a float32 model's forward and backward under
-    cuDNN's deterministic mode (its default float32 choices on a card add
-    atomically), leaves a bf16 model's flags as they are, and restores the
-    flag after the step."""
+    """loss_and_grads runs a float32 model's forward and backward with TF32
+    off for convolutions and matmuls (PyTorch's default lets cuDNN use it)
+    and under cuDNN's deterministic mode (its default float32 choices on a
+    card add atomically), whatever the caller set; it leaves a bf16 model's
+    flags as they are, and restores the flags after the step."""
     cfg = tiny_config()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype=dtype))
     state = create_train_state(from_reference(cfg), seed=0, device="cpu")
     seen = []
-    record = lambda *_: seen.append(torch.backends.cudnn.deterministic)  # noqa: E731
+    record = lambda *_: seen.append(_tf32_and_deterministic())  # noqa: E731
     state.model.register_forward_hook(record)
     state.model.register_full_backward_hook(record)
     images, targets = preprocess_and_match(synthetic_batch(cfg, 2, seed=0), state.config, "cpu")
-    before = torch.backends.cudnn.deterministic
-    grads, metrics = loss_and_grads(state, images, targets)
-    assert seen == [want or before] * 2
-    assert torch.backends.cudnn.deterministic == before
+    keep = _tf32_and_deterministic()
+    callers = (True, True, False)  # TF32 everywhere, cuDNN free to choose
+    _set_tf32_and_deterministic(callers)
+    try:
+        grads, metrics = loss_and_grads(state, images, targets)
+        after = _tf32_and_deterministic()
+    finally:
+        _set_tf32_and_deterministic(keep)
+    assert seen == [want or callers] * 2
+    assert after == callers
     assert float(metrics["loss"]) > 0 and set(grads) == set(dict(state.model.named_parameters()))
+
+
+@pytest.mark.parametrize("dtype,want", [("float32", (False, False, False)),
+                                        ("bfloat16", None)])
+def test_float32_forward_runs_without_tf32(dtype, want):
+    """A float32 model's forward (training, eval and TTA all call it) runs
+    with TF32 off for convolutions and matmuls, whatever the caller set,
+    and leaves cuDNN's deterministic flag as the caller set it; a bf16
+    model's forward changes no flag; the flags are restored after."""
+    cfg = tiny_config()
+    model = DANDetector(dataclasses.replace(cfg.model, compute_dtype=dtype))
+    seen = []
+    model.backbone.register_forward_hook(lambda *_: seen.append(_tf32_and_deterministic()))
+    keep = _tf32_and_deterministic()
+    callers = (True, True, False)
+    _set_tf32_and_deterministic(callers)
+    try:
+        with torch.no_grad():
+            model(torch.zeros((1, 64, 64, 3)))
+        after = _tf32_and_deterministic()
+    finally:
+        _set_tf32_and_deterministic(keep)
+    assert seen == [want or callers]
+    assert after == callers
 
 
 def test_checkpoints_keep_the_newest_five(tmp_path):

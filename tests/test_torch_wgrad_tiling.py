@@ -1,6 +1,6 @@
 """The tilings of the conv1_2' weight-gradient kernels (csrc/conv12_wgrad.cu
 in bf16, csrc/conv12_wgrad_f32.cu in float32), checked on the CPU:
-`conv12_wgrad_cuda.tiling` and `conv12_wgrad_f32_cuda.tiling` are the
+`conv12_wgrad_cuda.BF16.tiling` and `conv12_wgrad_cuda.F32.tiling` are the
 pure-Python functions the launches use to share the pixels of o1 out to the
 blocks.  Every tiling test runs on both plans.
 
@@ -19,13 +19,12 @@ import pytest
 import torch
 
 from dan_tpu_torch.ops import conv12_wgrad_cuda as wg
-from dan_tpu_torch.ops import conv12_wgrad_f32_cuda as wf
 
 torch.set_num_threads(1)
 
 SHAPES = [(32, 320, 320), (1, 320, 320), (3, 320, 320), (2, 37, 53), (1, 64, 65), (3, 1, 70)]
-# Each kernel's module, and the blocks of the card it may hold at once.
-PLANS = {"bf16": (wg, 1), "float32": (wf, wf.BLOCKS_PER_SM)}
+# Each kernel, and the blocks of an SM it may hold at once.
+PLANS = {"bf16": (wg.BF16, 1), "float32": (wg.F32, 2)}
 
 
 def _segments(plan):
@@ -141,17 +140,20 @@ def test_segment_walk_equals_plain(b, h, w, kind):
 
 
 def test_cpu_float32_takes_the_plain_version():
-    """A float32 CPU tensor never reaches either kernel; the float32 launch
-    refuses what is not a float32 CUDA tensor."""
+    """A float32 CPU tensor never reaches either kernel; the launch refuses
+    a float32 CPU tensor; the dtypes the launch dispatches on are those
+    kernel_takes takes, each to its own kernel."""
     rng = np.random.default_rng(4)
     o1 = torch.from_numpy(rng.normal(size=(1, 3, 5, 128)).astype(np.float32))
     dr = torch.from_numpy(rng.normal(size=(1, 4, 6, 256)).astype(np.float32))
-    before = (wg.LAUNCHES, wf.LAUNCHES)
+    before = (wg.BF16.LAUNCHES, wg.F32.LAUNCHES)
     got = wg.conv12_wgrad(o1, dr)
-    assert (wg.LAUNCHES, wf.LAUNCHES) == before
+    assert (wg.BF16.LAUNCHES, wg.F32.LAUNCHES) == before
     assert torch.equal(got, wg.conv12_wgrad_plain(o1, dr))
-    with pytest.raises(TypeError, match="float32 CUDA"):
-        wf.launch(o1, dr)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        wg._launch(o1, dr)
+    assert wg.KERNELS == {torch.bfloat16: wg.BF16, torch.float32: wg.F32}
+    assert (wg.BF16.SOURCE, wg.F32.SOURCE) == ("conv12_wgrad", "conv12_wgrad_f32")
 
 
 @pytest.mark.parametrize(
