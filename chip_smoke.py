@@ -110,11 +110,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      are), two kernel runs bit-identical, and every row's tiles
      (`bbox_vote_cuda.LAST_TILES`) positive exactly when it has an active
      detection and at most one a 64 active ones; the blocked NMS at
-     N = 5000 on the bench path's candidates, on the NaN row of phase 3 and
-     at N = 257: ranks identical to its plain version and to those of
-     greedy_nms_rank (the tile scan) at max_out N, 750, 1, 20 and where the
-     kernel's stop at the max_out-th kept box falls on a tile's edge and
-     one past it;
+     N = 5000 on the bench path's candidates, on the NaN row of phase 3, at
+     N = 257 and at N = 20,000 (greedy_nms_rank's long-row path there):
+     ranks identical to its plain version and to those of greedy_nms_rank
+     (the tile scan) at max_out N, 750, 1, 20 and where the kernel's stop at
+     the max_out-th kept box falls on a tile's edge and one past it;
  13. the TTA path at the default config (full width, bf16, random weights):
      160 seeded images of 8 WIDER-like sizes that reach every bucket,
      `warmup_tta`, `detect_tta` on one image of each size, then
@@ -320,12 +320,36 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      every NMS row must take the tile scan, and a launch at B = 1 counts
      for K2 / K8, any other for K1 / K7.  The reference times on the host clock, phase 5 with CUDA
      events; both are printed, neither is adjusted.
+ 23. long rows: rows longer than a kernel's shared memory holds take its
+     long-row path (the row in global scratch; `nms_cuda.LAST_PATHS` bit
+     LONG_ROW, `bbox_vote_cuda.LAST_PATH` and `matching_cuda.LAST_PATH`
+     LONG_ROW).  Each against its plain version on the card, two runs
+     bit-identical: K1 on the (8, 34125) rows of a random-init forward at
+     pre_nms_topk 34,125, K2 on one of them, rows of 9,557 and 9,558 boxes
+     (either side of the limit), one row shuffled (the argmax loop), a row
+     with a NaN x1 and a NaN y2 sorted and shuffled, and the JAX kernel's
+     longest row (56,064); the vote on seeded edge rows of 7,136 and 7,137,
+     4 rows of 8,000 and 4 of 29,440 (K7) and one of 8,000 (K8); the
+     matcher at B = 4, G = 1,024 (700, 1,024, 0 and 100 valid gts, the
+     last all past slot 512) and at G = 512 / 513; each timed beside plain
+     with its bound.  Then through the entry points at full width:
+     `detect_batch` of 8 WIDER-sized images and `detect()` at pre_nms_topk
+     34,125 (K1 and K2 once each, every row on the long-row tile scan);
+     `detect_tta` and `detect_tta_dataset` on 16 images at max_detections
+     1,000 (vote rows of max_variants x 1,000: every vote launch on the
+     long-row path, its rows against plain, counters against
+     last_run_stats, a second run bit-identical); two train steps at batch
+     8, 640x640, max_gt 1,024 with one image of 700 synthetic faces (the
+     matcher must see > 512 valid gts in an image, K3-K6 once a step).
+     Every shape of phases 3-22 must keep the shared-memory paths.
 
 Phase 12's first half runs before phase 13, its real-data half after it.
 The line before the last is a JSON object describing each kernel, with the
 least time the card could take for this run's inputs (`bound_ms`), its
-launches in phase 20 (`launches_tools`), in phase 21 (`launches_native`)
-and in phase 22 (`launches_bench`); the last
+launches in phase 20 (`launches_tools`), in phase 21 (`launches_native`),
+in phase 22 (`launches_bench`) and on phase 23's long rows
+(`launches_long_rows`, with the long-row path's times and bounds under
+`long_row`); the last
 line is {"ok": true, "device": {...}}.  Imports no JAX and nothing of the
 JAX package.
 """
@@ -346,7 +370,7 @@ import numpy as np
 import torch
 
 from dan_tpu_torch.config import default_config
-from dan_tpu_torch.data.synthetic import synthetic_batch
+from dan_tpu_torch.data.synthetic import synthetic_batch, synthetic_sample
 from dan_tpu_torch.api import Detector
 from dan_tpu_torch.box.anchors import generate_anchors
 from dan_tpu_torch.box.iou import iou_one_to_many, pairwise_iou
@@ -670,8 +694,9 @@ def nms_candidates(det: Detector, images_u8: torch.Tensor):
 def compare_kernel(boxes, scores, thr, max_out, score_thr=0.0, path=None, what="") -> int:
     """Kernel vs plain version on the same CUDA tensors; raises unless the
     ranks, indices and valid flags are identical and, where `path` is given
-    (1 = tile scan, 0 = argmax loop; an int for all rows or one per row),
-    unless each row took that path.  Returns max |rank diff|."""
+    (1 = tile scan, 0 = argmax loop, plus 2 for the long-row path; an int
+    for all rows or one per row), unless each row took that path.  Returns
+    max |rank diff|."""
     got = nms_cuda.greedy_nms_rank(boxes, scores, thr, max_out, score_thr)
     paths = nms_cuda.LAST_PATHS
     want = nms_cuda.greedy_nms_rank_plain(boxes, scores, thr, max_out, score_thr)
@@ -685,18 +710,20 @@ def compare_kernel(boxes, scores, thr, max_out, score_thr=0.0, path=None, what="
             f"NMS kernel != plain at {tuple(scores.shape)} max_out={max_out} {what}: "
             f"{int((got != want).sum())} ranks differ"
         )
-    if not torch.equal(paths.bool(), nms_cuda.rows_sorted(scores)):
+    if not torch.equal((paths & nms_cuda.TILE_SCAN).bool(), nms_cuda.rows_sorted(scores)):
         raise AssertionError(f"{what}: the kernel's path choice is not rows_sorted()'s")
     if path is not None:
         expect = torch.as_tensor(path, dtype=torch.uint8, device=paths.device).expand_as(paths)
         if not torch.equal(paths, expect):
             raise AssertionError(
                 f"NMS {what} at {tuple(scores.shape)}: rows took paths {paths.tolist()[:16]}..., "
-                f"expected {expect.tolist()[:16]}... (1 = tile scan)")
+                f"expected {expect.tolist()[:16]}... (1 = tile scan, + 2 = long row)")
     log(f"  kernel == plain at B={scores.shape[0]} N={scores.shape[1]} "
         f"max_out={max_out} thr={thr} score_thr={score_thr}{' ' + what if what else ''}: "
-        f"{int((got >= 0).sum())} kept; tile scan on {int(paths.sum())} of {paths.numel()} rows, "
-        f"at most {int(nms_cuda.LAST_TILES.max())} tiles")
+        f"{int((got >= 0).sum())} kept; tile scan on {int((paths & nms_cuda.TILE_SCAN).sum())} "
+        f"of {paths.numel()} rows, the long-row path on "
+        f"{int(((paths & nms_cuda.LONG_ROW) != 0).sum())}, at most "
+        f"{int(nms_cuda.LAST_TILES.max())} tiles")
     return err
 
 
@@ -920,13 +947,15 @@ def main() -> int:
     nms_paths = []  # LAST_PATHS of every launch of phases 4-5: all must be 1
 
     def took_tile_scan(what):
-        """Every row of the recorded launches took the tile scan, or raise: a
-        fast path that the main path never reaches is a hidden fallback."""
+        """Every row of the recorded launches took the tile scan in shared
+        memory, or raise: a fast path that the main path never reaches is a
+        hidden fallback."""
         rows = torch.cat(nms_paths)
         nms_paths.clear()
-        if not bool(rows.all()):
-            raise AssertionError(f"{what}: {int((rows == 0).sum())} of {rows.numel()} NMS rows "
-                                 f"took the argmax loop")
+        if not bool((rows == nms_cuda.TILE_SCAN).all()):
+            raise AssertionError(f"{what}: {int((rows != nms_cuda.TILE_SCAN).sum())} of "
+                                 f"{rows.numel()} NMS rows took the argmax loop or the "
+                                 f"long-row path")
         return rows.numel()
 
     t0 = time.perf_counter()
@@ -1042,10 +1071,12 @@ def main() -> int:
                                                         scores_k[rows, first])
     for _ in range(3):
         nms_cuda.greedy_nms_rank(boxes_k, scores_k, *args)
+        if not bool((nms_cuda.LAST_PATHS == nms_cuda.TILE_SCAN).all()):
+            raise AssertionError("a bench row did not take the tile scan in shared memory")
         nms_cuda.greedy_nms_rank(boxes_u, scores_u, *args)
         nms_cuda.greedy_nms_rank(boxes_k, scores_w, *args)
     if bool(nms_cuda.LAST_PATHS.any()):
-        raise AssertionError("a row with a swapped pair took the tile scan")
+        raise AssertionError("a row with a swapped pair took the tile scan or the long-row path")
     times = {k: [] for k in ("plain", "kernel", "argmax", "swapped", "plain1", "kernel1",
                              "argmax1", "swapped1")}
     for name in ("plain", "kernel", "kernel", "plain"):
@@ -1122,6 +1153,12 @@ def main() -> int:
     # -- 22. the bench entry points ------------------------------------------
     bl = phase22(cfg, dev, smi, img_s, train_step_ms, BATCH / i8["ms_i8"] * 1e3)
 
+    # -- 23. long rows ---------------------------------------------------------
+    lr = phase23(cfg, dev, smi)
+    lr_nms, lr_vote, lr_tta = lr["nms"], lr["vote"], lr["tta"]
+    err_b, err_1 = max(err_b, lr_nms["err"]), max(err_1, lr_nms["err"])
+    vote_err = max(vote_err, lr_vote["err"], lr_tta["err"])
+
     n_rows, n_box = BATCH, post.pre_nms_topk
     # NMS: 20 bytes a box in, its rank out; for every selected box an IoU, a
     # threshold test and (the input need not be sorted) an argmax compare
@@ -1141,7 +1178,10 @@ def main() -> int:
          "kept": int(kept_rows.max()), "library_ms": None,
          "launches_dp_ranks": [r["nms"] for r in dp_launches["tta"]],
          "launches_ckpt": ck["nms_batched"], "launches_tools": tools["K1"],
-         "launches_bench": bl["K1"]},
+         "launches_bench": bl["K1"], "launches_long_rows": lr_nms["launches"]["K1"],
+         "long_row": dict(lr_nms["K1"], shape=lr_nms["shape"],
+                          argmax_loop_ms_b1=lr_nms["argmax_ms"],
+                          jax_longest_row_ms=lr_nms["jax_row_ms"])},
         {"name": "greedy_nms_rank (B=1)", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "dan_tpu/ops/nms_pallas.py:34", "launches": launches_one,
          "max_abs_err": err_1, "ms": ms["kernel1"], "argmax_loop_ms": ms["argmax1"],
@@ -1149,7 +1189,9 @@ def main() -> int:
          "plain_ms": ms["plain1"], "bound_ms": b_nms1[0], "bound_by": b_nms1[1],
          "dependent_steps": int(nms_tiles[0]), "kept": int(kept_rows[0]), "library_ms": None,
          "launches_ckpt": ck["nms_one"], "launches_tools": tools["K2"],
-         "launches_native": nat["nms"], "launches_bench": bl["K2"]},
+         "launches_native": nat["nms"], "launches_bench": bl["K2"],
+         "launches_long_rows": lr_nms["launches"]["K2"],
+         "long_row": dict(lr_nms["K2"], shape=[1] + lr_nms["shape"][1:])},
     ]
     for name, (_, src, replaces) in TRAIN_KERNELS.items():
         entry = {
@@ -1176,10 +1218,15 @@ def main() -> int:
         for pass_name, line, names in (("matcher pass 1", 87, MATCHER_KERNELS[:2]),
                                        ("matcher pass 2", 208, MATCHER_KERNELS[2:])):
             ms_b, by = train_bounds[pass_name]
+            lb = lr["matcher"]["bounds"][pass_name]
             kernels.append(dict(
                 entry, name=pass_name, replaces=f"dan_tpu/ops/matching_pallas.py:{line}",
                 bound_ms=ms_b, bound_by=by, device_ms=sum(dev_t[k] for k in names),
-                ms_covers="one match_anchors_cuda call: both passes and the wrapper"))
+                ms_covers="one match_anchors_cuda call: both passes and the wrapper",
+                launches_long_rows=lr["matcher"]["launches"],
+                long_row={"shape": lr["matcher"]["shape"], "ms": lr["matcher"]["ms"],
+                          "plain_ms": lr["matcher"]["plain_ms"], "bound_ms": lb[0],
+                          "bound_by": lb[1], "valid_gts": lr["matcher"]["valid_gts"]}))
     vote_src = "dan_tpu_torch/csrc/bbox_vote.cu"
     kernels += [
         {"name": "bbox_vote (batched)", "route": "cuda", "source": vote_src,
@@ -1190,7 +1237,8 @@ def main() -> int:
          "bound_ms": tta_bounds["vote"][0], "bound_by": tta_bounds["vote"][1],
          "dependent_steps": tta_bounds["vote"][2], "outputs": tta_bounds["vote"][3],
          "library_ms": None, "launches_dp_ranks": [r["bbox_vote"] for r in dp_launches["tta"]],
-         "launches_tools": tools["K7"], "launches_bench": bl["K7"]},
+         "launches_tools": tools["K7"], "launches_bench": bl["K7"],
+         "launches_long_rows": lr_tta["K7"], "long_row": lr_vote["K7"]},
         {"name": "bbox_vote (B=1)", "route": "cuda", "source": vote_src,
          "replaces": "dan_tpu/ops/bbox_vote_pallas.py:30", "launches": tta["vote_launches_one"],
          "max_abs_err": vote_err, "ms": tta_ms["vote1"]["kernel"],
@@ -1198,7 +1246,8 @@ def main() -> int:
          "plain_ms": tta_ms["vote1"]["plain"],
          "bound_ms": tta_bounds["vote1"][0], "bound_by": tta_bounds["vote1"][1],
          "dependent_steps": tta_bounds["vote1"][2], "outputs": tta_bounds["vote1"][3],
-         "library_ms": None, "launches_tools": tools["K8"], "launches_bench": bl["K8"]},
+         "library_ms": None, "launches_tools": tools["K8"], "launches_bench": bl["K8"],
+         "launches_long_rows": lr_tta["K8"], "long_row": lr_vote["K8"]},
         {"name": "greedy_nms_blocked", "route": "cuda",
          "source": "dan_tpu_torch/csrc/nms_blocked.cu",
          "replaces": "dan_tpu/ops/nms_blocked_pallas.py:39",
@@ -1359,7 +1408,7 @@ def preprocessed(batch, cfg, dev):
         t["mask"], draws, cfg.preprocess)
 
 
-def compare_matcher(margs, what) -> MatchTargets:
+def compare_matcher(margs, what, phase="phase 9") -> MatchTargets:
     """The matcher kernel against match_anchors on the same CUDA tensors:
     all four MatchTargets leaves bit-identical, or raise."""
     got = matching_cuda.match_anchors_cuda(*margs)
@@ -1372,7 +1421,7 @@ def compare_matcher(margs, what) -> MatchTargets:
         raise AssertionError(f"matcher kernel != plain on {what}: elements that differ {off}, "
                              f"loc_target by up to {ulp} ulp")
     npos = (got.cls_target == 1).sum(dim=1)
-    log(f"phase 9: matcher kernel == plain on {what} (B={margs[1].shape[0]} "
+    log(f"{phase}: matcher kernel == plain on {what} (B={margs[1].shape[0]} "
         f"A={margs[0].shape[0]} G={margs[1].shape[1]}, {int(margs[2].sum())} valid gts): "
         f"cls_target, loc_target, matched_gt, matched_iou bit-identical; positives per image "
         f"{int(npos.min())}..{int(npos.max())}")
@@ -1838,6 +1887,8 @@ def phase11(cases, smi):
     call = lambda: matching_cuda.match_anchors_cuda(*margs)  # noqa: E731
     dev_t, _ = device_ms(call, 20, MATCHER_KERNELS)
     out["matcher"]["device"] = dev_t
+    if matching_cuda.LAST_PATH != matching_cuda.SHARED:
+        raise AssertionError("the matcher at the train shape did not take one chunk of gts")
     log(f"phase 11: matcher call {out['matcher']['kernel']:.4f} ms (CUDA events over back-to-back "
         f"calls; the wrapper's host time {host_ms(call):.4f} ms a call); its kernels' device time "
         f"(torch.profiler, a call) " + ", ".join(f"{k} {v:.4f} ms" for k, v in dev_t.items())
@@ -2159,8 +2210,8 @@ def phase12_blocked(nms_rows, nan_row, post, dev) -> float:
     cases += [(small_b, small_s, 0.4, 0.0), (small_b, small_s, 0.3, 0.5),
               (small_b, torch.zeros_like(small_s), 0.3, 0.0)]
     # Past 8,192 boxes the scan stages a capped range of columns and reads
-    # the rest from L2: 20,000 seeded boxes (above greedy_nms_rank's limit,
-    # so against the plain version alone).
+    # the rest from L2: 20,000 seeded boxes (greedy_nms_rank's long-row path
+    # there).
     big_b = torch.from_numpy(random_boxes(rng, 20000)).to(dev)
     big_s = torch.from_numpy(np.sort(rng.uniform(0.01, 1.0, 20000).astype(np.float32))[::-1]
                              .copy()).to(dev)
@@ -2169,7 +2220,6 @@ def phase12_blocked(nms_rows, nan_row, post, dev) -> float:
     # helpers' share of the tiles changes along the row.
     stress = [blocked_stress_row(4, 7, dev), blocked_stress_row(13, 5, dev)]
     cases += [(sb, ss, thr, 0.0) for sb, ss in stress]
-    k1_max = nms_cuda.build().nms_rank_max_n()
     log("phase 12: blocked NMS kernel against its plain version and the ranks of greedy_nms_rank")
     diff = 0
     for bx, sc, t, sthr in cases:
@@ -2186,23 +2236,20 @@ def phase12_blocked(nms_rows, nan_row, post, dev) -> float:
         for out in cuts:
             got = nms_blocked_cuda.greedy_nms_blocked_cuda(bx, sc, t, out, sthr)
             want = nms_blocked_cuda.greedy_nms_blocked_plain(bx, sc, t, out, sthr)
-            refs = [want]
-            if sc.shape[0] <= k1_max:
-                k1 = rank_to_result(
-                    nms_cuda.greedy_nms_rank(bx[None].contiguous(), sc[None].contiguous(), t,
-                                             out, sthr), bx[None], sc[None], out)
-                refs.append(NMSResult(*(leaf[0] for leaf in k1)))
+            k1 = rank_to_result(
+                nms_cuda.greedy_nms_rank(bx[None].contiguous(), sc[None].contiguous(), t,
+                                         out, sthr), bx[None], sc[None], out)
+            refs = [want, NMSResult(*(leaf[0] for leaf in k1))]
             torch.cuda.synchronize()
             off = [int((got.indices != w.indices).sum()) + int((got.valid != w.valid).sum())
-                   for w in refs] + [0]
+                   for w in refs]
             diff = max(diff, *off)
             if any(off):
                 raise AssertionError(
                     f"blocked NMS at N={sc.shape[0]} thr={t} score_thr={sthr} max_out={out}: "
                     f"{off[0]} kept entries differ from plain, {off[1]} from "
                     f"greedy_nms_rank")
-        log("  blocked NMS == plain" + (" == greedy_nms_rank" if sc.shape[0] <= k1_max else "")
-            + f" at N={sc.shape[0]} thr={t} "
+        log(f"  blocked NMS == plain == greedy_nms_rank at N={sc.shape[0]} thr={t} "
             f"score_thr={sthr}, max_out {cuts} ({edge} = the kept boxes of tiles 1-{half + 1}): "
             f"ranks identical, {int(kept.sum())} kept in all")
     for sb, ss in stress:
@@ -2232,6 +2279,7 @@ class RecordingRunner(TTARunner):
         self.vote_inputs = []
         self.vote_tiles = []  # (tiles, active detections) a row, every vote launch
         self.nms_paths = []  # nms_cuda.LAST_PATHS of every bucket launch
+        self.vote_paths = []  # bbox_vote_cuda.LAST_PATH of every vote launch
 
     def _run_bucket(self, *args, **kwargs):
         out = super()._run_bucket(*args, **kwargs)
@@ -2243,6 +2291,7 @@ class RecordingRunner(TTARunner):
         self.vote_inputs.append(VoteRows(boxes_b, scores_b, valid_b, buffer))
         self.vote_tiles.append((bbox_vote_cuda.LAST_TILES,
                                 torch.from_numpy((valid_b & (scores_b > 0.0)).sum(axis=1))))
+        self.vote_paths.append(bbox_vote_cuda.LAST_PATH)
         return fetch
 
 
@@ -2301,6 +2350,7 @@ def phase13(cfg, dev, smi):
     runner.vote_inputs.clear()
     runner.vote_tiles.clear()
     runner.nms_paths.clear()
+    runner.vote_paths.clear()
 
     # The counted run: detect_tta on one image of each size, then the dataset.
     nms_cuda.LAUNCHES = bbox_vote_cuda.LAUNCHES = nms_blocked_cuda.LAUNCHES = 0
@@ -2331,10 +2381,14 @@ def phase13(cfg, dev, smi):
         f"bbox_vote {vote_one} at B=1 + {vote_ds} batched")
     nms_rows_tta = torch.cat(runner.nms_paths)
     log(f"  NMS rows of detect_tta and the dataset run: {int(nms_rows_tta.sum())} of "
-        f"{nms_rows_tta.numel()} took the tile scan ({len(runner.nms_paths)} launches)")
-    if len(runner.nms_paths) != nms_one + nms_ds or not bool(nms_rows_tta.all()):
-        raise AssertionError("an NMS row of the TTA run took the argmax loop, or a launch "
-                             "was not recorded")
+        f"{nms_rows_tta.numel()} took the tile scan in shared memory ({len(runner.nms_paths)} "
+        f"launches); every vote launch the shared-memory path")
+    if len(runner.nms_paths) != nms_one + nms_ds or not bool(
+            (nms_rows_tta == nms_cuda.TILE_SCAN).all()):
+        raise AssertionError("an NMS row of the TTA run took the argmax loop or the long-row "
+                             "path, or a launch was not recorded")
+    if runner.vote_paths != [bbox_vote_cuda.SHARED] * len(runner.vote_paths):
+        raise AssertionError(f"vote launches of the TTA run took paths {runner.vote_paths}")
     if stats != want_stats:
         raise AssertionError(f"last_run_stats {stats} != planned {want_stats}")
     if (nms_ds, vote_ds) != (stats["bucket_launches"], stats["vote_launches"]):
@@ -2623,6 +2677,8 @@ def phase14(vote_inputs, nms_rows, post, dev, smi):
         dev_t, out[key]["device_from"] = device_ms(call, 20, ("bbox_vote_kernel",), alone)
         out[key]["device"] = dev_t["bbox_vote_kernel"]
         out[key]["host"] = host_ms(call)
+        if bbox_vote_cuda.LAST_PATH != bbox_vote_cuda.SHARED:
+            raise AssertionError(f"the vote at {tuple(args[1].shape)} left shared memory")
     log(f"phase 14: bbox_vote at {tuple(s.shape)} -> {max_out}: kernel "
         f"{out['vote']['kernel']:.4f} ms (its device time {out['vote']['device']:.4f} ms by "
         f"{out['vote']['device_from']}, the wrapper's host time {out['vote']['host']:.4f} ms), "
@@ -4866,7 +4922,7 @@ def phase22(cfg, dev, smi, bench_img_s, train_ms, int8_img_s):
     # K2 and K8 are the batched kernels at B = 1: each launch goes to the
     # entry of its batch, as the spy read it.
     one = {k: sum(rows == 1 for rows, _ in v) for k, v in seen.items()}
-    rows_on_scan = torch.cat([p for _, p in seen["nms"]]).bool()
+    rows_on_scan = torch.cat([p for _, p in seen["nms"]]) == nms_cuda.TILE_SCAN
     log(f"phase 22: in process, NMS launches by batch "
         f"{dict(collections.Counter(r for r, _ in seen['nms']))}, vote launches by batch "
         f"{dict(collections.Counter(r for r, _ in seen['vote']))}; NMS rows on the tile scan "
@@ -4874,7 +4930,8 @@ def phase22(cfg, dev, smi, bench_img_s, train_ms, int8_img_s):
     if [len(seen[k]) for k in seen] != [COUNTED[k] for k in seen] or not bool(
             rows_on_scan.all()):
         raise AssertionError("phase 22: the launches read after each launch differ from the "
-                             "counters, or an NMS row took the argmax loop")
+                             "counters, or an NMS row took the argmax loop or the long-row "
+                             "path")
     launches = collections.Counter(
         K1=bench_nms + COUNTED["nms"] - one["nms"], K2=one["nms"],
         K7=COUNTED["vote"] - one["vote"], K8=one["vote"], K9=COUNTED["blocked"],
@@ -4882,6 +4939,379 @@ def phase22(cfg, dev, smi, bench_img_s, train_ms, int8_img_s):
         **{k: train[k] for k in TRAIN_NAMES})
     log(f"phase 22: {time.perf_counter() - t0:.1f} s; launches {dict(launches)}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# long rows: phase 23
+# ---------------------------------------------------------------------------
+
+LONG_TOPK = 34125  # pre_nms_topk: every anchor of a 640x640 image
+JAX_NMS_ROW = 56064  # the longest row nms_batched_pallas.py takes (its n_pad)
+LONG_VOTE_ROWS = (8000, 29440)  # 8 variants x 1,000 detections; the JAX kernel's most at 750
+LONG_MAX_DET = 1000
+LONG_GT = 1024
+LONG_FACES = 700
+LONG_TRAIN_BATCH = 8
+LONG_TTA_IMAGES = 16
+
+
+def post_config(cfg, **fields):
+    return dataclasses.replace(cfg, postprocess=dataclasses.replace(cfg.postprocess, **fields))
+
+
+def phase23_nms(cfg, dev, smi):
+    """K1 / K2's long-row path against the plain version on the card: the
+    (8, 34125) rows of a random-init forward at pre_nms_topk 34,125, one of
+    them alone, both sides of the shared-memory limit, one row shuffled
+    (the argmax loop), a row with a NaN x1 and a NaN y2 sorted and shuffled,
+    and the JAX kernel's longest row; two runs bit-identical; times beside
+    plain; bounds from the replay.  -> (the Detector, results)."""
+    post = cfg.postprocess
+    thr, max_out = post.nms_iou_threshold, post.max_detections
+    k1_max = nms_cuda.build().nms_rank_shared_max_n()
+    det = Detector.from_random(SEED, post_config(cfg, pre_nms_topk=LONG_TOPK), dev)
+    size = cfg.model.image_size
+    rng = np.random.default_rng(SEED + 23)
+    images = torch.from_numpy(
+        rng.integers(0, 255, (LONG_TRAIN_BATCH, size, size, 3), dtype=np.uint8)).to(dev)
+    boxes, scores = nms_candidates(det, images)
+    del images
+    if tuple(scores.shape) != (LONG_TRAIN_BATCH, LONG_TOPK):
+        raise AssertionError(f"phase 23: NMS rows {tuple(scores.shape)}")
+    log(f"phase 23: long rows.  NMS rows {tuple(scores.shape)} from a random-init forward at "
+        f"pre_nms_topk {LONG_TOPK}; the shared-memory path takes up to {k1_max} boxes a row")
+    err = compare_kernel(boxes, scores, thr, max_out, path=3, what="long rows, sorted")
+    rank = nms_cuda.greedy_nms_rank(boxes, scores, thr, max_out)
+    tiles = nms_cuda.LAST_TILES.clone()
+    if not torch.equal(rank, nms_cuda.greedy_nms_rank(boxes, scores, thr, max_out)):
+        raise AssertionError("phase 23: two runs of the long-row NMS differ")
+    b1, s1 = boxes[:1].contiguous(), scores[:1].contiguous()
+    err = max(err, compare_kernel(b1, s1, thr, max_out, path=3, what="one long row (K2)"))
+    for n, code in ((k1_max, 1), (k1_max + 1, 3)):
+        err = max(err, compare_kernel(boxes[:2, :n].contiguous(), scores[:2, :n].contiguous(),
+                                      thr, max_out, path=code, what="at the shared-memory limit"))
+    bu, su, pos = shuffle_rows(b1, s1, SEED + 23)
+    err = max(err, compare_kernel(bu, su, thr, max_out, path=2, what="a long row shuffled"))
+    if not torch.equal(torch.gather(nms_cuda.greedy_nms_rank(bu, su, thr, max_out), 1, pos),
+                       rank[:1]):
+        raise AssertionError("phase 23: the shuffled long row keeps other boxes")
+    b_nan = b1.clone()
+    b_nan[0, 3, 0] = float("nan")
+    b_nan[0, 40, 3] = float("nan")
+    err = max(err, compare_kernel(b_nan, s1, thr, max_out, path=3, what="NaN x1 and y2, sorted"))
+    bn, sn, _ = shuffle_rows(b_nan, s1, SEED + 24)
+    err = max(err, compare_kernel(bn, sn, thr, max_out, path=2, what="NaN x1 and y2, shuffled"))
+    # The JAX kernel's longest row: rows 0 and 1 end to end, the first
+    # 56,064 in stable score order.
+    order = torch.sort(scores[:2].reshape(1, -1), dim=1, descending=True,
+                       stable=True).indices[:, :JAX_NMS_ROW]
+    bj = torch.gather(boxes[:2].reshape(1, -1, 4), 1, order[..., None].expand(-1, -1, 4))
+    sj = torch.gather(scores[:2].reshape(1, -1), 1, order)
+    err = max(err, compare_kernel(bj.contiguous(), sj.contiguous(), thr, max_out, path=3,
+                                  what="the JAX kernel's longest row"))
+
+    greedy = nms_cuda.greedy_nms_rank
+    plain = nms_cuda.greedy_nms_rank_plain
+    ms = {"K1": turns(lambda: greedy(boxes, scores, thr, max_out),
+                      lambda: plain(boxes, scores, thr, max_out), 5, 1),
+          "K2": turns(lambda: greedy(b1, s1, thr, max_out),
+                      lambda: plain(b1, s1, thr, max_out), 10, 1)}
+    argmax_ms = cuda_ms(lambda: greedy(bu, su, thr, max_out), 3)
+    jax_row_ms = cuda_ms(lambda: greedy(bj, sj, thr, max_out), 5)
+    kept = (rank >= 0).sum(dim=1)
+    steps, pairs, _ = selection_work(boxes, scores, scores > 0.0, thr, max_out, False)
+    if not torch.equal(steps, kept):
+        raise AssertionError("phase 23: the replay of the NMS selection counts other steps")
+    n_rows, n = scores.shape
+    pair_ops = IOU_OPS + TEST_OPS + ARGMAX_OPS
+    bounds = {"K1": bound(n_rows * n * 24, int(pairs.sum()) * pair_ops, PEAK_F32),
+              "K2": bound(n * 24, int(pairs[0]) * pair_ops, PEAK_F32)}
+    log(f"phase 23: NMS long-row path (tile scan from scratch) at ({n_rows}, {n}, {max_out}): "
+        f"{ms['K1']['kernel']:.4f} ms, plain {ms['K1']['plain']:.4f} ms, bound "
+        f"{bounds['K1'][0]:.5f} ms by {bounds['K1'][1]}; at (1, {n}): {ms['K2']['kernel']:.4f} "
+        f"ms, plain {ms['K2']['plain']:.4f} ms, bound {bounds['K2'][0]:.5f} ms; the argmax loop "
+        f"from scratch on the shuffled row {argmax_ms:.4f} ms; the tile scan at (1, "
+        f"{JAX_NMS_ROW}) {jax_row_ms:.4f} ms; {int(kept.min())}..{int(kept.max())} kept, at most "
+        f"{int(tiles.max())} tiles a row ({smi})")
+    res = {"err": err, "argmax_ms": argmax_ms, "jax_row_ms": jax_row_ms,
+           "shape": [n_rows, n, max_out]}
+    for k in ("K1", "K2"):
+        res[k] = {"ms": ms[k]["kernel"], "plain_ms": ms[k]["plain"], "bound_ms": bounds[k][0],
+                  "bound_by": bounds[k][1]}
+    res["K1"]["tiles"], res["K2"]["tiles"] = int(tiles.max()), int(tiles[0])
+    return det, res
+
+
+def phase23_vote(cfg, dev, smi):
+    """K7 / K8's long-row path against the plain version on seeded edge rows:
+    both sides of the shared-memory limit, 4 rows of 8,000 and 4 of 29,440
+    (K7), one of 8,000 (K8); times beside plain; bounds from the replay."""
+    thr, max_out = cfg.postprocess.vote_iou_threshold, cfg.postprocess.max_detections
+    vmax = bbox_vote_cuda.build().bbox_vote_shared_max_rows()
+    rng = np.random.default_rng(SEED + 230)
+    err = 0.0
+    log(f"phase 23: vote rows; the shared-memory path takes up to {vmax} a row")
+
+    def dev_rows(n, pick):
+        bx, sc, va = vote_edge_rows(rng, n)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a[pick])).to(dev)
+                     for a in (bx, sc, va))
+
+    def path_is(code, what):
+        if bbox_vote_cuda.LAST_PATH != code:
+            raise AssertionError(f"phase 23: the vote on {what} took path "
+                                 f"{bbox_vote_cuda.LAST_PATH}, expected {code}")
+
+    for n, code in ((vmax, bbox_vote_cuda.SHARED), (vmax + 1, bbox_vote_cuda.LONG_ROW)):
+        err = max(err, compare_vote(*dev_rows(n, slice(None)), thr, max_out,
+                                    "the 7 edge rows at the shared-memory limit"))
+        path_is(code, f"rows of {n}")
+    res = {}
+    pair_ops = IOU_OPS + TEST_OPS + ARGMAX_OPS
+    for n in LONG_VOTE_ROWS:
+        b, s, v = dev_rows(n, [0, 2, 3, 5])
+        cases = [("K7", (b, s, v))]
+        if n == LONG_VOTE_ROWS[0]:
+            cases.append(("K8", (b[:1].contiguous(), s[:1].contiguous(), v[:1].contiguous())))
+        for name, args in cases:
+            err = max(err, compare_vote(*args, thr, max_out, f"long rows ({name})"))
+            path_is(bbox_vote_cuda.LONG_ROW, f"{tuple(args[1].shape)}")
+            t = turns(lambda: bbox_vote_cuda.bbox_vote_batched_cuda(*args, thr, max_out),
+                      lambda: bbox_vote_batched(*args, thr, max_out), 5, 1)
+            out = bbox_vote_cuda.bbox_vote_batched_cuda(*args, thr, max_out)
+            tiles = bbox_vote_cuda.LAST_TILES.cpu()
+            steps, pairs, merged = selection_work(args[0], args[1], args[2] & (args[1] > 0.0),
+                                                  thr, max_out, True)
+            if not torch.equal(steps, out.valid.sum(dim=1)):
+                raise AssertionError("phase 23: the replay of the vote counts other steps")
+            rows, r = args[1].shape
+            ops = int((pairs * pair_ops + merged * MERGE_OPS).sum())
+            bd = bound(rows * 21 * (r + max_out), ops, PEAK_F32)
+            log(f"phase 23: vote long-row path ({name}) at ({rows}, {r}, {max_out}): "
+                f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, bound {bd[0]:.5f} ms by "
+                f"{bd[1]} ({int(pairs.sum())} IoU pairs, {int(merged.sum())} merges); tiles a "
+                f"row {int(tiles.min())}..{int(tiles.max())}, outputs "
+                f"{int(steps.min())}..{int(steps.max())} ({smi})")
+            res.setdefault(name, []).append(
+                {"shape": [rows, r, max_out], "ms": t["kernel"], "plain_ms": t["plain"],
+                 "bound_ms": bd[0], "bound_by": bd[1], "tiles": int(tiles.max())})
+    res["err"] = err
+    return res
+
+
+def long_gt_batch(size, rng):
+    """(4, 1024) seeded gts on a size x size image: image 0 has 700 valid gts
+    in random slots, gt 600 a copy of gt 5 (ties between the chunks);
+    image 1 every slot valid; image 2 none; image 3 100
+    valid gts, all in slots past 512.  -> boxes, mask (numpy)."""
+    def faces(k):
+        xy = rng.uniform(0, size - 16, (k, 2))
+        return np.concatenate([xy, np.minimum(xy + rng.uniform(6, 120, (k, 2)), size)], -1)
+
+    boxes = np.zeros((4, LONG_GT, 4), np.float32)
+    mask = np.zeros((4, LONG_GT), bool)
+    slots = np.union1d(rng.choice(LONG_GT, LONG_FACES - 1, replace=False), [5])[:LONG_FACES]
+    boxes[0, slots], mask[0, slots] = faces(len(slots)), True
+    boxes[0, 600], mask[0, 600] = boxes[0, 5], True
+    boxes[1], mask[1] = faces(LONG_GT), True
+    late = rng.choice(np.arange(512, LONG_GT), 100, replace=False)
+    boxes[3, late], mask[3, late] = faces(100), True
+    return boxes, mask
+
+
+def phase23_matcher(cfg, dev, smi):
+    """The matcher at G = 1,024 (several chunks of gts) against the plain
+    version on long_gt_batch, and at G = 512 / 513 either side of one
+    chunk; two runs bit-identical; the call beside plain; bounds."""
+    size = cfg.preprocess.train_image_size
+    anchors = generate_anchors(cfg.anchors, size, size, dev)
+    mcfg = dataclasses.replace(cfg.match, max_gt=LONG_GT)
+    boxes, mask = (torch.from_numpy(a).to(dev)
+                   for a in long_gt_batch(size, np.random.default_rng(SEED + 231)))
+    margs = (anchors, boxes, mask, mcfg, cfg.anchors)
+    got = compare_matcher(margs, "long_gt_batch (700 / 1,024 / 0 / 100 valid gts)", "phase 23")
+    if matching_cuda.LAST_PATH != matching_cuda.LONG_ROW:
+        raise AssertionError("phase 23: the matcher at G = 1,024 took one chunk")
+    if not all(same_bits(a, b) for a, b in zip(got, matching_cuda.match_anchors_cuda(*margs))):
+        raise AssertionError("phase 23: two runs of the matcher differ")
+    chunk = matching_cuda.build().match_chunk_gts()
+    for g_n, code in ((chunk, matching_cuda.SHARED), (chunk + 1, matching_cuda.LONG_ROW)):
+        compare_matcher((anchors, boxes[:2, :g_n].contiguous(), mask[:2, :g_n].contiguous(),
+                         mcfg, cfg.anchors), f"G = {g_n}", "phase 23")
+        if matching_cuda.LAST_PATH != code:
+            raise AssertionError(f"phase 23: the matcher at G = {g_n} took path "
+                                 f"{matching_cuda.LAST_PATH}")
+    t = turns(lambda: matching_cuda.match_anchors_cuda(*margs), lambda: match_anchors(*margs),
+              10, 2)
+    # Bounds as phase 11 counts them, pass by pass.
+    bsz, n_anchor = boxes.shape[0], anchors.shape[0]
+    pair_ops = 14 * n_anchor * int(mask.sum())
+    bounds = {
+        "matcher pass 1": bound(nbytes(anchors, boxes, mask) + bsz * n_anchor * 8
+                                + 16 * mask.numel(), pair_ops, PEAK_F32),
+        "matcher pass 2": bound(nbytes(anchors, boxes, mask) + 16 * mask.numel()
+                                + bsz * n_anchor * 24, pair_ops, PEAK_F32)}
+    log(f"phase 23: matcher call at B={bsz} A={n_anchor} G={LONG_GT} ({int(mask.sum())} valid "
+        f"gts, {-(-LONG_GT // chunk)} chunks of {chunk}): {t['kernel']:.4f} ms, plain "
+        f"{t['plain']:.4f} ms; bounds " + ", ".join(
+            f"{k} {v[0]:.5f} ms by {v[1]}" for k, v in bounds.items()) + f" ({smi})")
+    return {"shape": [bsz, n_anchor, LONG_GT], "ms": t["kernel"], "plain_ms": t["plain"],
+            "bounds": bounds, "valid_gts": int(mask.sum())}
+
+
+def phase23_detect(det, cfg, smi):
+    """detect_batch of 8 WIDER-sized images and detect() of one at
+    pre_nms_topk 34,125, counted: every NMS row must take the long-row tile
+    scan.  -> {'K1': launches, 'K2': launches}."""
+    post = det.config.postprocess
+    rng = np.random.default_rng(SEED + 232)
+    reqs = [rng.integers(0, 255, hw + (3,), dtype=np.uint8) for hw in TTA_SIZES]
+    nms_cuda.LAUNCHES = 0
+    with launch_batches() as seen:
+        t0 = time.perf_counter()
+        dets = det.detect_batch(reqs)
+        one = det.detect(reqs[0])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    check_dets(dets + [one], reqs + reqs[:1], post.max_detections)
+    rows = torch.cat([p for _, p in seen["nms"]])
+    launches = {"K1": sum(r > 1 for r, _ in seen["nms"]), "K2": sum(r == 1 for r, _ in seen["nms"])}
+    log(f"phase 23: detect_batch of {len(reqs)} images {list(TTA_SIZES)} and detect() at "
+        f"pre_nms_topk {post.pre_nms_topk}: {[len(d['scores']) for d in dets]} and "
+        f"{len(one['scores'])} detections in {secs:.2f} s (host clock, first calls); NMS paths "
+        f"{rows.tolist()}; launches {launches} ({smi})")
+    if nms_cuda.LAUNCHES != 2 or launches != {"K1": 1, "K2": 1} or not bool(
+            (rows == (nms_cuda.TILE_SCAN | nms_cuda.LONG_ROW)).all()):
+        raise AssertionError("phase 23: detect at pre_nms_topk 34,125 did not launch K1 and K2 "
+                             "once each on the long-row tile scan")
+    return launches
+
+
+def phase23_tta(cfg, dev, smi):
+    """detect_tta and run_dataset (detect_tta_dataset) on 16 WIDER-shaped
+    images at max_detections 1,000: vote rows of max_variants x 1,000, every
+    vote launch on the long-row path and its rows held against the plain
+    version, counters against last_run_stats, a second run bit-identical.
+    -> {'K1': ..., 'K7': ..., 'K8': ..., 'err': ...}."""
+    tcfg = post_config(cfg, max_detections=LONG_MAX_DET)
+    post = tcfg.postprocess
+    det = Detector.from_random(SEED, tcfg, dev)
+    runner = det._tta_runner = RecordingRunner(det.model, tcfg, device=dev)
+    items = tta_images(LONG_TTA_IMAGES)
+    keyed = [(k, im) for k, im, _ in items]
+    want_stats, _ = expected_stats(items, runner, 16, 128)
+    vmax = bbox_vote_cuda.build().bbox_vote_shared_max_rows()
+    if runner.vote_rows() <= vmax:
+        raise AssertionError(f"phase 23: {runner.vote_rows()} vote rows fit in shared memory")
+    det.warmup_tta([im.shape[:2] for _, im in keyed])
+    for lst in (runner.vote_inputs, runner.vote_tiles, runner.nms_paths, runner.vote_paths):
+        lst.clear()
+    nms_cuda.LAUNCHES = bbox_vote_cuda.LAUNCHES = 0
+    with launch_batches() as seen:
+        t0 = time.perf_counter()
+        one = det.detect_tta(keyed[0][1])
+        got = det.detect_tta_dataset(keyed)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    stats = dict(runner.last_run_stats)
+    launches = {"K1": sum(r > 1 for r, _ in seen["nms"]), "K2": sum(r == 1 for r, _ in seen["nms"]),
+                "K7": sum(r > 1 for r, _ in seen["vote"]),
+                "K8": sum(r == 1 for r, _ in seen["vote"])}
+    log(f"phase 23: TTA at max_detections {LONG_MAX_DET} ({runner.vote_rows()} vote rows an "
+        f"image): detect_tta of one image + detect_tta_dataset of {len(keyed)} in {secs:.2f} s "
+        f"(host clock, after warmup_tta); stats {stats}; launches {launches}; vote paths "
+        f"{runner.vote_paths} ({smi})")
+    if stats != want_stats or bbox_vote_cuda.LAUNCHES != 1 + stats["vote_launches"] or (
+            nms_cuda.LAUNCHES != len(runner.nms_paths)):
+        raise AssertionError(f"phase 23: stats {stats} (planned {want_stats}), vote launches "
+                             f"{bbox_vote_cuda.LAUNCHES}")
+    if runner.vote_paths != [bbox_vote_cuda.LONG_ROW] * len(runner.vote_paths) or not bool(
+            (torch.cat(runner.nms_paths) == nms_cuda.TILE_SCAN).all()):
+        raise AssertionError("phase 23: a vote launch left the long-row path, or an NMS row "
+                             "left the shared-memory tile scan")
+    for t, a in runner.vote_tiles:
+        check_tiles(t, a, "the TTA run at max_detections 1,000")
+    check_dets([one] + [got[k] for k, _ in keyed], [keyed[0][1]] + [im for _, im in keyed],
+               post.max_detections)
+    same = lambda a, b: (np.array_equal(a["bboxes"], b["bboxes"])  # noqa: E731
+                         and np.array_equal(a["scores"], b["scores"]))
+    again = det.detect_tta_dataset(keyed)
+    if not all(same(got[k], again[k]) for k in got):
+        raise AssertionError("phase 23: a second dataset run differs")
+    n_det = [len(got[k]["scores"]) for k, _ in keyed]
+    err = 0.0
+    for vi in runner.vote_inputs[:2]:
+        b, s, v = (torch.from_numpy(a).to(dev) for a in vi[:3])
+        err = max(err, compare_vote(b, s, v, post.vote_iou_threshold, post.max_detections,
+                                    "the TTA run's vote rows"))
+    log(f"  detections an image {min(n_det)}..{max(n_det)}; a second dataset run bit-identical")
+    launches["err"] = err
+    return launches
+
+
+def phase23_train(cfg, dev, smi):
+    """Two train steps at batch 8, 640x640, max_gt 1,024, image 0 from
+    synthetic_sample(n_faces=700): the matcher must see > 512 valid gts in
+    one image and take several chunks; its targets on the batch held
+    against the plain version.  -> matcher calls."""
+    tcfg = train_config(cfg)
+    tcfg = dataclasses.replace(
+        tcfg, match=dataclasses.replace(tcfg.match, max_gt=LONG_GT),
+        train=dataclasses.replace(tcfg.train, batch_size=LONG_TRAIN_BATCH))
+    batch = synthetic_batch(tcfg, LONG_TRAIN_BATCH, seed=SEED + 23)
+    img, bx, mk = synthetic_sample(np.random.default_rng(SEED + 233),
+                                   tcfg.preprocess.canvas_size, LONG_GT, n_faces=LONG_FACES)
+    batch["canvas"][0], batch["boxes"][0], batch["mask"][0] = img, bx, mk
+    size = tcfg.preprocess.train_image_size
+    _, pb, pm = preprocessed(batch, tcfg, dev)
+    compare_matcher((generate_anchors(tcfg.anchors, size, size, dev), pb, pm, tcfg.match,
+                     tcfg.anchors), "the 700-face train batch", "phase 23")
+    seen = []
+    call = matching_cuda.match_anchors_cuda
+
+    def spy(anchors, gt_boxes, gt_mask, *args):
+        seen.append(gt_mask.sum(dim=1).tolist())
+        return call(anchors, gt_boxes, gt_mask, *args)
+
+    state = create_train_state(tcfg, SEED, dev)
+    for mod, _, _ in TRAIN_KERNELS.values():
+        mod.LAUNCHES = 0
+    matching_cuda.match_anchors_cuda = spy
+    try:
+        t0 = time.perf_counter()
+        losses = [float(train_step(state, batch)["loss"]) for _ in range(2)]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        matching_cuda.match_anchors_cuda = call
+    launches = {name: mod.LAUNCHES for name, (mod, _, _) in TRAIN_KERNELS.items()}
+    log(f"phase 23: 2 train steps at batch {LONG_TRAIN_BATCH}, {size}x{size}, max_gt {LONG_GT}: "
+        f"loss {losses}, {secs:.2f} s (host clock, first steps); valid gts the matcher saw a "
+        f"call {seen}; launches {launches}; matcher path {matching_cuda.LAST_PATH} ({smi})")
+    if not (np.isfinite(losses).all() and train_launches_ok(launches, 2) and len(seen) == 2
+            and all(max(c) > 512 for c in seen)
+            and matching_cuda.LAST_PATH == matching_cuda.LONG_ROW):
+        raise AssertionError("phase 23: the long-gt train steps are not finite, launched other "
+                             "counts, or no image reached the matcher with > 512 valid gts")
+    return launches["matcher"]
+
+
+def phase23(cfg, dev, smi):
+    """Long rows: each long-row path against its plain version, then each
+    through its entry points at full width."""
+    t0 = time.perf_counter()
+    det, nms = phase23_nms(cfg, dev, smi)
+    vote = phase23_vote(cfg, dev, smi)
+    matcher = phase23_matcher(cfg, dev, smi)
+    torch.cuda.empty_cache()
+    nms["launches"] = phase23_detect(det, cfg, smi)
+    del det
+    torch.cuda.empty_cache()
+    tta = phase23_tta(cfg, dev, smi)
+    torch.cuda.empty_cache()
+    matcher["launches"] = phase23_train(cfg, dev, smi)
+    log(f"phase 23: {time.perf_counter() - t0:.1f} s")
+    return {"nms": nms, "vote": vote, "matcher": matcher, "tta": tta}
 
 
 if __name__ == "__main__":

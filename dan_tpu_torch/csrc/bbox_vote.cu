@@ -43,6 +43,16 @@
 // indices, and then the members' key array; the owner array ends as the
 // slots' first positions in it.
 //
+// Long rows.  A row of up to bbox_vote_shared_max_rows() detections (7,136)
+// is in shared memory.  A longer one, up to 2^30, takes the same four steps
+// on global scratch that the wrapper allocates, 32 bytes a detection in the
+// same layout: the sorts (the same bitonic network), the tile scan with its
+// owners, the compactions and the per-slot sums read and write there, L2
+// serves it, and only the current tile (its 64 boxes and areas, staged
+// before its merge words) and the sweep's working set are in shared memory.
+// The decisions and the order of every sum are those of the shared-memory
+// path.
+//
 // Agreement with the plain version (dan_tpu_torch/ops/bbox_vote.py): every
 // merge decision takes its IoU in the operation order of
 // box/iou.py::iou_one_to_many with the selected box first (box_iou.cuh:
@@ -136,6 +146,9 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
+// kLong: the row lives in `scratch`, 32 bytes a detection as below, instead
+// of shared memory.
+template <bool kLong>
 __global__ void __launch_bounds__(kThreads, 1)
 bbox_vote_kernel(const float4 *__restrict__ boxes,         // (B, R)
                  const float *__restrict__ scores,         // (B, R)
@@ -144,15 +157,20 @@ bbox_vote_kernel(const float4 *__restrict__ boxes,         // (B, R)
                  float *__restrict__ out_scores,           // (B, M)
                  unsigned char *__restrict__ out_valid,    // (B, M)
                  int *__restrict__ tiles_out,              // (B,)
+                 unsigned char *scratch,                   // (B, 32 R) bytes when kLong
                  int r, int max_out, float iou_thr) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float4 *sbox = reinterpret_cast<float4 *>(smem);
-  u64 *skey = reinterpret_cast<u64 *>(smem + 16 * (size_t)r);
-  float *sscore = reinterpret_cast<float *>(smem + 24 * (size_t)r);
-  int *sowner = reinterpret_cast<int *>(smem + 28 * (size_t)r);
+  unsigned char *mem = kLong ? scratch + (size_t)blockIdx.x * kBytesPerDet * r : smem;
+  float4 *sbox = reinterpret_cast<float4 *>(mem);
+  u64 *skey = reinterpret_cast<u64 *>(mem + 16 * (size_t)r);
+  float *sscore = reinterpret_cast<float *>(mem + 24 * (size_t)r);
+  int *sowner = reinterpret_cast<int *>(mem + 28 * (size_t)r);
   __shared__ u64 sup[kTile];          // bit j of sup[i]: tile member i merges j > i
   __shared__ float4 kept_box[kTile];  // the tile's kept detections, packed
   __shared__ float kept_area[kTile];
+  // kLong: the current tile's boxes and areas, staged.
+  __shared__ float4 tile_box[kLong ? kTile : 1];
+  __shared__ float tile_area[kLong ? kTile : 1];
   __shared__ int warp_total[2][kWarps];
   __shared__ int n_keys;
   __shared__ int bad[4];  // detections of the row with a non-finite x1, y1, x2, y2
@@ -226,6 +244,14 @@ bbox_vote_kernel(const float4 *__restrict__ boxes,         // (B, R)
   while (m > 0 && count < max_out) {
     ++tiles;
     const int tn = min(kTile, m);
+    if constexpr (kLong) {
+      if (tid < tn) {
+        const float4 bb = sbox[act[tid]];
+        tile_box[tid] = bb;
+        tile_area[tid] = area_of(bb);
+      }
+      __syncthreads();
+    }
     // a. The tile's merge words: warp w makes rows w and w + 32, a lane the
     // bits lane and lane + 32.
 #pragma unroll
@@ -233,20 +259,31 @@ bbox_vote_kernel(const float4 *__restrict__ boxes,         // (B, R)
       const int i = warp + h * kWarps;
       unsigned lo = 0, hi = 0;
       if (i < tn) {  // uniform in the warp
-        const float4 bi = sbox[act[i]];
-        const float ai = area_of(bi);
         bool t = false;
-        if (lane > i && lane < tn) {
-          const float4 bj = sbox[act[lane]];
-          t = merges(bi, ai, bj, area_of(bj), iou_thr);
+        if constexpr (kLong) {
+          const float4 bi = tile_box[i];
+          const float ai = tile_area[i];
+          if (lane > i && lane < tn) t = merges(bi, ai, tile_box[lane], tile_area[lane], iou_thr);
+          lo = __ballot_sync(kFull, t);
+          t = false;
+          if (32 + lane > i && 32 + lane < tn)
+            t = merges(bi, ai, tile_box[32 + lane], tile_area[32 + lane], iou_thr);
+          hi = __ballot_sync(kFull, t);
+        } else {
+          const float4 bi = sbox[act[i]];
+          const float ai = area_of(bi);
+          if (lane > i && lane < tn) {
+            const float4 bj = sbox[act[lane]];
+            t = merges(bi, ai, bj, area_of(bj), iou_thr);
+          }
+          lo = __ballot_sync(kFull, t);
+          t = false;
+          if (32 + lane > i && 32 + lane < tn) {
+            const float4 bj = sbox[act[32 + lane]];
+            t = merges(bi, ai, bj, area_of(bj), iou_thr);
+          }
+          hi = __ballot_sync(kFull, t);
         }
-        lo = __ballot_sync(kFull, t);
-        t = false;
-        if (32 + lane > i && 32 + lane < tn) {
-          const float4 bj = sbox[act[32 + lane]];
-          t = merges(bi, ai, bj, area_of(bj), iou_thr);
-        }
-        hi = __ballot_sync(kFull, t);
       }
       if (lane == 0) sup[i] = ((u64)hi << 32) | lo;
     }
@@ -275,9 +312,14 @@ bbox_vote_kernel(const float4 *__restrict__ boxes,         // (B, R)
       sowner[b] = my_slot;
       if ((kept >> tid) & 1ull) {
         const int c = my_slot - base;  // the kept members below tid
-        const float4 bb = sbox[b];
-        kept_box[c] = bb;
-        kept_area[c] = area_of(bb);
+        if constexpr (kLong) {
+          kept_box[c] = tile_box[tid];
+          kept_area[c] = tile_area[tid];
+        } else {
+          const float4 bb = sbox[b];
+          kept_box[c] = bb;
+          kept_area[c] = area_of(bb);
+        }
         os[my_slot] = sscore[b];
         ov[my_slot] = 1;
       }
@@ -394,33 +436,54 @@ bbox_vote_kernel(const float4 *__restrict__ boxes,         // (B, R)
 
 bool g_configured = false;  // the opt-in shared memory is set once a process
 
+// Longest row a launch takes: the bitonic network's size, a power of two,
+// stays an int.
+constexpr int kMaxRows = 1 << 30;
+
 }  // namespace
 
 extern "C" {
 
-// Largest row length the kernel takes: 32 bytes a detection in shared
-// memory, within the 227 KB a block may use on sm_90.
-int bbox_vote_max_rows() { return (kMaxShared - kStaticReserve) / kBytesPerDet; }
+// Longest row the shared-memory path takes: 32 bytes a detection in shared
+// memory, within the 227 KB a block may use on sm_90.  A longer row takes
+// the long-row path.
+int bbox_vote_shared_max_rows() { return (kMaxShared - kStaticReserve) / kBytesPerDet; }
+
+// Bytes of global scratch a launch needs: 0 when the rows fit in shared
+// memory, else 32 a detection.
+long long bbox_vote_scratch_bytes(int batch, int r) {
+  return r > bbox_vote_shared_max_rows() ? (long long)kBytesPerDet * batch * r : 0;
+}
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// boxes must be 16-byte aligned.  tiles (B,) receives each row's dependent
-// steps.
+// boxes must be 16-byte aligned, scratch too where it is needed (it holds
+// bbox_vote_scratch_bytes(batch, r) bytes; null when that is 0).  tiles (B,)
+// receives each row's dependent steps.
 int bbox_vote_launch(const float *boxes, const float *scores, const unsigned char *valid,
                      float *out_boxes, float *out_scores, unsigned char *out_valid, int *tiles,
-                     int batch, int r, int max_out, float iou_thr, void *stream) {
-  if (r < 1 || r > bbox_vote_max_rows() || max_out < 1) return (int)cudaErrorInvalidValue;
+                     void *scratch, int batch, int r, int max_out, float iou_thr,
+                     void *stream) {
+  if (r < 1 || r > kMaxRows || max_out < 1) return (int)cudaErrorInvalidValue;
+  if (r > bbox_vote_shared_max_rows()) {
+    if (scratch == nullptr || (size_t)scratch % 16) return (int)cudaErrorInvalidValue;
+    bbox_vote_kernel<true><<<batch, kThreads, 0, (cudaStream_t)stream>>>(
+        reinterpret_cast<const float4 *>(boxes), scores, valid,
+        reinterpret_cast<float4 *>(out_boxes), out_scores, out_valid, tiles,
+        static_cast<unsigned char *>(scratch), r, max_out, iou_thr);
+    return (int)cudaGetLastError();
+  }
   if (!g_configured) {
-    cudaError_t err = cudaFuncSetAttribute(bbox_vote_kernel,
+    cudaError_t err = cudaFuncSetAttribute(bbox_vote_kernel<false>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            kMaxShared - kStaticReserve);
     if (err != cudaSuccess) return (int)err;
     g_configured = true;
   }
   const size_t smem = (size_t)kBytesPerDet * r;
-  bbox_vote_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
+  bbox_vote_kernel<false><<<batch, kThreads, smem, (cudaStream_t)stream>>>(
       reinterpret_cast<const float4 *>(boxes), scores, valid,
-      reinterpret_cast<float4 *>(out_boxes), out_scores, out_valid, tiles, r, max_out,
-      iou_thr);
+      reinterpret_cast<float4 *>(out_boxes), out_scores, out_valid, tiles, nullptr, r,
+      max_out, iou_thr);
   return (int)cudaGetLastError();
 }
 

@@ -33,7 +33,10 @@
 // small:
 //   * a masked gt has IoU 0 against every anchor and can never win a
 //     lowest-index tie against gt 0, so every pass walks only the image's
-//     valid gts (compacted into shared memory in ascending order);
+//     valid gts (compacted into shared memory in ascending order; past 512
+//     gt slots, passes 1a and 2 take their kChunked form, 512 slots at a
+//     time with a running best across the chunks, strict improvements only,
+//     so any G gives the lowest-index argmax over all G);
 //   * pass 1b has one block an SM, and the blocks take the batch's valid
 //     gts round-robin in (image, gt) order: its grid depends on neither the
 //     padded G nor the batch, and a padded gt costs no block;
@@ -59,7 +62,7 @@
 
 namespace {
 
-constexpr int kMaxG = 512;  // gts an image may carry (shared memory lists)
+constexpr int kChunkG = 512;  // gt slots a chunk of the shared-memory lists holds
 constexpr int kAnchorThreads = 256;
 constexpr int kGtThreads = 512;
 constexpr int kGtWarps = kGtThreads / 32;
@@ -95,24 +98,26 @@ __device__ __forceinline__ float anchor_iou(const Anchor &a, float gx1, float gy
   return box_iou(a.x1, a.y1, a.x2, a.y2, a.area, gx1, gy1, gx2, gy2, g_area);
 }
 
-// The valid gts of one image, in ascending index order, in shared memory.
+// The valid gts of one chunk of an image's slots, in ascending index order,
+// in shared memory.
 struct GtList {
-  float x1[kMaxG], y1[kMaxG], x2[kMaxG], y2[kMaxG], area[kMaxG];
-  int idx[kMaxG];
+  float x1[kChunkG], y1[kChunkG], x2[kChunkG], y2[kChunkG], area[kChunkG];
+  int idx[kChunkG];
   int n;
 };
 
-// Warp 0 compacts the valid gts of image b into `s` (ballot + popc keeps
-// ascending order); the caller syncs.
+// Warp 0 compacts the valid gts among slots [g0, g0 + kChunkG) of image b
+// into `s` (ballot + popc keeps ascending order); the caller syncs.
 __device__ void load_valid_gts(const float *__restrict__ gt,
-                               const unsigned char *__restrict__ mask, int b, int g_n,
+                               const unsigned char *__restrict__ mask, int b, int g_n, int g0,
                                GtList &s) {
   if (threadIdx.x >= 32) return;
   const int lane = threadIdx.x;
+  const int g_end = min(g_n, g0 + kChunkG);
   int count = 0;
-  for (int base = 0; base < g_n; base += 32) {
+  for (int base = g0; base < g_end; base += 32) {
     const int g = base + lane;
-    const bool v = g < g_n && mask[(size_t)b * g_n + g] != 0;
+    const bool v = g < g_end && mask[(size_t)b * g_n + g] != 0;
     const unsigned m = __ballot_sync(0xffffffffu, v);
     if (v) {
       const int pos = count + __popc(m & ((1u << lane) - 1u));
@@ -129,7 +134,21 @@ __device__ void load_valid_gts(const float *__restrict__ gt,
   if (lane == 0) s.n = count;
 }
 
+// Strict improvements of (best, arg) over one list's gts, in order.
+__device__ __forceinline__ void best_iou_over(const Anchor &an, const GtList &s, float &best,
+                                              int &arg) {
+  for (int j = 0; j < s.n; ++j) {
+    const float v = anchor_iou(an, s.x1[j], s.y1[j], s.x2[j], s.y2[j], s.area[j]);
+    if (v > best) {
+      best = v;
+      arg = s.idx[j];
+    }
+  }
+}
+
 // Pass 1a: per anchor, the raw best IoU (matched_iou) and its gt.
+// kChunked (G > kChunkG): the gt slots a chunk at a time.
+template <bool kChunked>
 __global__ void __launch_bounds__(kAnchorThreads)
 anchor_best_kernel(const float4 *__restrict__ anchors,       // (A,) cx cy w h
                    const float *__restrict__ gt,             // (B, G, 4)
@@ -139,22 +158,27 @@ anchor_best_kernel(const float4 *__restrict__ anchors,       // (A,) cx cy w h
                    int a_n, int g_n) {
   __shared__ GtList s;
   const int b = blockIdx.y;
-  load_valid_gts(gt, mask, b, g_n, s);
-  __syncthreads();
   const int a = blockIdx.x * kAnchorThreads + threadIdx.x;
-  if (a >= a_n) return;
-  const Anchor an = load_anchor(anchors, a);
   // Every gt scores >= 0 and gt 0 scores at least 0, so starting from
-  // (0, gt 0) and taking strict improvements over the valid gts in order
-  // is the argmax over all G gts with the lowest index on ties.
+  // (0, gt 0) and taking strict improvements over the valid gts in order,
+  // chunk after chunk, is the argmax over all G gts with the lowest index
+  // on ties.
   float best = 0.0f;
   int arg = 0;
-  for (int j = 0; j < s.n; ++j) {
-    const float v = anchor_iou(an, s.x1[j], s.y1[j], s.x2[j], s.y2[j], s.area[j]);
-    if (v > best) {
-      best = v;
-      arg = s.idx[j];
+  if constexpr (kChunked) {
+    const Anchor an = load_anchor(anchors, min(a, a_n - 1));
+    for (int g0 = 0; g0 < g_n; g0 += kChunkG) {
+      if (g0 > 0) __syncthreads();  // every thread is done with the last chunk
+      load_valid_gts(gt, mask, b, g_n, g0, s);
+      __syncthreads();
+      if (a < a_n) best_iou_over(an, s, best, arg);
     }
+    if (a >= a_n) return;
+  } else {
+    load_valid_gts(gt, mask, b, g_n, 0, s);
+    __syncthreads();
+    if (a >= a_n) return;
+    best_iou_over(load_anchor(anchors, a), s, best, arg);
   }
   best_iou[(size_t)b * a_n + a] = best;
   best_gt[(size_t)b * a_n + a] = arg;
@@ -314,44 +338,80 @@ struct TargetParams {
   int k_needs;           // a gt needs compensation when its count < k_needs
 };
 
-// Pass 2: per anchor, the augmented argmax over the gts and the targets.
-__global__ void __launch_bounds__(kAnchorThreads)
-assign_kernel(const float4 *__restrict__ anchors, const float *__restrict__ gt,
-              const unsigned char *__restrict__ mask, GtStats st, Targets out,
-              TargetParams tp, int a_n, int g_n) {
-  __shared__ GtList s;
-  __shared__ int s_best[kMaxG];
-  __shared__ bool s_needs[kMaxG];
-  __shared__ float s_kv[kMaxG];
-  __shared__ int s_ki[kMaxG];
-  const int b = blockIdx.y;
-  load_valid_gts(gt, mask, b, g_n, s);
-  __syncthreads();
+// Pass 1b's statistics of one list's gts, as pass 2 reads them; every
+// thread of the block takes part.
+struct ListStats {
+  int best[kChunkG];
+  bool needs[kChunkG];
+  float kv[kChunkG];
+  int ki[kChunkG];
+};
+
+__device__ __forceinline__ void load_list_stats(const GtList &s, const GtStats &st,
+                                                const TargetParams &tp, int b, int g_n,
+                                                ListStats &ls) {
   for (int j = threadIdx.x; j < s.n; j += kAnchorThreads) {
     const size_t gb = (size_t)b * g_n + s.idx[j];
-    s_best[j] = st.best_anchor[gb];
-    s_needs[j] = st.count[gb] < tp.k_needs;
-    s_kv[j] = st.kth_v[gb];
-    s_ki[j] = st.kth_i[gb];
+    ls.best[j] = st.best_anchor[gb];
+    ls.needs[j] = st.count[gb] < tp.k_needs;
+    ls.kv[j] = st.kth_v[gb];
+    ls.ki[j] = st.kth_i[gb];
   }
-  __syncthreads();
-  const int a = blockIdx.x * kAnchorThreads + threadIdx.x;
-  if (a >= a_n) return;
-  const Anchor an = load_anchor(anchors, a);
-  // As in pass 1a: a masked gt scores exactly 0, so (0, gt 0) plus strict
-  // improvements over the valid gts is the lowest-index argmax over all G.
-  float best = 0.0f;
-  int arg = 0;
+}
+
+// Strict improvements of (best, arg) by the augmented IoU over one list.
+__device__ __forceinline__ void aug_over(const Anchor &an, int a, const GtList &s,
+                                         const ListStats &ls, const TargetParams &tp,
+                                         float &best, int &arg) {
   for (int j = 0; j < s.n; ++j) {
     const float iou = anchor_iou(an, s.x1[j], s.y1[j], s.x2[j], s.y2[j], s.area[j]);
-    const float forced = a == s_best[j] ? 1.0f : 0.0f;
-    const bool in_topk = iou > s_kv[j] || (iou == s_kv[j] && a <= s_ki[j]);
-    const float comp = (s_needs[j] && in_topk && iou > tp.scale_comp_iou) ? 1.0f : 0.0f;
+    const float forced = a == ls.best[j] ? 1.0f : 0.0f;
+    const bool in_topk = iou > ls.kv[j] || (iou == ls.kv[j] && a <= ls.ki[j]);
+    const float comp = (ls.needs[j] && in_topk && iou > tp.scale_comp_iou) ? 1.0f : 0.0f;
     const float aug = (iou + 2.0f * forced) + fminf(comp, 1.0f);
     if (aug > best) {
       best = aug;
       arg = s.idx[j];
     }
+  }
+}
+
+// Pass 2: per anchor, the augmented argmax over the gts and the targets.
+// kChunked as in pass 1a.
+template <bool kChunked>
+__global__ void __launch_bounds__(kAnchorThreads)
+assign_kernel(const float4 *__restrict__ anchors, const float *__restrict__ gt,
+              const unsigned char *__restrict__ mask, GtStats st, Targets out,
+              TargetParams tp, int a_n, int g_n) {
+  __shared__ GtList s;
+  __shared__ ListStats ls;
+  const int b = blockIdx.y;
+  const int a = blockIdx.x * kAnchorThreads + threadIdx.x;
+  // As in pass 1a: a masked gt scores exactly 0, so (0, gt 0) plus strict
+  // improvements over the valid gts, chunk after chunk, is the lowest-index
+  // argmax over all G.
+  float best = 0.0f;
+  int arg = 0;
+  Anchor an;
+  if constexpr (kChunked) {
+    an = load_anchor(anchors, min(a, a_n - 1));
+    for (int g0 = 0; g0 < g_n; g0 += kChunkG) {
+      if (g0 > 0) __syncthreads();  // every thread is done with the last chunk
+      load_valid_gts(gt, mask, b, g_n, g0, s);
+      __syncthreads();
+      load_list_stats(s, st, tp, b, g_n, ls);
+      __syncthreads();
+      if (a < a_n) aug_over(an, a, s, ls, tp, best, arg);
+    }
+    if (a >= a_n) return;
+  } else {
+    load_valid_gts(gt, mask, b, g_n, 0, s);
+    __syncthreads();
+    load_list_stats(s, st, tp, b, g_n, ls);
+    __syncthreads();
+    if (a >= a_n) return;
+    an = load_anchor(anchors, a);
+    aug_over(an, a, s, ls, tp, best, arg);
   }
   const size_t ba = (size_t)b * a_n + a;
   const float raw = out.iou[ba];
@@ -396,6 +456,10 @@ int device_limits() {
 
 extern "C" {
 
+// Gt slots a chunk of the shared-memory lists holds; an image with more
+// takes several chunks.
+int match_chunk_gts() { return kChunkG; }
+
 // Ints of scratch match_launch needs: pass 1a's best gt an anchor and four
 // statistics a gt.
 long long match_scratch_ints(int b, int a_n, int g_n) {
@@ -410,7 +474,8 @@ int match_launch(const float *anchors, const float *gt, const unsigned char *mas
                  int *scratch, int b, int a_n, int g_n, int k, int k_needs,
                  float match_threshold, float ignore_threshold, float scale_comp_iou, float s0,
                  float s1, float s2, float s3, cudaStream_t stream) {
-  if (g_n < 1 || g_n > kMaxG || k < 1 || k > a_n) return (int)cudaErrorInvalidValue;
+  if (g_n < 1 || k < 1 || k > a_n || (long long)b * g_n > INT_MAX - kGtThreads)
+    return (int)cudaErrorInvalidValue;
   if (b == 0 || a_n == 0) return 0;
   int err = device_limits();
   if (err) return err;
@@ -422,8 +487,14 @@ int match_launch(const float *anchors, const float *gt, const unsigned char *mas
                       stats + 3 * bg};
 
   const dim3 grid_a((a_n + kAnchorThreads - 1) / kAnchorThreads, b);
-  anchor_best_kernel<<<grid_a, kAnchorThreads, 0, stream>>>(anc, gt, mask, matched_iou,
-                                                            best_gt, a_n, g_n);
+  const bool chunked = g_n > kChunkG;
+  if (chunked) {
+    anchor_best_kernel<true><<<grid_a, kAnchorThreads, 0, stream>>>(anc, gt, mask, matched_iou,
+                                                                    best_gt, a_n, g_n);
+  } else {
+    anchor_best_kernel<false><<<grid_a, kAnchorThreads, 0, stream>>>(anc, gt, mask, matched_iou,
+                                                                     best_gt, a_n, g_n);
+  }
   err = (int)cudaGetLastError();
   if (err) return err;
 
@@ -448,7 +519,13 @@ int match_launch(const float *anchors, const float *gt, const unsigned char *mas
                        matched_iou};
   const TargetParams tp = {match_threshold, ignore_threshold, scale_comp_iou,
                            s0, s1, s2, s3, k_needs};
-  assign_kernel<<<grid_a, kAnchorThreads, 0, stream>>>(anc, gt, mask, st, out, tp, a_n, g_n);
+  if (chunked) {
+    assign_kernel<true><<<grid_a, kAnchorThreads, 0, stream>>>(anc, gt, mask, st, out, tp, a_n,
+                                                               g_n);
+  } else {
+    assign_kernel<false><<<grid_a, kAnchorThreads, 0, stream>>>(anc, gt, mask, st, out, tp, a_n,
+                                                                g_n);
+  }
   return (int)cudaGetLastError();
 }
 

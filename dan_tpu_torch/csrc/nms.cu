@@ -49,6 +49,18 @@
 // kernel, chosen per row on the device; `path` reports which one a row took
 // (1 = tile scan) and `tiles` the scan's dependent steps.
 //
+// Long rows.  Shared memory holds a row of up to nms_rank_shared_max_n()
+// boxes (9,557).  A longer row, up to the 32-bit index, takes the same two
+// paths from global scratch that the wrapper allocates, 24 bytes a box
+// ((B, 6, N) floats): the boxes, the areas and the key array (the list of
+// active boxes) live there, L2 serves them, and only the tile scan's current
+// tile (its 64 boxes and areas, staged before its suppression words) and the
+// sweep's working set (the kept boxes, the warps' counts) are in shared
+// memory.  Every decision is the same expression on the same floats, so the
+// ranks are those of the shared-memory path bit for bit.  The wrapper picks
+// the long-row path from N; `path` reports it as bit 1 (2 = argmax loop from
+// scratch, 3 = tile scan from scratch).
+//
 // Bit-exactness with the plain version (dan_tpu_torch/ops/nms_cuda.py):
 // areas and IoU use the operation order of nms_batched_pallas.py:52,70-77,
 // IEEE division, and the union > 0 guard, with NaN-propagating max / min
@@ -59,6 +71,7 @@
 // change roundings and could flip a decision that sits right at the
 // threshold.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 
 #include "box_iou.cuh"
@@ -165,12 +178,19 @@ __device__ __forceinline__ bool suppresses(const Row &s, int j, int k, float iou
 // score > the score threshold.  The row's key array is not needed on this
 // path and holds the list of active boxes, in order, instead: the sweep
 // compacts it, so tiles and warps stay dense while the row thins out.
+// kStaged (the long-row path, whose row is in global scratch): the tile's
+// boxes are copied into shared memory before its suppression words.
+template <bool kStaged>
 __device__ __forceinline__ void tile_scan(const Row s, int *__restrict__ r, int max_out,
                           float iou_thr, int n_live, int *__restrict__ tiles_out) {
   __shared__ unsigned long long sup[kTile];  // bit j of sup[i]: i suppresses j > i
   __shared__ float4 kept_box[kTile];         // the tile's kept boxes, packed
   __shared__ float kept_area[kTile];
   __shared__ int warp_total[2][kWarps];
+  __shared__ float tx1[kStaged ? kTile : 1], ty1[kStaged ? kTile : 1], tx2[kStaged ? kTile : 1],
+      ty2[kStaged ? kTile : 1], tarea[kStaged ? kTile : 1];
+  // The tile's boxes: positions 0..tn-1 of the staged copy, or the row.
+  const Row t = {tx1, ty1, tx2, ty2, tarea, nullptr, kTile};
   int *act = reinterpret_cast<int *>(s.key);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -184,6 +204,17 @@ __device__ __forceinline__ void tile_scan(const Row s, int *__restrict__ r, int 
   while (m > 0 && count < max_out) {
     ++tiles;
     const int tn = min(kTile, m);
+    if constexpr (kStaged) {
+      if (tid < tn) {
+        const int b = act[tid];
+        tx1[tid] = s.x1[b];
+        ty1[tid] = s.y1[b];
+        tx2[tid] = s.x2[b];
+        ty2[tid] = s.y2[b];
+        tarea[tid] = s.area[b];
+      }
+      __syncthreads();
+    }
     // a. The tile's suppression words: warp w makes rows w and w + 32, a
     // lane the bits lane and lane + 32.
 #pragma unroll
@@ -191,11 +222,18 @@ __device__ __forceinline__ void tile_scan(const Row s, int *__restrict__ r, int 
       const int i = warp + h * kWarps;
       unsigned lo = 0, hi = 0;
       if (i < tn) {  // uniform in the warp
-        const int bi = act[i];
-        lo = __ballot_sync(0xffffffffu, lane > i && lane < tn &&
-                                            suppresses(s, bi, act[lane], iou_thr));
-        hi = __ballot_sync(0xffffffffu, 32 + lane > i && 32 + lane < tn &&
-                                            suppresses(s, bi, act[32 + lane], iou_thr));
+        if constexpr (kStaged) {
+          lo = __ballot_sync(0xffffffffu, lane > i && lane < tn &&
+                                              suppresses(t, i, lane, iou_thr));
+          hi = __ballot_sync(0xffffffffu, 32 + lane > i && 32 + lane < tn &&
+                                              suppresses(t, i, 32 + lane, iou_thr));
+        } else {
+          const int bi = act[i];
+          lo = __ballot_sync(0xffffffffu, lane > i && lane < tn &&
+                                              suppresses(s, bi, act[lane], iou_thr));
+          hi = __ballot_sync(0xffffffffu, 32 + lane > i && 32 + lane < tn &&
+                                              suppresses(s, bi, act[32 + lane], iou_thr));
+        }
       }
       if (lane == 0) sup[i] = ((unsigned long long)hi << 32) | lo;
     }
@@ -217,8 +255,13 @@ __device__ __forceinline__ void tile_scan(const Row s, int *__restrict__ r, int 
       const int c = __popcll(kept & ((1ull << tid) - 1ull));
       const int b = act[tid];
       r[b] = base + c;
-      kept_box[c] = make_float4(s.x1[b], s.y1[b], s.x2[b], s.y2[b]);
-      kept_area[c] = s.area[b];
+      if constexpr (kStaged) {
+        kept_box[c] = make_float4(tx1[tid], ty1[tid], tx2[tid], ty2[tid]);
+        kept_area[c] = tarea[tid];
+      } else {
+        kept_box[c] = make_float4(s.x1[b], s.y1[b], s.x2[b], s.y2[b]);
+        kept_area[c] = s.area[b];
+      }
     }
     const int n_kept = __popcll(kept);
     __syncthreads();
@@ -269,15 +312,19 @@ __device__ __forceinline__ void tile_scan(const Row s, int *__restrict__ r, int 
   if (tid == 0) *tiles_out = tiles;
 }
 
+// kLong: the row lives in `scratch`, (B, 6, N) floats, instead of shared
+// memory.
+template <bool kLong>
 __global__ void __launch_bounds__(kThreads, 1)
 nms_rank_kernel(const float *__restrict__ boxes,   // (B, N, 4)
                 const float *__restrict__ scores,  // (B, N)
                 int *__restrict__ rank,            // (B, N) out
-                unsigned char *__restrict__ path,  // (B,) out: 1 = tile scan
+                unsigned char *__restrict__ path,  // (B,) out: 1 = tile scan, | 2 = long row
                 int *__restrict__ tiles,           // (B,) out: the scan's steps
+                float *scratch,                    // (B, 6, N) when kLong
                 int n, int max_out, float iou_thr, float score_thr) {
   extern __shared__ float smem[];
-  float *sx1 = smem;
+  float *sx1 = kLong ? scratch + (size_t)blockIdx.x * 6 * n : smem;
   float *sy1 = sx1 + n;
   float *sx2 = sy1 + n;
   float *sy2 = sx2 + n;
@@ -301,7 +348,8 @@ nms_rank_kernel(const float *__restrict__ boxes,   // (B, N, 4)
   int my_i = n;
   int out_of_order = 0;
   for (int k = tid; k < n; k += kThreads) {
-    float x1 = b[4 * k], y1 = b[4 * k + 1], x2 = b[4 * k + 2], y2 = b[4 * k + 3];
+    const float *bk = kLong ? b + 4 * (size_t)k : b + 4 * k;
+    float x1 = bk[0], y1 = bk[1], x2 = bk[2], y2 = bk[3];
     sx1[k] = x1;
     sy1[k] = y1;
     sx2[k] = x2;
@@ -328,13 +376,13 @@ nms_rank_kernel(const float *__restrict__ boxes,   // (B, N, 4)
   const bool sorted = __syncthreads_or(out_of_order) == 0;
   const int n_live = live_prefix;
   if (tid == 0) {
-    path[row] = sorted ? 1 : 0;
+    path[row] = (sorted ? 1 : 0) | (kLong ? 2 : 0);
     tiles[row] = 0;
   }
 
   const Row sm = {sx1, sy1, sx2, sy2, sarea, skey, n};
   if (sorted) {
-    tile_scan(sm, r, max_out, iou_thr, n_live, tiles + row);
+    tile_scan<kLong>(sm, r, max_out, iou_thr, n_live, tiles + row);
   } else {
     argmax_loop(sm, r, max_out, iou_thr, my_v, my_i);
   }
@@ -344,20 +392,36 @@ nms_rank_kernel(const float *__restrict__ boxes,   // (B, N, 4)
 
 extern "C" {
 
-// Largest row length the kernel takes: six floats a box in shared memory,
-// within the 227 KB a block may use on sm_90 (3 KB are the static arrays).
-int nms_rank_max_n() { return (227 * 1024 - 3072) / (6 * (int)sizeof(float)); }
+// Longest row the shared-memory path takes: six floats a box in shared
+// memory, within the 227 KB a block may use on sm_90 (3 KB are the static
+// arrays).  A longer row takes the long-row path.
+int nms_rank_shared_max_n() { return (227 * 1024 - 3072) / (6 * (int)sizeof(float)); }
+
+// Floats of global scratch a launch needs: 0 when the rows fit in shared
+// memory, else six a box.
+long long nms_rank_scratch_floats(int batch, int n) {
+  return n > nms_rank_shared_max_n() ? 6LL * batch * n : 0;
+}
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
+// scratch holds nms_rank_scratch_floats(batch, n) floats (may be null when
+// that is 0).
 int nms_rank_launch(const float *boxes, const float *scores, int *rank,
-                    unsigned char *path, int *tiles, int batch, int n, int max_out,
-                    float iou_thr, float score_thr, void *stream) {
+                    unsigned char *path, int *tiles, float *scratch, int batch, int n,
+                    int max_out, float iou_thr, float score_thr, void *stream) {
+  if (n < 1 || n > INT_MAX - kThreads) return (int)cudaErrorInvalidValue;
+  if (n > nms_rank_shared_max_n()) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    nms_rank_kernel<true><<<batch, kThreads, 0, (cudaStream_t)stream>>>(
+        boxes, scores, rank, path, tiles, scratch, n, max_out, iou_thr, score_thr);
+    return (int)cudaGetLastError();
+  }
   size_t smem = (size_t)6 * n * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      nms_rank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      nms_rank_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  nms_rank_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
-      boxes, scores, rank, path, tiles, n, max_out, iou_thr, score_thr);
+  nms_rank_kernel<false><<<batch, kThreads, smem, (cudaStream_t)stream>>>(
+      boxes, scores, rank, path, tiles, nullptr, n, max_out, iou_thr, score_thr);
   return (int)cudaGetLastError();
 }
 

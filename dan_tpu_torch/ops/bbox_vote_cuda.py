@@ -16,7 +16,11 @@ and are the same bits from run to run.
 
 The kernel sorts each row's active detections and resolves them in tiles
 of 64 (csrc/bbox_vote.cu); `LAST_TILES` holds each row's tiles (its chain
-of dependent steps) from the last launch.
+of dependent steps) from the last launch.  A row of up to
+`bbox_vote_shared_max_rows()` detections (7,136) is held in shared memory; a
+longer one, up to MAX_ROWS, runs the same steps from global scratch that
+the wrapper allocates (32 bytes a detection).  `LAST_PATH` says which path
+the last launch took: SHARED or LONG_ROW.
 """
 from __future__ import annotations
 
@@ -41,6 +45,12 @@ LAUNCHES = 0
 LAST_TILES: Optional[torch.Tensor] = None
 # A tile resolves this many detections.
 TILE = 64
+# The longest row the kernel takes (its bitonic network stays an int).
+MAX_ROWS = 2**30
+# The path of the last launch: the row in shared memory, or in global scratch.
+SHARED = 0
+LONG_ROW = 2
+LAST_PATH: Optional[int] = None
 
 
 def build() -> ctypes.CDLL:
@@ -49,12 +59,14 @@ def build() -> ctypes.CDLL:
     lib.bbox_vote_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_void_p,
     ]
     lib.bbox_vote_launch.restype = ctypes.c_int
-    lib.bbox_vote_max_rows.argtypes = []
-    lib.bbox_vote_max_rows.restype = ctypes.c_int
+    lib.bbox_vote_shared_max_rows.argtypes = []
+    lib.bbox_vote_shared_max_rows.restype = ctypes.c_int
+    lib.bbox_vote_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.bbox_vote_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -84,7 +96,7 @@ def bbox_vote_cuda(boxes, scores, in_valid, iou_threshold: float, max_out: int) 
 
 
 def _launch(boxes, scores, in_valid, iou_threshold, max_out) -> VoteResult:
-    global LAUNCHES, LAST_TILES
+    global LAUNCHES, LAST_TILES, LAST_PATH
     if boxes.device.type != "cuda":
         raise ValueError(f"the vote kernel takes CUDA tensors, got {boxes.device}")
     if not (boxes.is_contiguous() and scores.is_contiguous() and in_valid.is_contiguous()):
@@ -94,12 +106,9 @@ def _launch(boxes, scores, in_valid, iou_threshold, max_out) -> VoteResult:
     if max_out <= 0:
         raise ValueError(f"max_out must be positive, got {max_out}")
     bsz, n = scores.shape
+    if n > MAX_ROWS:
+        raise ValueError(f"N={n} detections a row exceed the kernel's limit ({MAX_ROWS})")
     lib = build()
-    if n > lib.bbox_vote_max_rows():
-        raise ValueError(
-            f"N={n} detections a row exceed the kernel's shared-memory limit "
-            f"({lib.bbox_vote_max_rows()})"
-        )
     dev = boxes.device
     out_boxes = torch.empty((bsz, max_out, 4), dtype=torch.float32, device=dev)
     out_scores = torch.empty((bsz, max_out), dtype=torch.float32, device=dev)
@@ -109,14 +118,19 @@ def _launch(boxes, scores, in_valid, iou_threshold, max_out) -> VoteResult:
     if n == 0:
         return VoteResult(out_boxes.zero_(), out_scores.zero_(), out_valid.zero_())
     tiles = torch.empty((bsz,), dtype=torch.int32, device=dev)
+    # The long-row path's rows, 32 bytes a detection (as int64: 16-byte
+    # aligned); none for shared-memory rows.
+    scratch = torch.empty((lib.bbox_vote_scratch_bytes(bsz, n) // 8,), dtype=torch.int64,
+                          device=dev)
     with torch.cuda.device(dev):
         err = lib.bbox_vote_launch(
             boxes.data_ptr(), scores.data_ptr(), in_valid.data_ptr(),
             out_boxes.data_ptr(), out_scores.data_ptr(), out_valid.data_ptr(),
-            tiles.data_ptr(), bsz, n, int(max_out), float(iou_threshold),
-            _cuda_build.stream_of(boxes),
+            tiles.data_ptr(), scratch.data_ptr() if scratch.numel() else None,
+            bsz, n, int(max_out), float(iou_threshold), _cuda_build.stream_of(boxes),
         )
     _cuda_build.check(err, "bbox_vote_launch")
     LAUNCHES += 1
     LAST_TILES = tiles
+    LAST_PATH = LONG_ROW if scratch.numel() else SHARED
     return VoteResult(out_boxes, out_scores, out_valid)

@@ -12,13 +12,18 @@ augmented argmax and the four MatchTargets leaves, written directly).  The
 anchors go in as the centre-format (A, 4) tensor and the mask as its bool
 bytes; the wrapper only allocates the outputs and one scratch buffer.
 
+Any G: passes 1a and 2 list an image's valid gts in shared memory, and
+past 512 gt slots (`match_chunk_gts()`) they take them a chunk of slots at
+a time with a running best across the chunks.  `LAST_PATH` says whether the
+last call's lists fit in one chunk (SHARED) or took several (LONG_ROW).
+
 CUDA tensors only: the CPU path is the plain version, which
 box.matching.match_anchors_batch takes for CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,12 +33,17 @@ from dan_tpu_torch.box.matching import MatchTargets
 from dan_tpu_torch.ops import _cuda_build
 
 SOURCE = "matching"
-# Gt slots an image may have (kMaxG in csrc/matching.cu, which refuses more).
-MAX_GT = 512
+# The most gt slots a batch may have: the (image, gt) pair index is an int
+# that steps by 512.
+MAX_PAIRS = 2**31 - 1 - 512
 
 # Calls of the C entry point since the last reset (set to 0 to reset): each
 # launches pass 1 (K3, two kernels) and pass 2 (K4, one kernel) once.
 LAUNCHES = 0
+# The path of the last call: every image's gt list in one chunk, or several.
+SHARED = 0
+LONG_ROW = 2
+LAST_PATH: Optional[int] = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,7 +82,8 @@ def kernel_params(
 def check_inputs(anchors_center, gt_boxes, gt_mask) -> None:
     """Raise unless the inputs are what the kernel takes: (A, 4) float32
     anchors, (B, G, 4) float32 gts and a (B, G) bool mask, contiguous, with
-    1 <= G <= MAX_GT and A >= 1, on one CUDA device (checked last)."""
+    G >= 1, B x G <= MAX_PAIRS and A >= 1, on one CUDA device (checked
+    last)."""
     if (anchors_center.dim() != 2 or anchors_center.shape[-1] != 4 or gt_boxes.dim() != 3
             or gt_boxes.shape[-1] != 4 or gt_mask.shape != gt_boxes.shape[:2]):
         raise ValueError(
@@ -87,9 +98,12 @@ def check_inputs(anchors_center, gt_boxes, gt_mask) -> None:
     if not (anchors_center.is_contiguous() and gt_boxes.is_contiguous()
             and gt_mask.is_contiguous()):
         raise ValueError("the matcher kernel takes contiguous anchors, gts and mask")
-    g_n = gt_mask.shape[1]
-    if not 1 <= g_n <= MAX_GT:
-        raise ValueError(f"G={g_n} gt slots: the kernel takes 1..{MAX_GT}")
+    bsz, g_n = gt_mask.shape
+    if g_n < 1:
+        raise ValueError(f"G={g_n} gt slots: the kernel takes at least 1")
+    if bsz * g_n > MAX_PAIRS:
+        raise ValueError(f"B x G = {bsz * g_n} gt slots exceed the kernel's 32-bit pair "
+                         f"index ({MAX_PAIRS})")
     if anchors_center.shape[0] == 0:
         raise ValueError("no anchors")
     dev = gt_boxes.device
@@ -106,6 +120,8 @@ def build() -> ctypes.CDLL:
     lib.match_launch.restype = _I
     lib.match_scratch_ints.argtypes = [_I] * 3
     lib.match_scratch_ints.restype = ctypes.c_longlong
+    lib.match_chunk_gts.argtypes = []
+    lib.match_chunk_gts.restype = _I
     return lib
 
 
@@ -118,7 +134,7 @@ def match_anchors_cuda(
 ) -> MatchTargets:
     """(A, 4) centre anchors, (B, G, 4) corner gts and (B, G) mask, all on
     one CUDA device -> MatchTargets with (B, A) leaves."""
-    global LAUNCHES
+    global LAUNCHES, LAST_PATH
     check_inputs(anchors_center, gt_boxes, gt_mask)
     lib = build()
     bsz, g_n = gt_mask.shape
@@ -141,5 +157,6 @@ def match_anchors_cuda(
         )
     _cuda_build.check(err, "match_launch")
     LAUNCHES += 1
+    LAST_PATH = LONG_ROW if g_n > lib.match_chunk_gts() else SHARED
     return MatchTargets(cls_target=cls, loc_target=loc, matched_gt=matched_gt,
                         matched_iou=matched_iou)

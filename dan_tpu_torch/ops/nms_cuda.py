@@ -15,8 +15,12 @@ The kernel picks one of two paths for each row, on the device: a row whose
 scores are non-increasing (`rows_sorted`; what filter_and_topk's stable sort
 hands over on the detect and TTA paths) takes the tile scan, one dependent
 step for every 64 boxes still active; any other row takes the argmax loop, one step for
-every box kept.  Both give the ranks of `greedy_nms_rank_plain` bit for
-bit.  `LAST_PATHS` holds which path each row of the last launch took.
+every box kept.  A row of up to `nms_rank_shared_max_n()` boxes (9,557) is
+held in shared memory; a longer one, up to the 32-bit index, runs both
+paths from global scratch that the wrapper allocates (24 bytes a box).  All
+give the ranks of `greedy_nms_rank_plain` bit for bit.  `LAST_PATHS` holds
+which path each row of the last launch took: bit 0 (TILE_SCAN) the tile
+scan, bit 1 (LONG_ROW) the long-row path.
 
 A tensor on the CPU goes through `greedy_nms_rank_plain`; a CUDA tensor
 launches the kernel, which ops/_cuda_build.py builds with nvcc on first
@@ -34,12 +38,18 @@ from dan_tpu_torch.box.iou import iou_one_to_many
 from dan_tpu_torch.ops import _cuda_build
 
 SOURCE = "nms"
+# The longest row the kernel takes: its row index is a 32-bit int that
+# steps by the block's 1024 threads.
+MAX_N = 2**31 - 1 - 1024
 
 # Kernel launches since the last reset (set to 0 to reset).
 LAUNCHES = 0
-# (B,) uint8 on the device, written by the last launch without a wait: 1
-# where the row took the tile scan, 0 where it took the argmax loop.
+# (B,) uint8 on the device, written by the last launch without a wait: bit
+# TILE_SCAN where the row took the tile scan (else the argmax loop), bit
+# LONG_ROW where it ran from global scratch (else from shared memory).
 LAST_PATHS: Optional[torch.Tensor] = None
+TILE_SCAN = 1
+LONG_ROW = 2
 # (B,) int32, likewise: the tiles (dependent steps) each row's scan took; 0
 # where the row took the argmax loop.
 LAST_TILES: Optional[torch.Tensor] = None
@@ -50,12 +60,14 @@ def build() -> ctypes.CDLL:
     lib = _cuda_build.load(SOURCE)
     lib.nms_rank_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
     ]
     lib.nms_rank_launch.restype = ctypes.c_int
-    lib.nms_rank_max_n.argtypes = []
-    lib.nms_rank_max_n.restype = ctypes.c_int
+    lib.nms_rank_shared_max_n.argtypes = []
+    lib.nms_rank_shared_max_n.restype = ctypes.c_int
+    lib.nms_rank_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.nms_rank_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -105,21 +117,21 @@ def _launch(boxes, scores, iou_threshold, max_out, score_threshold):
     if boxes.device.type != "cuda":
         raise ValueError(f"the NMS kernel takes CUDA tensors, got {boxes.device}")
     bsz, n = scores.shape
+    if n > MAX_N:
+        raise ValueError(f"N={n} boxes exceed the kernel's 32-bit row index ({MAX_N})")
     lib = build()
-    if n > lib.nms_rank_max_n():
-        raise ValueError(
-            f"N={n} boxes exceed the kernel's shared-memory row limit "
-            f"({lib.nms_rank_max_n()}); lower pre_nms_topk"
-        )
     rank = torch.empty((bsz, n), dtype=torch.int32, device=boxes.device)
     if bsz == 0 or n == 0:
         return rank
     paths = torch.empty((bsz,), dtype=torch.uint8, device=boxes.device)
     tiles = torch.empty((bsz,), dtype=torch.int32, device=boxes.device)
+    # The long-row path's rows: (B, 6, N) floats, none for shared-memory rows.
+    scratch = torch.empty((lib.nms_rank_scratch_floats(bsz, n),), dtype=torch.float32,
+                          device=boxes.device)
     with torch.cuda.device(boxes.device):
         err = lib.nms_rank_launch(
             boxes.data_ptr(), scores.data_ptr(), rank.data_ptr(), paths.data_ptr(),
-            tiles.data_ptr(),
+            tiles.data_ptr(), scratch.data_ptr() if scratch.numel() else None,
             bsz, n, int(max_out), float(iou_threshold), float(score_threshold),
             _cuda_build.stream_of(boxes),
         )

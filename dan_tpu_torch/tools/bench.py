@@ -252,7 +252,7 @@ def _main(config, params, t_start) -> int:
     if launches:
         paths = nms_cuda.LAST_PATHS
         print(f"bench: greedy_nms_rank launches {launches}; rows of the last launch on the tile "
-              f"scan {int(paths.sum())}/{paths.numel()}", file=sys.stderr)
+              f"scan {int((paths & nms_cuda.TILE_SCAN).sum())}/{paths.numel()}", file=sys.stderr)
     # The opt-in re-measure is forced, valid cache or not: a change to the
     # path's code does not move the fingerprint.
     if os.environ.get("DAN_BENCH_MEASURE_CPU") == "1":
