@@ -1,0 +1,9 @@
+"""program_idle_ms.detect: ms a call of the profiled stretch in which the
+card is idle while the host is inside one of the program's spans (each
+gap to the latest-starting dan. span covering its midpoint, as the
+breakdown labels gaps); the split by span goes to stderr."""
+from benchmark.spans_common import program_idle_ms
+
+
+def read(view):
+    return program_idle_ms(view, "calls", "program_idle_ms.detect")

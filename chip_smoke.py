@@ -389,6 +389,8 @@ from dan_tpu_torch.ckpt.tf_import import (
 from dan_tpu_torch.models.detector import DANDetector
 from dan_tpu_torch.models.reference_init import init_reference_params
 from dan_tpu_torch.models.vgg import phase_pool_with_winner, nhwc
+from dan_tpu_torch.tools import profile as profile_tool
+from dan_tpu_torch.tools.profile import TTA_SIZES  # the TTA run's (h, w)s
 from dan_tpu_torch.eval import __main__ as eval_cli
 from dan_tpu_torch.eval.tta import TTARunner, VoteRows, plan_variant_buckets
 from dan_tpu_torch.eval.widerface_ap import evaluate_widerface
@@ -482,11 +484,6 @@ MATCHER_KERNELS = ("anchor_best_kernel", "gt_stats_kernel", "assign_kernel")
 TTA_SOURCES = ("bbox_vote", "nms_blocked")
 INT8_SOURCE = "conv_i8"
 QUANT_SOURCE = "quantize_i8"
-# (h, w) of the TTA run's images: sizes WIDER FACE has, reaching every
-# bucket class (640x480 takes the extra 2.0 scale; 1024x400 is under 0.42 MP,
-# so its 2.0 pass fills the 2048 bucket).
-TTA_SIZES = ((768, 1024), (1024, 768), (683, 1024), (1366, 1024), (1024, 1024),
-             (480, 640), (400, 1024), (200, 300))
 TTA_IMAGES = 160
 # Least share of a bf16 dataset run's boxes that must have a partner in the
 # per-image detect_tta of the same image at IoU > 0.5 and at IoU > 0.9.  On
@@ -2296,22 +2293,8 @@ class RecordingRunner(TTARunner):
 
 
 def tta_images(n):
-    """n seeded uint8 images cycling over TTA_SIZES: low-resolution noise
-    upsampled 4x plus a few brighter rectangles, keyed like WIDER stems."""
-    rng = np.random.default_rng(SEED + 13)
-    out = []
-    for i in range(n):
-        h, w = TTA_SIZES[i % len(TTA_SIZES)]
-        coarse = rng.integers(0, 120, (h // 4 + 1, w // 4 + 1, 3), dtype=np.uint8)
-        img = np.ascontiguousarray(np.repeat(np.repeat(coarse, 4, 0), 4, 1)[:h, :w])
-        gts = []
-        for _ in range(int(rng.integers(1, 6))):
-            size = int(rng.integers(12, max(min(h, w) // 3, 14)))
-            x, y = int(rng.integers(0, w - size)), int(rng.integers(0, h - size))
-            img[y:y + size, x:x + size] = rng.integers(150, 255, 3, dtype=np.uint8)
-            gts.append([x, y, x + size, y + size])
-        out.append((f"{i % 4}--Event/img_{i}", img, np.asarray(gts, np.float64)))
-    return out
+    """n seeded uint8 images cycling over TTA_SIZES (tools/profile.py)."""
+    return profile_tool.tta_images(n, SEED + 13)
 
 
 def expected_stats(items, runner, tta_batch, vote_batch):
@@ -4259,8 +4242,6 @@ def phase20c(dev, smi, tools, d, bench_ms, train_ms):
     """tools.profile detect at batch 128 and train at batch 32: the device
     time an iteration beside phases 5 and 10; the hand-written kernels by
     name in the tables."""
-    from dan_tpu_torch.tools import profile as profile_tool
-
     rows = {}
     for graph, batch, phase_ms, phase in (("detect", BATCH, bench_ms, "phase 5's bench step"),
                                           ("train", TRAIN_BATCH, train_ms,

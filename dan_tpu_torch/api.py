@@ -25,6 +25,7 @@ to share a dataset over ranks; each rank builds its Detector on mesh.device.
 """
 from __future__ import annotations
 
+import itertools
 import warnings
 from typing import Dict, Mapping, Optional
 
@@ -42,6 +43,7 @@ from dan_tpu_torch.ops.postprocess import postprocess_batch
 from dan_tpu_torch.ops.squash import eval_preprocess
 from dan_tpu_torch.parallel.mesh import Mesh
 from dan_tpu_torch.quant import QuantizedDetector, calibrate_act_scales
+from dan_tpu_torch.utils.profiling import span
 
 
 class Detector:
@@ -53,6 +55,7 @@ class Detector:
         self._tta_runner: Optional[TTARunner] = None
         self._quant: Optional[QuantizedDetector] = None
         self._tta_quant_warned = False
+        self._calls = itertools.count()  # detect_batch's unit ids
         self.model = model.to(self.device).eval()
         size = config.model.image_size
         self.anchors = generate_anchors(config.anchors, size, size, self.device)
@@ -139,6 +142,10 @@ class Detector:
             hs[i], ws[i] = h, w
         return canvases, hs, ws
 
+    def _on_device(self, canvases: np.ndarray, hs: np.ndarray, ws: np.ndarray):
+        """_pack_canvases' arrays -> the same as tensors on the device."""
+        return tuple(torch.from_numpy(a).to(self.device) for a in (canvases, hs, ws))
+
     def _preprocess(self, canv: torch.Tensor, h_t: torch.Tensor, w_t: torch.Tensor):
         """(B, C, C, 3) uint8 canvases on the device -> normalized network
         inputs (B, S, S, 3) float32."""
@@ -148,26 +155,26 @@ class Detector:
         )
 
     @torch.inference_mode()
-    def _detect_canvases(self, canvases: np.ndarray, hs: np.ndarray, ws: np.ndarray):
-        """(B, C, C, 3) uint8 canvases + true extents -> batched detection
-        dict on the device, boxes in each image's own pixels."""
+    def _detect_canvases(self, canv: torch.Tensor, h_t: torch.Tensor, w_t: torch.Tensor):
+        """(B, C, C, 3) uint8 canvases + true extents (B,) float32, on the
+        device -> batched detection dict on the device, boxes in each
+        image's own pixels."""
         cfg = self.config
         size = cfg.model.image_size
-        dev = self.device
-        canv = torch.from_numpy(canvases).to(dev)
-        h_t = torch.from_numpy(hs).to(dev)
-        w_t = torch.from_numpy(ws).to(dev)
-        imgs = self._preprocess(canv, h_t, w_t)
-        model = self._quant if self._quant is not None else self.model
-        cls_logits, loc_preds = model(imgs)
-        det = postprocess_batch(
-            cls_logits, loc_preds, self.anchors, cfg.anchors,
-            cfg.postprocess, float(size), float(size),
-        )
-        # Back to original pixels: the inverse of the squash resize.
-        sx = w_t / size
-        sy = h_t / size
-        det["bboxes"] = det["bboxes"] * torch.stack([sx, sy, sx, sy], dim=-1)[:, None, :]
+        with span("dan.detect"):
+            with span("dan.detect.normalize"):
+                imgs = self._preprocess(canv, h_t, w_t)
+            model = self._quant if self._quant is not None else self.model
+            cls_logits, loc_preds = model(imgs)
+            with span("dan.detect.postprocess"):
+                det = postprocess_batch(
+                    cls_logits, loc_preds, self.anchors, cfg.anchors,
+                    cfg.postprocess, float(size), float(size),
+                )
+                # Back to original pixels: the inverse of the squash resize.
+                sx = w_t / size
+                sy = h_t / size
+                det["bboxes"] = det["bboxes"] * torch.stack([sx, sy, sx, sy], dim=-1)[:, None, :]
         return det
 
     def detect(
@@ -183,15 +190,24 @@ class Detector:
     def detect_batch(self, images, score_threshold: Optional[float] = None) -> list:
         """List of (H, W, 3) images -> list of detection dicts.  The images
         share the smallest canvas bucket that holds the largest of them and
-        run as one batch (a single image launches the NMS kernel at B=1)."""
+        run as one batch (a single image launches the NMS kernel at B=1).
+        Each call is a dan.detect_batch span (utils/profiling.py) whose unit
+        is the call's number: the canvases packed in numpy, their copy to
+        the device, the dan.detect call and the copy of the detections back."""
         images = [self._check_image(im) for im in images]
         if not images:
             return []
-        c = self._canvas_for(
-            max(im.shape[0] for im in images), max(im.shape[1] for im in images)
-        )
-        det = {k: v.cpu().numpy()
-               for k, v in self._detect_canvases(*self._pack_canvases(images, c)).items()}
+        with span("dan.detect_batch", unit=next(self._calls)):
+            with span("dan.detect_batch.pack"):
+                c = self._canvas_for(
+                    max(im.shape[0] for im in images), max(im.shape[1] for im in images)
+                )
+                packed = self._pack_canvases(images, c)
+            with span("dan.detect_batch.h2d"):
+                on_device = self._on_device(*packed)
+            det = self._detect_canvases(*on_device)
+            with span("dan.detect_batch.d2h"):
+                det = {k: v.cpu().numpy() for k, v in det.items()}
         out = []
         for i in range(len(images)):
             keep = det["valid"][i]
@@ -205,11 +221,11 @@ class Detector:
         first request pays no kernel build or library autotuning (on the
         int8 path after quantize_int8)."""
         for c in buckets or self.config.tta.buckets:
-            self._detect_canvases(
+            self._detect_canvases(*self._on_device(
                 np.zeros((1, c, c, 3), np.uint8),
                 np.full((1,), c, np.float32),
                 np.full((1,), c, np.float32),
-            )
+            ))
 
     # -- int8 deployment -------------------------------------------------------
 
@@ -235,8 +251,7 @@ class Detector:
             for i in range(0, len(imgs), batch_size):
                 chunk = imgs[i : i + batch_size]
                 chunk = chunk + [chunk[-1]] * (batch_size - len(chunk))
-                canv, hs, ws = (torch.from_numpy(a).to(self.device)
-                                for a in self._pack_canvases(chunk, c))
+                canv, hs, ws = self._on_device(*self._pack_canvases(chunk, c))
                 yield self._preprocess(canv, hs, ws).to(dt)
 
         scales = calibrate_act_scales(self.model, batches(), self.config.model)

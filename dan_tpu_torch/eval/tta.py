@@ -50,6 +50,7 @@ from dan_tpu_torch.ops.nms_cuda import greedy_nms_rank
 from dan_tpu_torch.ops.postprocess import filter_and_topk
 from dan_tpu_torch.ops.preprocess import bilinear_resample_batch, normalize_image
 from dan_tpu_torch.parallel.mesh import Mesh, gather_objects
+from dan_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,6 +222,7 @@ class _Fetch:
             self._host = t
             self._event = None
 
+    @span("dan.tta.fetch")
     def numpy(self) -> np.ndarray:
         if self._event is None:
             return self._host.numpy()
@@ -504,6 +506,7 @@ class TTARunner:
 
     # -- dataset scale -----------------------------------------------------------
 
+    @span("dan.tta.run")
     def run_dataset(
         self,
         items,
@@ -568,18 +571,20 @@ class TTARunner:
                 part = units[start : start + per_rank]
                 pad = per_rank - len(part)
                 padded = part + [part[0]] * pad
-                out = self._run_bucket(
-                    bucket,
-                    torch.stack([u[4] for u in padded]),  # device-side stack
-                    np.asarray([u[2] for u in padded], np.float32),
-                    np.asarray([u[3] for u in padded], np.float32),
-                    np.asarray([u[1].scale for u in part] + [1.0] * pad, np.float32),
-                    np.asarray([u[1].flip for u in part] + [False] * pad),
-                )
+                with span("dan.tta.bucket"):
+                    out = self._run_bucket(
+                        bucket,
+                        torch.stack([u[4] for u in padded]),  # device-side stack
+                        np.asarray([u[2] for u in padded], np.float32),
+                        np.asarray([u[3] for u in padded], np.float32),
+                        np.asarray([u[1].scale for u in part] + [1.0] * pad, np.float32),
+                        np.asarray([u[1].flip for u in part] + [False] * pad),
+                    )
+                    fetch = self._fetch(*out)
                 n_bucket_launches += 1
                 # Keep only (key, variant, slot) per unit: the unit tuples
                 # hold every image's device-resident canvas.
-                pending.append(([(u[0], u[1], u[5]) for u in part], self._fetch(*out)))
+                pending.append(([(u[0], u[1], u[5]) for u in part], fetch))
                 while len(pending) > max_pending:
                     drain_oldest()
 
@@ -599,7 +604,10 @@ class TTARunner:
                 mine |= place // (chunk // n_dev) == rank
                 units.append((gk, v, slot, chunk))
             # One copy per image, by the ranks that run one of its units.
-            canvas_dev = self._to_device(image, canvas_size) if mine else None
+            canvas_dev = None
+            if mine:
+                with span("dan.tta.canvas", unit=n_images):
+                    canvas_dev = self._to_device(image, canvas_size)
             for gk, v, slot, chunk in units:
                 n_variants += 1
                 groups.setdefault(gk, []).append((key, v, h, w, canvas_dev, slot))
@@ -645,13 +653,14 @@ class TTARunner:
         empty = (np.zeros((0, 4), np.float32), np.zeros(0, np.float32), np.zeros(0, bool))
         for start in range(rank * per_rank, len(keys), vchunk):
             ks = keys[start : start + per_rank]
-            packed = [
-                tuple(np.concatenate([d[j] for d in per_key[k]]) for j in range(3))
-                if per_key[k] else empty
-                for k in ks
-            ]
-            packed += [empty] * (per_rank - len(ks))
-            vote_pending.append((ks, self._run_vote(*self._pack_vote_rows(packed))))
+            with span("dan.tta.vote"):
+                packed = [
+                    tuple(np.concatenate([d[j] for d in per_key[k]]) for j in range(3))
+                    if per_key[k] else empty
+                    for k in ks
+                ]
+                packed += [empty] * (per_rank - len(ks))
+                vote_pending.append((ks, self._run_vote(*self._pack_vote_rows(packed))))
             n_vote_launches += 1
             while len(vote_pending) > max_pending:
                 drain_vote()

@@ -23,6 +23,7 @@ from dan_tpu_torch.models.heads import Heads
 from dan_tpu_torch.models.layers import L2Norm
 from dan_tpu_torch.models.lfpn import LFPN
 from dan_tpu_torch.models.vgg import TAP_NAMES, VGG, effective_tap_channels
+from dan_tpu_torch.utils.profiling import span
 
 
 def compute_dtype(config: ModelConfig) -> torch.dtype:
@@ -50,8 +51,18 @@ class DANDetector(nn.Module):
     def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, H, W, 3) float -> (cls_logits (B, A, 2) f32, loc_preds (B, A, 4) f32)."""
         with float32_arithmetic(self.config.compute_dtype == "float32"):
-            x = images.to(compute_dtype(self.config)).permute(0, 3, 1, 2)
-            taps = self.lfpn(self.backbone(x))
-            for name, norm in self.l2norm.items():
-                taps[name] = norm(taps[name])
-            return self.heads(taps)
+            with span("dan.model.backbone"):
+                x = images.to(compute_dtype(self.config)).permute(0, 3, 1, 2)
+                taps = self.backbone(x)
+            with span("dan.model.lfpn"):
+                taps = self.lfpn(taps)
+            return heads_forward(self, taps)
+
+
+def heads_forward(model: nn.Module, taps) -> Tuple[torch.Tensor, torch.Tensor]:
+    """L2Norm on its taps, then the heads: the tail of `model`'s forward
+    (a DANDetector or quant.QuantizedDetector)."""
+    with span("dan.model.heads"):
+        for name, norm in model.l2norm.items():
+            taps[name] = norm(taps[name])
+        return model.heads(taps)

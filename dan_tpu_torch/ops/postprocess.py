@@ -16,6 +16,7 @@ from dan_tpu_torch.config import AnchorConfig, PostprocessConfig
 from dan_tpu_torch.box.decode import decode_boxes
 from dan_tpu_torch.ops.nms import rank_to_result, topk_select
 from dan_tpu_torch.ops.nms_cuda import greedy_nms_rank
+from dan_tpu_torch.utils.profiling import span
 
 
 def filter_and_topk(
@@ -45,19 +46,21 @@ def postprocess_batch(
     """(B, A, 2) logits + (B, A, 4) offsets -> {'bboxes': (B, MAX_DET, 4),
     'scores': (B, MAX_DET), 'valid': (B, MAX_DET)}, corner boxes in pixels
     of the network input."""
-    scores = torch.softmax(cls_logits, dim=-1)[..., 1]
-    boxes = decode_boxes(
-        loc_preds, anchors_center, anchor_config.prior_scaling, image_h, image_w
-    )
-    boxes_k, scores_k = filter_and_topk(boxes, scores, post_config)
-    rank = greedy_nms_rank(
-        boxes_k,
-        scores_k,
-        post_config.nms_iou_threshold,
-        post_config.max_detections,
-        score_threshold=0.0,
-    )
-    res = rank_to_result(rank, boxes_k, scores_k, post_config.max_detections)
+    with span("dan.detect.select"):
+        scores = torch.softmax(cls_logits, dim=-1)[..., 1]
+        boxes = decode_boxes(
+            loc_preds, anchors_center, anchor_config.prior_scaling, image_h, image_w
+        )
+        boxes_k, scores_k = filter_and_topk(boxes, scores, post_config)
+    with span("dan.detect.nms"):
+        rank = greedy_nms_rank(
+            boxes_k,
+            scores_k,
+            post_config.nms_iou_threshold,
+            post_config.max_detections,
+            score_threshold=0.0,
+        )
+        res = rank_to_result(rank, boxes_k, scores_k, post_config.max_detections)
     return {"bboxes": res.boxes, "scores": res.scores, "valid": res.valid}
 
 

@@ -45,12 +45,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from dan_tpu_torch.config import ModelConfig
-from dan_tpu_torch.models.detector import DANDetector, compute_dtype
+from dan_tpu_torch.models.detector import DANDetector, compute_dtype, heads_forward
 from dan_tpu_torch.models.layers import max_pool
 from dan_tpu_torch.models.vgg import TAP_NAMES, VGG_BLOCKS, nhwc, phase_pool
 from dan_tpu_torch.ops.conv_i8 import Padding, phase_max_i8, same_padding_2d  # noqa: F401
 from dan_tpu_torch.ops.conv_i8_cuda import conv_i8, packed_zeros_hold
 from dan_tpu_torch.ops.quantize_i8_cuda import quantize_i8
+from dan_tpu_torch.utils.profiling import span
 
 
 def body_plan(config: ModelConfig) -> List[Tuple[str, int, int, bool, bool]]:
@@ -321,7 +322,8 @@ class QuantizedDetector(nn.Module):
         return taps
 
     def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        taps = self.lfpn(self.backbone(images))
-        for name, norm in self.l2norm.items():
-            taps[name] = norm(taps[name])
-        return self.heads(taps)
+        with span("dan.model.backbone"):
+            taps = self.backbone(images)
+        with span("dan.model.lfpn"):
+            taps = self.lfpn(taps)
+        return heads_forward(self, taps)

@@ -36,6 +36,7 @@ the port: tools/profile.py, bench_int8 and chip_smoke.py use them.
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
 import os
 import sys
@@ -53,6 +54,7 @@ from dan_tpu_torch.models.reference_init import init_reference_params
 from dan_tpu_torch.ops import nms_cuda
 from dan_tpu_torch.ops.postprocess import postprocess_batch
 from dan_tpu_torch.ops.preprocess import normalize_image
+from dan_tpu_torch.utils.profiling import span
 
 BATCH = int(os.environ.get("DAN_BENCH_BATCH", "128"))
 WARMUP_ITERS = 3
@@ -104,16 +106,21 @@ def build_detect_fn(cfg: DANConfig, device):
     """detect(model, images_u8) -> {'bboxes', 'scores', 'valid'} of
     postprocess_batch: normalize, the forward of `model` (a DANDetector or a
     quant.QuantizedDetector: normalized (B, S, S, 3) -> (cls, loc)), decode,
-    filter, top-k and NMS, in pixels of the network input."""
+    filter, top-k and NMS, in pixels of the network input.  Each call is
+    a dan.detect span (utils/profiling.py) whose unit is the call's number."""
     size = cfg.model.image_size
     anchors = generate_anchors(cfg.anchors, size, size, device)
+    calls = itertools.count()
 
     @torch.inference_mode()
     def detect(model, images_u8):
-        x = normalize_image(images_u8.float(), cfg.preprocess)
-        cls_logits, loc_preds = model(x)
-        return postprocess_batch(cls_logits, loc_preds, anchors, cfg.anchors, cfg.postprocess,
-                                 float(size), float(size))
+        with span("dan.detect", unit=next(calls)):
+            with span("dan.detect.normalize"):
+                x = normalize_image(images_u8.float(), cfg.preprocess)
+            cls_logits, loc_preds = model(x)
+            with span("dan.detect.postprocess"):
+                return postprocess_batch(cls_logits, loc_preds, anchors, cfg.anchors,
+                                         cfg.postprocess, float(size), float(size))
 
     return detect
 

@@ -64,6 +64,7 @@ from dan_tpu_torch.parallel.mesh import Mesh, all_reduce_grads, all_reduce_sum
 from dan_tpu_torch.ops.preprocess import AugmentDraws, sample_augment_batch, train_preprocess
 from dan_tpu_torch.train.loss import detection_loss
 from dan_tpu_torch.train.optim import sgd_update
+from dan_tpu_torch.utils.profiling import span
 
 BATCH_KEYS = ("canvas", "crop_x0", "crop_y0", "crop_size", "boxes", "mask")
 
@@ -125,14 +126,17 @@ def preprocess_and_match(
     seeds (tests pass the JAX package's own)."""
     if draws is None:
         draws = sample_augment_batch(batch["seed"], config.preprocess)
-    t = to_device(batch, device)
-    images, boxes, mask = train_preprocess(
-        t["canvas"], (t["crop_x0"], t["crop_y0"], t["crop_size"]),
-        t["boxes"], t["mask"], draws, config.preprocess,
-    )
-    size = config.preprocess.train_image_size
-    anchors = generate_anchors(config.anchors, size, size, images.device)
-    targets = match_anchors_batch(anchors, boxes, mask, config.match, config.anchors)
+    with span("dan.train.h2d"):
+        t = to_device(batch, device)
+    with span("dan.train.preprocess"):
+        images, boxes, mask = train_preprocess(
+            t["canvas"], (t["crop_x0"], t["crop_y0"], t["crop_size"]),
+            t["boxes"], t["mask"], draws, config.preprocess,
+        )
+    with span("dan.train.match"):
+        size = config.preprocess.train_image_size
+        anchors = generate_anchors(config.anchors, size, size, images.device)
+        targets = match_anchors_batch(anchors, boxes, mask, config.match, config.anchors)
     return images, targets
 
 
@@ -153,12 +157,15 @@ def loss_and_grads(
     step trains one model a seed in either dtype."""
     named = dict(state.model.named_parameters())
     with _float32_step(state):
-        cls_logits, loc_preds = state.model(images)
-        loss, metrics = detection_loss(
-            cls_logits, loc_preds, targets.cls_target, targets.loc_target, state.config.train,
-            total_pos,
-        )
-        grads = torch.autograd.grad(loss, list(named.values()))
+        with span("dan.train.forward"):
+            cls_logits, loc_preds = state.model(images)
+        with span("dan.train.loss"):
+            loss, metrics = detection_loss(
+                cls_logits, loc_preds, targets.cls_target, targets.loc_target,
+                state.config.train, total_pos,
+            )
+        with span("dan.train.backward"):
+            grads = torch.autograd.grad(loss, list(named.values()))
     return dict(zip(named, grads)), metrics
 
 
@@ -257,31 +264,40 @@ def train_step(
     cls_loss, loc_loss, num_pos, num_neg_selected, grad_norm before the
     clip).  With a mesh, `batch` and `draws` are this rank's rows and the
     metrics are the global batch's, the same on every rank.  Nothing here
-    waits for the device, but a gloo collective waits for its inputs.
+    reads a value back from the device, but each host constant copied to
+    a card from pageable memory (the preprocess's and the anchors') waits
+    for the stream, and a gloo collective waits for its inputs.  The step
+    is a dan.train.step span (utils/profiling.py) whose unit is the step
+    count.
     debug_nans: raise FloatingPointError before the update at the first
     non-finite module output, loss or gradient (see the module's
     docstring)."""
-    # A float32 model's preprocessing (its resize is two matrix products)
-    # runs in float32 arithmetic too, as loss_and_grads does.
-    with _float32_step(state):
-        images, targets = preprocess_and_match(batch, state.config, state.device, draws)
-    total_pos = None
-    if mesh is not None:
-        total_pos = all_reduce_sum((targets.cls_target == 1).sum(), mesh)
-    record = [] if mesh is not None else None
-    with nan_guard(state.model, record) if debug_nans else contextlib.nullcontext():
-        grads, metrics = loss_and_grads(state, images, targets, total_pos)
-    if mesh is not None:
-        extra = {k: metrics[k] for k in _SUMMED_METRICS}
+    with span("dan.train.step", unit=state.step):
+        # A float32 model's preprocessing (its resize is two matrix products)
+        # runs in float32 arithmetic too, as loss_and_grads does.
+        with _float32_step(state):
+            images, targets = preprocess_and_match(batch, state.config, state.device, draws)
+        total_pos = None
+        if mesh is not None:
+            with span("dan.train.allreduce"):
+                total_pos = all_reduce_sum((targets.cls_target == 1).sum(), mesh)
+        record = [] if mesh is not None else None
+        with nan_guard(state.model, record) if debug_nans else contextlib.nullcontext():
+            grads, metrics = loss_and_grads(state, images, targets, total_pos)
+        if mesh is not None:
+            extra = {k: metrics[k] for k in _SUMMED_METRICS}
+            if debug_nans:
+                extra["not_finite"] = _first_not_finite(state.model, record, state.device)
+            with span("dan.train.allreduce"):
+                grads, summed = all_reduce_grads(grads, extra, mesh)
+            if debug_nans:
+                _raise_not_finite(state.model, summed.pop("not_finite"))
+            metrics.update(summed)
         if debug_nans:
-            extra["not_finite"] = _first_not_finite(state.model, record, state.device)
-        grads, summed = all_reduce_grads(grads, extra, mesh)
-        if debug_nans:
-            _raise_not_finite(state.model, summed.pop("not_finite"))
-        metrics.update(summed)
-    if debug_nans:
-        check_finite(grads, metrics)
-    named = dict(state.model.named_parameters())
-    metrics["grad_norm"] = sgd_update(named, grads, state.momentum, state.step, state.config.train)
+            check_finite(grads, metrics)
+        named = dict(state.model.named_parameters())
+        with span("dan.train.optimizer"):
+            metrics["grad_norm"] = sgd_update(named, grads, state.momentum, state.step,
+                                              state.config.train)
     state.step += 1
     return metrics
