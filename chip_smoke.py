@@ -342,6 +342,18 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      8, 640x640, max_gt 1,024 with one image of 700 synthetic faces (the
      matcher must see > 512 valid gts in an image, K3-K6 once a step).
      Every shape of phases 3-22 must keep the shared-memory paths.
+ 24. the bias + ReLU pass after the inference convolutions
+     (csrc/bias_act.cu): one bf16 and one int8 forward at batch 128,
+     640x640, with seeded nonzero biases (the first three of each conv
+     2^-8, -0 and +0), each call of the pass checked where it runs: the
+     first and last pixel of its output overwritten with NaN, -0, +0,
+     +-inf and bf16 ties, then the kernel's result bit for bit against
+     ATen's add-then-clamp (`out.add_(b)`, `F.relu`) and the plain version
+     on a copy; bias_act_cuda.LAUNCHES must be 31 a bf16 forward and 13 an
+     int8 one; at each call's shape the kernel, ATen's add + clamp and the
+     plain version timed with CUDA events, summed a forward, beside the bound
+     (each value read and written once at 3.35 TB/s).  The logits against
+     the parent commit's are `dan_tpu_torch/tools/ab_logits.py`'s.
 
 Phase 12's first half runs before phase 13, its real-data half after it.
 The line before the last is a JSON object describing each kernel, with the
@@ -399,6 +411,7 @@ from dan_tpu_torch import native
 from dan_tpu_torch.ops import (
     _cuda_build,
     bbox_vote_cuda,
+    bias_act_cuda,
     conv12_wgrad_cuda,
     conv_i8_cuda,
     matching_cuda,
@@ -484,6 +497,14 @@ MATCHER_KERNELS = ("anchor_best_kernel", "gt_stats_kernel", "assign_kernel")
 TTA_SOURCES = ("bbox_vote", "nms_blocked")
 INT8_SOURCE = "conv_i8"
 QUANT_SOURCE = "quantize_i8"
+BIAS_ACT_SOURCE = "bias_act"
+# Phase 24: launches of the bias + ReLU pass a forward at 640x640 (bf16: 19
+# in the backbone, 6 LFPN, 6 heads; int8: conv1_1', 6 LFPN, 6 heads); the
+# values written channel by channel into the first and last pixel of each
+# checked output, and the first three biases of every convolution.
+BIAS_ACT_PER_FORWARD = {"bf16": 31, "int8": 13}
+BIAS_ACT_SPECIALS = (float("nan"), -0.0, 0.0, float("inf"), -float("inf"), 1.0, 1.0078125, -1.0)
+BIAS_ACT_BIASES = (2.0 ** -8, -0.0, 0.0)
 TTA_IMAGES = 160
 # Least share of a bf16 dataset run's boxes that must have a partner in the
 # per-image detect_tta of the same image at IoU > 0.5 and at IoU > 0.9.  On
@@ -834,7 +855,7 @@ def main() -> int:
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     _cuda_build.build_all(["nms"] + [src for _, src, _ in TRAIN_KERNELS.values()]
-                          + list(TTA_SOURCES) + [INT8_SOURCE, QUANT_SOURCE])
+                          + list(TTA_SOURCES) + [INT8_SOURCE, QUANT_SOURCE, BIAS_ACT_SOURCE])
     secs = _cuda_build.BUILDS["nms"].seconds
     log(f"phase 2: built all CUDA sources in {time.perf_counter() - t0:.3f} s; "
         f"{KERNEL_SOURCE} " + (f"in {secs:.3f} s" if secs is not None else "was already built"))
@@ -1156,6 +1177,9 @@ def main() -> int:
     err_b, err_1 = max(err_b, lr_nms["err"]), max(err_1, lr_nms["err"])
     vote_err = max(vote_err, lr_vote["err"], lr_tta["err"])
 
+    # -- 24. the bias + ReLU pass ------------------------------------------------
+    ba = phase24(cfg, dev, smi)
+
     n_rows, n_box = BATCH, post.pre_nms_topk
     # NMS: 20 bytes a box in, its rank out; for every selected box an IoU, a
     # threshold test and (the input need not be sorted) an argmax compare
@@ -1284,6 +1308,16 @@ def main() -> int:
          "plain_ms": i8["quant"]["plain"], "bound_ms": i8["quant"]["bound"][0],
          "bound_by": i8["quant"]["bound"][1], "library_ms": None,
          "launches_tools": tools["quantize_i8"], "launches_bench": bl["quantize_i8"]})
+    kernels.append(
+        {"name": "bias_act", "route": "cuda", "source": f"dan_tpu_torch/csrc/{BIAS_ACT_SOURCE}.cu",
+         "replaces": "no TPU kernel: ATen's broadcast bias add and ReLU clamp after each "
+                     "inference convolution (XLA fuses them into the TPU convolution)",
+         "launches_per_forward": ba["launches"], "max_abs_err": 0.0,
+         "ms": ba["ms"], "plain_ms": ba["plain_ms"],
+         "library_ms": ba["aten_ms"], "bound_ms": ba["bound_ms"], "bound_by": "bytes",
+         "ms_covers": "each of a forward's calls at batch 128, 640x640, timed alone at its "
+                      "shape and summed (bf16 and int8 forwards); library_ms is ATen's "
+                      "in-place add and F.relu on the same tensors"})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5293,6 +5327,177 @@ def phase23(cfg, dev, smi):
     matcher["launches"] = phase23_train(cfg, dev, smi)
     log(f"phase 23: {time.perf_counter() - t0:.1f} s")
     return {"nms": nms, "vote": vote, "matcher": matcher, "tta": tta}
+
+
+def seeded_biases(model, seed):
+    """Every bias of `model` drawn from the seed, its first three set to
+    BIAS_ACT_BIASES (a bf16 tie at 1.0, -0 and +0)."""
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".bias"):
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.1)
+                p[:3] = torch.tensor(BIAS_ACT_BIASES[: p.shape[0]], device=dev)
+
+
+def pixel_rows(y):
+    """The (pixels, C) view of the pass's buffer."""
+    c = bias_act_cuda.channels(y)
+    return (y.permute(0, 2, 3, 1) if y.dim() == 4 else y).reshape(-1, c)
+
+
+def aten_bias_act(y, bias, relu):
+    """What ATen runs after cuDNN's convolution: `out.add_(b)`, then F.relu."""
+    c = bias_act_cuda.channels(y)
+    y.add_(bias.to(y.dtype).reshape((c, 1, 1) if y.dim() == 4 else (c,)))
+    return torch.nn.functional.relu(y) if relu else y
+
+
+@contextlib.contextmanager
+def checked_bias_act(calls):
+    """Each call of the pass, checked where it runs: specials written into
+    the first and last pixel, the kernel against ATen's add-then-clamp and
+    the plain version on copies, bit for bit; appends (shape, dtype, bias,
+    relu) to `calls`."""
+    real = bias_act_cuda.bias_act
+
+    def check(y, bias, relu):
+        rows = pixel_rows(y)
+        spec = torch.tensor(BIAS_ACT_SPECIALS, dtype=y.dtype, device=y.device)
+        row = spec[torch.arange(rows.shape[1], device=y.device) % len(spec)]
+        rows[0], rows[-1] = row, row.flip(0)
+        want = aten_bias_act(y.clone(), bias, relu)
+        plain = bias_act_cuda.bias_act_plain(y, bias, relu)
+        got = real(y, bias, relu)
+        as_int = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+        for other, what in ((want, "ATen's add-then-clamp"), (plain, "the plain version")):
+            if not same_bits(got, other):
+                bad = int((got.view(as_int) != other.view(as_int)).sum())
+                raise AssertionError(f"phase 24: bias_act != {what} at {tuple(y.shape)} "
+                                     f"{y.dtype} relu={relu}: {bad} elements differ")
+        calls.append((tuple(y.shape), y.dtype, bias.clone(), relu))
+        del want, plain
+        return got
+
+    bias_act_cuda.bias_act = check
+    try:
+        yield calls
+    finally:
+        bias_act_cuda.bias_act = real
+
+
+def bias_act_edge_cases(dev):
+    """The kernel against ATen's add-then-clamp off the forward's shapes:
+    bf16 and float32, widths 6 (one value a thread), 8, 64, 256 and 1,000
+    (a grid of 125 packs a pixel), channels-last and flat (pixels, C), a
+    view one value off 16 bytes (one value a thread), with and without
+    relu, the bias in float32 and in y's dtype, specials in the first and
+    last pixel.  -> the number of cases."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 124)
+    n = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for c in (6, 8, 64, 256, 1000):
+            for layout in ("nchw", "flat", "offset"):
+                for relu in (True, False):
+                    for b_dtype in (torch.float32, dtype):
+                        base = torch.randn(37 * c + 1, generator=gen, device=dev).to(dtype)
+                        if layout == "nchw":
+                            y = base[: 35 * c].view(1, 7, 5, c).permute(0, 3, 1, 2)
+                        elif layout == "flat":
+                            y = base[: 37 * c].view(37, c)
+                        else:
+                            y = base[1:].view(37, c)
+                        bias = (torch.randn(c, generator=gen, device=dev) * 3).to(b_dtype)
+                        bias[:3] = torch.tensor(BIAS_ACT_BIASES, device=dev)
+                        rows = pixel_rows(y)
+                        spec = torch.tensor(BIAS_ACT_SPECIALS, dtype=dtype, device=dev)
+                        row = spec[torch.arange(c, device=dev) % len(spec)]
+                        rows[0], rows[-1] = row, row.flip(0)
+                        want = aten_bias_act(y.clone(), bias, relu)
+                        got = bias_act_cuda.bias_act(y, bias, relu)
+                        if not same_bits(got, want):
+                            raise AssertionError(
+                                f"phase 24: bias_act != ATen at {layout} {tuple(y.shape)} "
+                                f"{dtype} bias {b_dtype} relu={relu}")
+                        n += 1
+    return n
+
+
+def time_bias_act(calls):
+    """Each call's shape timed alone (CUDA events): the kernel, ATen's
+    add + clamp and the plain version, summed; and the bound."""
+    out = {"ms": 0.0, "aten_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    gen = torch.Generator(device=calls[0][2].device).manual_seed(SEED)
+    for shape, dtype, bias, relu in calls:
+        buf = torch.empty(shape, dtype=dtype, device=bias.device,
+                          memory_format=torch.channels_last if len(shape) == 4
+                          else torch.contiguous_format)
+        buf.normal_(generator=gen)
+        fns = {"ms": (lambda: bias_act_cuda.bias_act(buf, bias, relu), 5),
+               "aten_ms": (lambda: aten_bias_act(buf, bias, relu), 3),
+               "plain_ms": (lambda: bias_act_cuda.bias_act_plain(buf, bias, relu), 3)}
+        for key, (fn, iters) in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            out[key] += cuda_ms(fn, iters)
+        out["bound_ms"] += 2 * nbytes(buf) / PEAK_BYTES * 1e3
+        del buf
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase24(cfg, dev, smi):
+    """The bias + ReLU pass: each call of a bf16 and an int8 forward at
+    batch 128 checked bit for bit, its launches counted a forward, its time
+    beside ATen's two passes, the plain version and the bound."""
+    t0 = time.perf_counter()
+    log(f"phase 24: bias_act == ATen's add-then-clamp bit for bit in "
+        f"{bias_act_edge_cases(dev)} edge cases")
+    det = Detector.from_random(SEED, cfg, dev)
+    seeded_biases(det.model, SEED + 24)
+    rng = np.random.default_rng(SEED + 24)
+    images = torch.from_numpy(rng.integers(0, 255, (BATCH, cfg.model.image_size,
+                                                    cfg.model.image_size, 3),
+                                           dtype=np.uint8)).to(dev)
+    res = {"launches": {}}
+    calls = {}
+    with torch.inference_mode():
+        x = normalize_image(images.float(), cfg.preprocess).to(compute_dtype(cfg.model))
+        del images
+        scales = calibrate_act_scales(det.model, [x[:8]], cfg.model)
+        models = {"bf16": det.model,
+                  "int8": QuantizedDetector(det.model, scales).to(dev).eval()}
+        for which, model in models.items():
+            with checked_bias_act([]) as calls[which]:
+                model(x)
+            torch.cuda.synchronize()
+            before = bias_act_cuda.LAUNCHES
+            model(x)
+            torch.cuda.synchronize()
+            n = bias_act_cuda.LAUNCHES - before
+            if n != BIAS_ACT_PER_FORWARD[which] or len(calls[which]) != n:
+                raise AssertionError(f"phase 24: {which} forward launched bias_act {n} times "
+                                     f"({len(calls[which])} calls checked), expected "
+                                     f"{BIAS_ACT_PER_FORWARD[which]}")
+            res["launches"][which] = n
+            relus = sum(r for *_, r in calls[which])
+            log(f"phase 24: {which} forward at batch {BATCH}: {n} calls of the pass ({relus} "
+                f"with ReLU), each bit for bit equal to ATen's add-then-clamp and the plain "
+                f"version with NaN, -0, +0, +-inf and bf16 ties in its first and last pixel")
+        del models, x
+    del det
+    torch.cuda.empty_cache()
+    for which in ("bf16", "int8"):
+        t = time_bias_act(calls[which])
+        for k, v in t.items():
+            res.setdefault(k, {})[which] = v
+        log(f"phase 24: {which}, summed over a forward's {len(calls[which])} shapes (CUDA "
+            f"events): kernel {t['ms']:.4f} ms, ATen add + clamp {t['aten_ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes: each value read and "
+            f"written once); bound/kernel {t['bound_ms'] / t['ms']:.1%}; {smi}")
+    log(f"phase 24: {time.perf_counter() - t0:.1f} s")
+    return res
 
 
 if __name__ == "__main__":

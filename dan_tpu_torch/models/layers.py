@@ -6,6 +6,9 @@ activations and OIHW kernels.
     `nn.Conv2d(padding=1)` would pad (1, 1) and shift every output.
   * Compute runs in the activation dtype (bf16 on the card) with float32
     parameters cast at use, as in the JAX package.
+  * A convolution's bias and ReLU run, on the card and outside autograd,
+    as one in-place pass of ops/bias_act_cuda.py with ATen's arithmetic;
+    elsewhere (the CPU, the train step) ATen adds the bias and clamps.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dan_tpu_torch.ops import upsample_cuda
+from dan_tpu_torch.ops import bias_act_cuda, upsample_cuda
 
 
 def same_padding(size: int, kernel: int, stride: int, dilation: int) -> Tuple[int, int]:
@@ -35,23 +38,59 @@ def conv_init(
     return kernel, torch.zeros(cout)
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    # A function of its own, so that a CPU test can take the card's path.
+    return x.is_cuda
+
+
+def fused_epilogue(x: torch.Tensor, *params: torch.Tensor) -> bool:
+    """Whether the bias (and ReLU) of a convolution of x runs as one
+    in-place pass of ops/bias_act_cuda.py: x is on the card in channels-last
+    memory (so cuDNN writes the output channels-last too) and autograd
+    records nothing through x or params.  Otherwise F.conv2d takes the bias
+    and F.relu clamps; on the card ATen then runs them as two passes after
+    cuDNN's convolution, with the kernel's bits.  (The TTA runner's
+    resampled canvases are NCHW, so its forward keeps ATen's passes.)"""
+    if not (_on_card(x) and x.is_contiguous(memory_format=torch.channels_last)):
+        return False
+    return not (torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)))
+
+
+def conv2d_bias_act(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor | None,
+    relu: bool = False,
+    stride: int = 1,
+    padding=0,
+    dilation: int = 1,
+) -> torch.Tensor:
+    """F.conv2d in x's dtype, + bias, then ReLU where relu is set."""
+    w = weight.to(x.dtype)
+    if bias is not None and fused_epilogue(x, weight, bias):
+        out = F.conv2d(x, w, None, stride, padding, dilation)
+        return bias_act_cuda.bias_act(out, bias, relu)
+    b = None if bias is None else bias.to(x.dtype)
+    out = F.conv2d(x, w, b, stride, padding, dilation)
+    return F.relu(out) if relu else out
+
+
 def conv2d_same(
     x: torch.Tensor,
     weight: torch.Tensor,
     bias: torch.Tensor | None,
     stride: int = 1,
     dilation: int = 1,
+    relu: bool = False,
 ) -> torch.Tensor:
-    """Conv with TF 'SAME' padding in x's dtype."""
+    """Conv (+ ReLU) with TF 'SAME' padding in x's dtype."""
     kh, kw = weight.shape[2:]
     ph = same_padding(x.shape[2], kh, stride, dilation)
     pw = same_padding(x.shape[3], kw, stride, dilation)
-    w = weight.to(x.dtype)
-    b = None if bias is None else bias.to(x.dtype)
     if ph[0] == ph[1] and pw[0] == pw[1]:
-        return F.conv2d(x, w, b, stride, (ph[0], pw[0]), dilation)
+        return conv2d_bias_act(x, weight, bias, relu, stride, (ph[0], pw[0]), dilation)
     x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-    return F.conv2d(x, w, b, stride, 0, dilation)
+    return conv2d_bias_act(x, weight, bias, relu, stride, 0, dilation)
 
 
 class Conv(nn.Module):
@@ -77,8 +116,8 @@ class Conv(nn.Module):
         self.activation = activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = conv2d_same(x, self.weight, self.bias, self.stride, self.dilation)
-        return F.relu(out) if self.activation else out
+        return conv2d_same(x, self.weight, self.bias, self.stride, self.dilation,
+                           relu=self.activation)
 
 
 def max_pool(x: torch.Tensor) -> torch.Tensor:

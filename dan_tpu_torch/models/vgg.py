@@ -21,7 +21,9 @@ block through two autograd Functions with hand-written backwards, as the
 JAX package's custom VJPs do: `PhasePool` saves only a uint8 winner per
 pooled value and routes the cotangent with the CUDA kernel of
 ops/phase_pool_cuda.py, and `Conv12` owns the conv1_2' weight gradient
-(ops/conv12_wgrad_cuda.py).  Inference keeps the plain conv and pool.
+(ops/conv12_wgrad_cuda.py).  Inference keeps the plain conv and pool; on
+the card the bias and ReLU of conv1_1' and of the phase max run in place
+(layers.fused_epilogue, ops/bias_act_cuda.py).
 """
 from __future__ import annotations
 
@@ -33,7 +35,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from dan_tpu_torch.config import ModelConfig
-from dan_tpu_torch.models.layers import Conv, max_pool
+from dan_tpu_torch.models import layers
+from dan_tpu_torch.models.layers import Conv, conv2d_bias_act, max_pool
+from dan_tpu_torch.ops import bias_act_cuda
 from dan_tpu_torch.ops.conv12_wgrad_cuda import conv12_wgrad
 from dan_tpu_torch.ops.phase_pool_cuda import phase_pool_bwd
 
@@ -123,9 +127,12 @@ def _phase_slices(r: torch.Tensor, co: int):
 
 def phase_pool(r: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """pool1 over the packed conv1_2' output r (B, 4*co, H+1, W+1):
-    relu(max over phases + b2)."""
+    relu(max over phases + b2), the bias and relu in place by the kernel
+    where layers.fused_epilogue says so."""
     s = _phase_slices(r, b2.shape[0])
     m = torch.maximum(torch.maximum(s[0], s[1]), torch.maximum(s[2], s[3]))
+    if layers.fused_epilogue(r, b2):
+        return bias_act_cuda.bias_act(m, b2, True)
     return F.relu(m + b2[:, None, None])
 
 
@@ -255,23 +262,25 @@ class VGG(nn.Module):
         k2 = _Pack.apply(self.conv1_2.weight, self.k2_index, self.k2_inverse)
         return k1, self.conv1_1.bias.repeat(4), k2
 
-    def conv1_1_packed(self, x: torch.Tensor):
-        """conv1_1' before its relu, and the packed conv1_2' kernel and
-        bias, in x's dtype: (o1_pre (B, 256, H/2, W/2), k2', b2)."""
+    def conv1_1_packed(self, x: torch.Tensor, relu: bool = False):
+        """conv1_1' (before its relu unless relu is set), and the packed
+        conv1_2' kernel and bias, in x's dtype: (o1 (B, 256, H/2, W/2), k2',
+        b2)."""
         dt = x.dtype
         k1, b1, k2 = self.packed_kernels()
-        o1_pre = F.conv2d(F.pad(x, (1, 2, 1, 2)), k1.to(dt), b1.to(dt), stride=2)
-        return o1_pre, k2.to(dt), self.conv1_2.bias.to(dt)
+        o1 = conv2d_bias_act(F.pad(x, (1, 2, 1, 2)), k1, b1, relu, stride=2)
+        return o1, k2.to(dt), self.conv1_2.bias.to(dt)
 
     def conv1_block_packed(self, x: torch.Tensor) -> torch.Tensor:
         """relu(conv1_1) -> relu(conv1_2) -> pool1 on the phase grid.
         x (B, 3, H, W), H and W even -> (B, 64, H/2, W/2)."""
-        o1_pre, k2, b2 = self.conv1_1_packed(x)
         if torch.is_grad_enabled() and (
             self.conv1_1.weight.requires_grad or self.conv1_2.weight.requires_grad
         ):
+            o1_pre, k2, b2 = self.conv1_1_packed(x)
             return PhasePool.apply(Conv12.apply(o1_pre, k2), b2)
-        return phase_pool(F.conv2d(F.relu(o1_pre), k2, padding=1), b2)
+        o1, k2, b2 = self.conv1_1_packed(x, relu=True)
+        return phase_pool(F.conv2d(o1, k2, padding=1), b2)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """x (B, 3, H, W) mean-subtracted, in compute dtype -> the six taps."""

@@ -42,6 +42,7 @@ EXTRA_FLAGS = {
     "nms_blocked": ("-fmad=false",),
     "conv_i8": ("-fmad=false",),
     "quantize_i8": ("-fmad=false",),
+    "bias_act": ("-fmad=false",),
     "upsample2x_bwd": ("-fmad=false",),
 }
 

@@ -46,7 +46,7 @@ from torch import nn
 
 from dan_tpu_torch.config import ModelConfig
 from dan_tpu_torch.models.detector import DANDetector, compute_dtype, heads_forward
-from dan_tpu_torch.models.layers import max_pool
+from dan_tpu_torch.models.layers import conv2d_bias_act, max_pool
 from dan_tpu_torch.models.vgg import TAP_NAMES, VGG_BLOCKS, nhwc, phase_pool
 from dan_tpu_torch.ops.conv_i8 import Padding, phase_max_i8, same_padding_2d  # noqa: F401
 from dan_tpu_torch.ops.conv_i8_cuda import conv_i8, packed_zeros_hold
@@ -142,8 +142,7 @@ def collect_act_absmax(
     taps: Dict[str, torch.Tensor] = {}
     y = x.to(compute_dtype(config)).permute(0, 3, 1, 2)
     if _packed(config, y.shape[2], y.shape[3]):
-        o1_pre, k2, b2 = bb.conv1_1_packed(y)
-        o1 = F.relu(o1_pre)
+        o1, k2, b2 = bb.conv1_1_packed(y, relu=True)
         stats["conv1_2"] = _absmax(o1)
         y = phase_pool(F.conv2d(o1, k2, padding=1), b2)
     else:
@@ -294,8 +293,7 @@ class QuantizedDetector(nn.Module):
         """(B, 3, H, W) in the compute dtype -> pool1 as int8 NHWC, the input
         of conv2_1."""
         if _packed(self.config, x.shape[2], x.shape[3]):
-            o1_pre = F.conv2d(F.pad(x, (1, 2, 1, 2)), self.k1p.to(x.dtype), self.b1.to(x.dtype),
-                              stride=2)
+            o1_pre = conv2d_bias_act(F.pad(x, (1, 2, 1, 2)), self.k1p, self.b1, stride=2)
             q8 = quantize_i8(nhwc(o1_pre), self.inv_conv1_2)  # relu fused in
             if record is not None:
                 record["conv1_2"] = q8
