@@ -353,7 +353,15 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      int8 one; at each call's shape the kernel, ATen's add + clamp and the
      plain version timed with CUDA events, summed a forward, beside the bound
      (each value read and written once at 3.35 TB/s).  The logits against
-     the parent commit's are `dan_tpu_torch/tools/ab_logits.py`'s.
+     the parent commit's are `dan_tpu_torch/tools/ab_logits.py`'s.  Then
+     the residual variant (relu(y + b + r), closing each ResNet
+     bottleneck): 48 edge cases off the forward's shapes with the same
+     specials in y and in r, bit for bit against ATen's add, add and clamp
+     and the plain version; a RetinaFace-R50 forward at batch 128, 840x840,
+     must launch the plain pass 60 times and the residual one 16 times;
+     the residual pass at the 16 bottleneck shapes of that batch checked
+     the same way, then timed beside ATen's three passes, the plain version
+     and its bound (3 accesses a value).
 
 Phase 12's first half runs before phase 13, its real-data half after it.
 The line before the last is a JSON object describing each kernel, with the
@@ -381,7 +389,7 @@ import time
 import numpy as np
 import torch
 
-from dan_tpu_torch.config import default_config
+from dan_tpu_torch.config import RetinaFaceConfig, default_config
 from dan_tpu_torch.data.synthetic import synthetic_batch, synthetic_sample
 from dan_tpu_torch.api import Detector
 from dan_tpu_torch.box.anchors import generate_anchors
@@ -423,7 +431,7 @@ from dan_tpu_torch.ops import (
 )
 from dan_tpu_torch.ops.conv_i8 import conv_i8_epilogue_plain, conv_i8_plain, out_size
 from dan_tpu_torch.models.detector import compute_dtype
-from dan_tpu_torch.models import layers, lfpn
+from dan_tpu_torch.models import layers, lfpn, resnet
 from dan_tpu_torch.models.layers import max_pool
 from dan_tpu_torch import quant
 from dan_tpu_torch.quant import QuantizedDetector, calibrate_act_scales, phase_max_i8
@@ -503,6 +511,11 @@ BIAS_ACT_SOURCE = "bias_act"
 # values written channel by channel into the first and last pixel of each
 # checked output, and the first three biases of every convolution.
 BIAS_ACT_PER_FORWARD = {"bf16": 31, "int8": 13}
+# RetinaFace-R50's forward at 840x840: the plain pass 60 times (the stem, 2
+# a bottleneck, 4 downsamples, 5 FPN, 15 SSH, 3 merged heads) and the
+# residual variant once a bottleneck.
+RETINAFACE_PASSES = {"bias_act": 60, "residual": 16}
+RETINAFACE_SIZE = 840
 BIAS_ACT_SPECIALS = (float("nan"), -0.0, 0.0, float("inf"), -float("inf"), 1.0, 1.0078125, -1.0)
 BIAS_ACT_BIASES = (2.0 ** -8, -0.0, 0.0)
 TTA_IMAGES = 160
@@ -5447,10 +5460,115 @@ def time_bias_act(calls):
     return out
 
 
+def aten_residual(y, bias, r):
+    """What ATen runs for a bottleneck's close: `out.add_(b)`, `+ r`, F.relu."""
+    return torch.nn.functional.relu(aten_bias_act(y, bias, False) + r)
+
+
+def residual_case(y, r, bias, what):
+    """Specials in the first and last pixel of y and r, then the residual
+    kernel against ATen's add, add and clamp and the plain version, bit for
+    bit; -> the kernel's output."""
+    spec = torch.tensor(BIAS_ACT_SPECIALS, dtype=y.dtype, device=y.device)
+    for t, flip in ((y, False), (r, True)):
+        rows = pixel_rows(t)
+        row = spec[torch.arange(rows.shape[1], device=y.device) % len(spec)]
+        row = row.flip(0) if flip else row
+        rows[0], rows[-1] = row, row.roll(3)
+    want = aten_residual(y.clone(), bias, r)
+    plain = bias_act_cuda.bias_residual_relu_plain(y, bias, r)
+    got = bias_act_cuda.bias_residual_relu(y, bias, r)
+    for other, name in ((want, "ATen's add, add and clamp"), (plain, "the plain version")):
+        if not same_bits(got, other):
+            raise AssertionError(f"phase 24: the residual pass != {name} at {what}")
+    return got
+
+
+def residual_edge_cases(dev):
+    """The residual kernel off the forward's shapes: bf16 and float32,
+    widths 6, 8, 64 and 1,000, channels-last and flat, y and r one value off
+    16 bytes, the bias in float32 and in y's dtype.  -> the number of cases."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 224)
+    n = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for c in (6, 8, 64, 1000):
+            for layout in ("nchw", "flat", "offset"):
+                for b_dtype in (torch.float32, dtype):
+                    y, r = (torch.randn(37 * c + 1, generator=gen, device=dev).to(dtype) * 2
+                            for _ in range(2))
+                    if layout == "nchw":
+                        y, r = (t[: 35 * c].view(1, 7, 5, c).permute(0, 3, 1, 2) for t in (y, r))
+                    elif layout == "flat":
+                        y, r = (t[: 37 * c].view(37, c) for t in (y, r))
+                    else:
+                        y, r = (t[1:].view(37, c) for t in (y, r))
+                    bias = (torch.randn(c, generator=gen, device=dev) * 3).to(b_dtype)
+                    bias[:3] = torch.tensor(BIAS_ACT_BIASES, device=dev)
+                    residual_case(y, r, bias, f"{layout} {tuple(y.shape)} {dtype} bias {b_dtype}")
+                    n += 1
+    return n
+
+
+def phase24_retinaface(dev, smi):
+    """RetinaFace-R50's forward at batch 128, 840x840: its launches of the
+    two passes counted; the residual pass at each of the 16 bottleneck
+    shapes bit for bit against ATen and the plain version, then timed beside
+    ATen's three passes, the plain version and the bound (3 accesses a
+    value)."""
+    rcfg = RetinaFaceConfig()
+    det = Detector.from_random(SEED, rcfg, dev)
+    seeded_biases(det.model, SEED + 25)
+    x = torch.randn((BATCH, RETINAFACE_SIZE, RETINAFACE_SIZE, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED + 25)) * 60
+    counts = {}
+    with torch.inference_mode():
+        det.model(x)
+        torch.cuda.synchronize()
+        before = bias_act_cuda.LAUNCHES, bias_act_cuda.RESIDUAL_LAUNCHES
+        det.model(x)
+        torch.cuda.synchronize()
+        counts = {"bias_act": bias_act_cuda.LAUNCHES - before[0],
+                  "residual": bias_act_cuda.RESIDUAL_LAUNCHES - before[1]}
+    del det, x
+    torch.cuda.empty_cache()
+    if counts != RETINAFACE_PASSES:
+        raise AssertionError(f"phase 24: a RetinaFace forward launched {counts}, expected "
+                             f"{RETINAFACE_PASSES}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    t = {"ms": 0.0, "aten_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    shapes = resnet.bottleneck_shapes(rcfg.model, RETINAFACE_SIZE)
+    for c, h, w in shapes:
+        y, r = (torch.empty((BATCH, c, h, w), dtype=torch.bfloat16, device=dev,
+                            memory_format=torch.channels_last).normal_(generator=gen)
+                for _ in range(2))
+        bias = torch.randn(c, generator=gen, device=dev) * 0.1
+        bias[:3] = torch.tensor(BIAS_ACT_BIASES, device=dev)
+        residual_case(y, r, bias, f"{(BATCH, c, h, w)}")
+        fns = {"ms": (lambda: bias_act_cuda.bias_residual_relu(y, bias, r), 5),
+               "aten_ms": (lambda: aten_residual(y, bias, r), 3),
+               "plain_ms": (lambda: bias_act_cuda.bias_residual_relu_plain(y, bias, r), 3)}
+        for key, (fn, iters) in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            t[key] += cuda_ms(fn, iters)
+        t["bound_ms"] += 3 * nbytes(y) / PEAK_BYTES * 1e3
+        del y, r
+        torch.cuda.empty_cache()
+    log(f"phase 24: RetinaFace-R50 forward at batch {BATCH}, {RETINAFACE_SIZE}x{RETINAFACE_SIZE}: "
+        f"{counts} launches; the residual pass at its {len(shapes)} bottleneck shapes bit for bit "
+        f"equal to ATen's add, add and clamp and the plain version (NaN, -0, +0, +-inf, bf16 "
+        f"ties in the first and last pixel of y and r); summed (CUDA events): kernel "
+        f"{t['ms']:.4f} ms, ATen {t['aten_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ms (3 accesses a value); bound/kernel "
+        f"{t['bound_ms'] / t['ms']:.1%}; {smi}")
+    return {"launches": counts, **t}
+
+
 def phase24(cfg, dev, smi):
     """The bias + ReLU pass: each call of a bf16 and an int8 forward at
     batch 128 checked bit for bit, its launches counted a forward, its time
-    beside ATen's two passes, the plain version and the bound."""
+    beside ATen's two passes, the plain version and the bound; then its
+    residual variant (phase24_retinaface)."""
     t0 = time.perf_counter()
     log(f"phase 24: bias_act == ATen's add-then-clamp bit for bit in "
         f"{bias_act_edge_cases(dev)} edge cases")
@@ -5496,6 +5614,9 @@ def phase24(cfg, dev, smi):
             f"events): kernel {t['ms']:.4f} ms, ATen add + clamp {t['aten_ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes: each value read and "
             f"written once); bound/kernel {t['bound_ms'] / t['ms']:.1%}; {smi}")
+    log(f"phase 24: the residual pass == ATen's add, add and clamp bit for bit in "
+        f"{residual_edge_cases(dev)} edge cases")
+    res["retinaface"] = phase24_retinaface(dev, smi)
     log(f"phase 24: {time.perf_counter() - t0:.1f} s")
     return res
 

@@ -22,6 +22,12 @@ the TTA path stays in the compute dtype.
 
 `warmup_tta` and `detect_tta_dataset` take a `mesh` (dan_tpu_torch.parallel)
 to share a dataset over ranks; each rank builds its Detector on mesh.device.
+
+A RetinaFaceConfig (config.py) builds RetinaFace-R50 (models/retinaface.py)
+in place of DAN: `detect`, `detect_batch` and `warmup` run it, and each
+detection dict then also holds 'landmarks' (N, 10), five (x, y) points in
+the image's pixels.  TTA, int8 and the checkpoint constructors refuse it
+(config.dan_only).
 """
 from __future__ import annotations
 
@@ -32,13 +38,14 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from dan_tpu_torch.config import DANConfig, default_config
+from dan_tpu_torch.config import DANConfig, dan_only, default_config
 from dan_tpu_torch.box.anchors import generate_anchors
 from dan_tpu_torch.ckpt.bridge import params_from_jax
 from dan_tpu_torch.ckpt.load import load_params
 from dan_tpu_torch.device import resolve_device
 from dan_tpu_torch.eval.tta import TTARunner
 from dan_tpu_torch.models.detector import DANDetector, compute_dtype
+from dan_tpu_torch.models.factory import build_model
 from dan_tpu_torch.ops.postprocess import postprocess_batch
 from dan_tpu_torch.ops.squash import eval_preprocess
 from dan_tpu_torch.parallel.mesh import Mesh
@@ -66,10 +73,11 @@ class Detector:
     def from_random(
         cls, seed: int = 0, config: Optional[DANConfig] = None, device=None
     ) -> "Detector":
-        """Random He-normal weights from a torch.Generator seeded with `seed`."""
+        """Random He-normal weights from a torch.Generator seeded with `seed`
+        (batch norm, where the model has it, at identity)."""
         config = config or default_config()
         gen = torch.Generator().manual_seed(seed)
-        return cls(DANDetector(config.model, gen), config, device)
+        return cls(build_model(config, gen), config, device)
 
     @classmethod
     def from_jax_params(
@@ -77,6 +85,7 @@ class Detector:
     ) -> "Detector":
         """Weights from the JAX package's parameter tree (numpy leaves)."""
         config = config or default_config()
+        dan_only(config, "Detector.from_jax_params")
         model = DANDetector(config.model)
         model.load_state_dict(params_from_jax(tree))
         return cls(model, config, device)
@@ -92,6 +101,7 @@ class Detector:
         model_dir (its newest step).  Loaded on the CPU, then moved to the
         device once."""
         config = config or default_config()
+        dan_only(config, "Detector.from_checkpoint")
         device = resolve_device(device)
         model = DANDetector(config.model)
         model.load_state_dict(load_params(path, config))
@@ -165,16 +175,21 @@ class Detector:
             with span("dan.detect.normalize"):
                 imgs = self._preprocess(canv, h_t, w_t)
             model = self._quant if self._quant is not None else self.model
-            cls_logits, loc_preds = model(imgs)
+            cls_logits, loc_preds, *landm = model(imgs)
             with span("dan.detect.postprocess"):
                 det = postprocess_batch(
                     cls_logits, loc_preds, self.anchors, cfg.anchors,
                     cfg.postprocess, float(size), float(size),
+                    landm_preds=landm[0] if landm else None,
                 )
                 # Back to original pixels: the inverse of the squash resize.
                 sx = w_t / size
                 sy = h_t / size
                 det["bboxes"] = det["bboxes"] * torch.stack([sx, sy, sx, sy], dim=-1)[:, None, :]
+                if landm:
+                    k = det["landmarks"].shape[-1] // 2
+                    sxy = torch.stack([sx, sy], dim=-1).repeat(1, k)
+                    det["landmarks"] = det["landmarks"] * sxy[:, None, :]
         return det
 
     def detect(
@@ -184,7 +199,7 @@ class Detector:
 
         Returns {'bboxes': (N, 4) float32 corner boxes in input pixels,
         'scores': (N,) float32}, N <= config.postprocess.max_detections,
-        by descending score."""
+        by descending score; with RetinaFace also 'landmarks' (N, 10)."""
         return self.detect_batch([image], score_threshold)[0]
 
     def detect_batch(self, images, score_threshold: Optional[float] = None) -> list:
@@ -213,7 +228,7 @@ class Detector:
             keep = det["valid"][i]
             if score_threshold is not None:
                 keep = keep & (det["scores"][i] >= score_threshold)
-            out.append({"bboxes": det["bboxes"][i][keep], "scores": det["scores"][i][keep]})
+            out.append({k: det[k][i][keep] for k in det if k != "valid"})
         return out
 
     def warmup(self, buckets=None) -> None:
@@ -241,6 +256,7 @@ class Detector:
         detect_batch() and warmup() run the int8 body from the next call on;
         the TTA path stays in the compute dtype and detect_tta() warns once.
         Call again to re-calibrate, dequantize() to go back."""
+        dan_only(self.config, "Detector.quantize_int8")
         imgs = [self._check_image(im) for im in calib_images]
         if not imgs:
             raise ValueError("quantize_int8 needs at least one calibration image")
@@ -272,6 +288,7 @@ class Detector:
     # -- test-time augmentation ------------------------------------------------
 
     def _get_tta_runner(self) -> TTARunner:
+        dan_only(self.config, "The TTA path (detect_tta, warmup_tta, detect_tta_dataset)")
         if self._tta_runner is None:
             self._tta_runner = TTARunner(self.model, self.config, device=self.device)
         return self._tta_runner

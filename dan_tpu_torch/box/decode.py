@@ -41,3 +41,16 @@ def decode_boxes(
             dim=-1,
         )
     return boxes
+
+
+def decode_landmarks(
+    landm_pred: torch.Tensor, anchors_center: torch.Tensor, prior_scaling
+) -> torch.Tensor:
+    """Decode (..., A, 2K) landmark offsets (x, y pairs) against (A, 4)
+    centre anchors: x = l_x * s0 * w + cx, y = l_y * s1 * h + cy (the box
+    centre's rule and order), not clipped."""
+    s0, s1 = float(prior_scaling[0]), float(prior_scaling[1])
+    acx, acy, aw, ah = (a[:, None] for a in anchors_center.unbind(-1))
+    x = landm_pred[..., 0::2] * s0 * aw + acx
+    y = landm_pred[..., 1::2] * s1 * ah + acy
+    return torch.stack([x, y], dim=-1).flatten(-2)

@@ -17,7 +17,7 @@ Provenance tags (see SURVEY.md §0):
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import ClassVar, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -287,6 +287,93 @@ class DANConfig:
 
 def default_config() -> DANConfig:
     return DANConfig()
+
+
+# -- RetinaFace-R50 ------------------------------------------------------------
+# The port's second detector, with no twin in the JAX package: RetinaFace
+# (Deng et al., arXiv:1905.00641) with a ResNet-50 body (He et al.,
+# arXiv:1512.03385; torchvision's v1.5, the stride on the 3x3 conv), as
+# biubug6/Pytorch_Retinaface's `cfg_re50` (data/config.py) and its
+# models/net.py (FPN, SSH) and models/retinaface.py (heads) define it.  Only
+# its detect path is ported (`dan_only` refuses the others).
+
+
+@dataclasses.dataclass(frozen=True)
+class RetinaFaceModelConfig:
+    """ResNet-50 body -> FPN over C3-C5 -> an SSH context module a level ->
+    class, box and landmark heads.  Every conv is followed by batch norm,
+    folded into the conv's weight and bias for inference."""
+
+    # cfg_re50's image_size.
+    image_size: int = 840
+    stem_channels: int = 64
+    # Bottlenecks of each stage (layer1-4) and their widths, expanded x4.
+    stage_blocks: Tuple[int, ...] = (3, 4, 6, 3)
+    stage_widths: Tuple[int, ...] = (64, 128, 256, 512)
+    expansion: int = 4
+    # cfg_re50's return_layers: layer2-4 (C3, C4, C5: strides 8, 16, 32)
+    # feed the FPN.
+    fpn_stages: Tuple[int, ...] = (2, 3, 4)
+    # cfg_re50's out_channel: the FPN's and the SSH's width.  Above 64 the
+    # release's LeakyReLU slope is 0, so every activation is a ReLU.
+    fpn_channels: int = 256
+    bn_eps: float = 1e-5
+    anchors_per_position: int = 2
+    num_landmarks: int = 5
+    compute_dtype: str = "bfloat16"
+
+    def stage_channels(self, stage: int) -> int:
+        """Output channels of layer`stage` (1-based)."""
+        return self.stage_widths[stage - 1] * self.expansion
+
+
+@dataclasses.dataclass(frozen=True)
+class RetinaFaceAnchorConfig:
+    """cfg_re50's priors: at each level, len(min_sizes[i]) square anchors a
+    position, centred at (j + offset) * step, position-major and
+    size-minor (models/retinaface.py's heads flatten so), in pixels of
+    the network input."""
+
+    min_sizes: Tuple[Tuple[float, ...], ...] = ((16.0, 32.0), (64.0, 128.0), (256.0, 512.0))
+    steps: Tuple[int, ...] = (8, 16, 32)
+    offset: float = 0.5
+    # cfg_re50's variance (0.1, 0.2) in the port's four-entry form; a
+    # landmark decodes with the first two.
+    prior_scaling: Tuple[float, float, float, float] = (0.1, 0.1, 0.2, 0.2)
+
+    def feature_shapes(self, image_size: int) -> Tuple[Tuple[int, int], ...]:
+        return tuple((-(-image_size // s), -(-image_size // s)) for s in self.steps)
+
+    def num_anchors(self, image_size: int) -> int:
+        return sum(h * w * len(sizes) for (h, w), sizes
+                   in zip(self.feature_shapes(image_size), self.min_sizes))
+
+
+@dataclasses.dataclass(frozen=True)
+class RetinaFaceConfig:
+    """RetinaFace-R50 at cfg_re50's settings and the release's test
+    settings (confidence 0.02, top-5000, NMS IoU 0.4, 750 kept; mean
+    (104, 117, 123) BGR, here in RGB order).  `tta` holds only the canvas
+    buckets that Detector.detect_batch packs images into."""
+
+    NAME: ClassVar[str] = "RetinaFace-R50"
+
+    model: RetinaFaceModelConfig = RetinaFaceModelConfig()
+    anchors: RetinaFaceAnchorConfig = RetinaFaceAnchorConfig()
+    preprocess: PreprocessConfig = PreprocessConfig(mean_rgb=(123.0, 117.0, 104.0))
+    postprocess: PostprocessConfig = PostprocessConfig(score_threshold=0.02, nms_iou_threshold=0.4)
+    tta: TTAConfig = TTAConfig()
+
+
+def dan_only(config, what: str) -> None:
+    """Raise NotImplementedError naming the configuration when `config` is
+    one that `what` (a path of the port) does not run: RetinaFace runs the
+    detect path alone."""
+    if isinstance(config, RetinaFaceConfig):
+        raise NotImplementedError(
+            f"{what} does not run the {RetinaFaceConfig.NAME} configuration (RetinaFaceConfig): "
+            "only its detect path is ported (Detector.detect, Detector.detect_batch, "
+            "tools/bench.py::build_detect_fn)")
 
 
 _NESTED = {

@@ -75,6 +75,26 @@ def conv2d_bias_act(
     return F.relu(out) if relu else out
 
 
+def conv2d_bias_residual_relu(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    residual: torch.Tensor,
+    stride: int = 1,
+    padding=0,
+) -> torch.Tensor:
+    """relu((F.conv2d(x) + bias) + residual) in x's dtype: a ResNet
+    bottleneck's last convolution.  Where conv2d_bias_act would take the
+    bias pass, the three steps run as the residual pass of
+    ops/bias_act_cuda.py, in place; elsewhere as ATen's add, add and clamp,
+    with the same bits."""
+    w = weight.to(x.dtype)
+    if fused_epilogue(x, weight, bias, residual):
+        out = F.conv2d(x, w, None, stride, padding)
+        return bias_act_cuda.bias_residual_relu(out, bias, residual)
+    return F.relu(F.conv2d(x, w, bias.to(x.dtype), stride, padding) + residual)
+
+
 def conv2d_same(
     x: torch.Tensor,
     weight: torch.Tensor,

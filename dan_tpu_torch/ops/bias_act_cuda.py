@@ -16,6 +16,15 @@ bytes, each value read and written once.
 A CPU tensor goes through `bias_act_plain` (a new tensor); a CUDA tensor
 launches the kernel (built on first use by ops/_cuda_build.py), which
 overwrites y and returns it, or raises.
+
+The residual variant closes a ResNet bottleneck (models/resnet.py):
+
+    y = bias_residual_relu(y, bias, r)
+    y = relu((y + bias.to(y.dtype)) + r)      (r: y's dtype, shape and strides)
+
+bit for bit ATen's two adds and clamp, each sum rounded to y's dtype, in
+one in-place pass (kernel `residual_relu_kernel`) that reads y and r and
+writes y: 3 accesses a value against ATen's 7.
 """
 from __future__ import annotations
 
@@ -28,8 +37,10 @@ from dan_tpu_torch.ops import _cuda_build
 
 SOURCE = "bias_act"
 
-# Kernel launches since the last reset (set to 0 to reset).
+# Kernel launches since the last reset (set to 0 to reset): the plain
+# pass's, and the residual variant's apart.
 LAUNCHES = 0
+RESIDUAL_LAUNCHES = 0
 
 
 def build() -> ctypes.CDLL:
@@ -38,6 +49,9 @@ def build() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]
     lib.bias_act_launch.restype = ctypes.c_int
+    lib.bias_residual_relu_launch.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.bias_residual_relu_launch.restype = ctypes.c_int
     return lib
 
 
@@ -100,3 +114,49 @@ def bias_act_plain(y: torch.Tensor, bias: torch.Tensor, relu: bool) -> torch.Ten
     b = bias.to(y.dtype)
     out = y + (b.reshape(c, 1, 1) if y.dim() == 4 else b)
     return F.relu(out) if relu else out
+
+
+def _check_residual(y: torch.Tensor, bias: torch.Tensor, r: torch.Tensor) -> int:
+    c = _check(y, bias)
+    if r.dtype != y.dtype or r.shape != y.shape or r.stride() != y.stride():
+        raise ValueError(f"r must have y's dtype, shape and strides: y {y.dtype} "
+                         f"{tuple(y.shape)} {y.stride()}, r {r.dtype} {tuple(r.shape)} "
+                         f"{r.stride()}")
+    if r.device != y.device:
+        raise ValueError(f"y on {y.device}, r on {r.device}")
+    return c
+
+
+def bias_residual_relu(y: torch.Tensor, bias: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """CPU tensors take the plain version; CUDA tensors launch the kernel,
+    in place on y."""
+    _check_residual(y, bias, r)
+    if y.device.type == "cpu":
+        return bias_residual_relu_plain(y, bias, r)
+    return _launch_residual(y, bias, r)
+
+
+def _launch_residual(y: torch.Tensor, bias: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    global RESIDUAL_LAUNCHES
+    c = _check_residual(y, bias, r)
+    if y.device.type != "cuda":
+        raise ValueError(f"the residual pass takes CUDA tensors, got {y.device}")
+    if torch.is_grad_enabled() and (y.requires_grad or r.requires_grad):
+        raise ValueError("the residual pass overwrites y: it takes no tensor that autograd records")
+    if not bias.is_contiguous():
+        raise ValueError("the residual pass takes a contiguous bias")
+    if y.data_ptr() == r.data_ptr():
+        raise ValueError("the residual pass takes an r apart from y")
+    lib = build()
+    with torch.cuda.device(y.device):
+        err = lib.bias_residual_relu_launch(y.data_ptr(), r.data_ptr(), bias.data_ptr(),
+                                            y.numel(), c, y.element_size(), bias.element_size(),
+                                            _cuda_build.stream_of(y))
+    _cuda_build.check(err, "bias_residual_relu_launch")
+    RESIDUAL_LAUNCHES += 1
+    return y
+
+
+def bias_residual_relu_plain(y: torch.Tensor, bias: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """The plain version: ATen's `F.relu((y + bias.to(y.dtype)) + r)`."""
+    return F.relu(bias_act_plain(y, bias, False) + r)

@@ -45,10 +45,16 @@ def topk_select(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-NMS top-k by score over (..., N, 4)/(..., N) -> (..., k, 4)/(..., k),
     by a stable sort (ties keep ascending original index)."""
-    k = min(k, scores.shape[-1])
-    order = torch.sort(-scores, dim=-1, stable=True).indices[..., :k]
+    order = topk_order(scores, k)
     top_boxes = torch.gather(boxes, -2, order[..., None].expand(*order.shape, 4))
     return top_boxes, torch.gather(scores, -1, order)
+
+
+def topk_order(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices (..., min(k, N)) of the pre-NMS top-k of (..., N) scores, by
+    a stable sort: topk_select's order, for gathering other rows by it."""
+    k = min(k, scores.shape[-1])
+    return torch.sort(-scores, dim=-1, stable=True).indices[..., :k]
 
 
 def rank_to_result(

@@ -106,8 +106,10 @@ def build_detect_fn(cfg: DANConfig, device):
     """detect(model, images_u8) -> {'bboxes', 'scores', 'valid'} of
     postprocess_batch: normalize, the forward of `model` (a DANDetector or a
     quant.QuantizedDetector: normalized (B, S, S, 3) -> (cls, loc)), decode,
-    filter, top-k and NMS, in pixels of the network input.  Each call is
-    a dan.detect span (utils/profiling.py) whose unit is the call's number."""
+    filter, top-k and NMS, in pixels of the network input.  With a
+    RetinaFaceConfig `model` is a RetinaFace, whose third output, the
+    landmarks, comes back as 'landmarks' too.  Each call is a dan.detect
+    span (utils/profiling.py) whose unit is the call's number."""
     size = cfg.model.image_size
     anchors = generate_anchors(cfg.anchors, size, size, device)
     calls = itertools.count()
@@ -117,10 +119,11 @@ def build_detect_fn(cfg: DANConfig, device):
         with span("dan.detect", unit=next(calls)):
             with span("dan.detect.normalize"):
                 x = normalize_image(images_u8.float(), cfg.preprocess)
-            cls_logits, loc_preds = model(x)
+            cls_logits, loc_preds, *landm = model(x)
             with span("dan.detect.postprocess"):
                 return postprocess_batch(cls_logits, loc_preds, anchors, cfg.anchors,
-                                         cfg.postprocess, float(size), float(size))
+                                         cfg.postprocess, float(size), float(size),
+                                         landm_preds=landm[0] if landm else None)
 
     return detect
 

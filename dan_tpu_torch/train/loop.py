@@ -55,7 +55,7 @@ from typing import Dict, Iterator, Mapping, Optional
 import numpy as np
 import torch
 
-from dan_tpu_torch.config import DANConfig
+from dan_tpu_torch.config import DANConfig, dan_only
 from dan_tpu_torch.device import float32_arithmetic, resolve_device
 from dan_tpu_torch.box.anchors import generate_anchors
 from dan_tpu_torch.box.matching import MatchTargets, match_anchors_batch
@@ -88,6 +88,7 @@ def create_train_state(config: DANConfig, seed: int = 0, device=None,
                        model: Optional[DANDetector] = None) -> TrainState:
     """`model`'s weights (by default random He-normal ones from a
     torch.Generator seeded with `seed`) on `device`, zero momentum, step 0."""
+    dan_only(config, "Training (create_train_state)")
     device = resolve_device(device)
     if model is None:
         model = DANDetector(config.model, torch.Generator().manual_seed(seed))
@@ -272,6 +273,7 @@ def train_step(
     debug_nans: raise FloatingPointError before the update at the first
     non-finite module output, loss or gradient (see the module's
     docstring)."""
+    dan_only(state.config, "Training (train_step)")
     with span("dan.train.step", unit=state.step):
         # A float32 model's preprocessing (its resize is two matrix products)
         # runs in float32 arithmetic too, as loss_and_grads does.
