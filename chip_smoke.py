@@ -361,7 +361,19 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      must launch the plain pass 60 times and the residual one 16 times;
      the residual pass at the 16 bottleneck shapes of that batch checked
      the same way, then timed beside ATen's three passes, the plain version
-     and its bound (3 accesses a value).
+     and its bound (3 accesses a value).  Then the one-pass L2Norm
+     (csrc/l2norm.cu): 3 launches in each of those bf16 and int8 forwards,
+     0 in a recorded forward and backward, a detect_tta and the RetinaFace
+     forward; 30 edge cases (bf16 and float32, widths 6 to 4,096, a view
+     off 16 bytes, NaN, +-inf, all-zero, subnormal and overflowing pixels)
+     within 1 bf16 ulp (16 float32 ulps) of ATen's expression and bit for
+     bit on the special pixels, and one value a pixel over 60 decades bit
+     for bit (rsqrt included); at the three taps' shapes at batch 128 in
+     bf16 and float32 the same limits with the share that differs, two
+     launches bit for bit, the error against a float64 normalisation no
+     larger than ATen's (to 1 %), small integers bit for bit; then the
+     kernel and ATen's six passes timed at the bf16 shapes beside the bound
+     (each value read and written once).
 
 Phase 12's first half runs before phase 13, its real-data half after it.
 The line before the last is a JSON object describing each kernel, with the
@@ -421,6 +433,7 @@ from dan_tpu_torch.ops import (
     bbox_vote_cuda,
     bias_act_cuda,
     conv12_wgrad_cuda,
+    l2norm_cuda,
     conv_i8_cuda,
     matching_cuda,
     quantize_i8_cuda,
@@ -515,6 +528,16 @@ BIAS_ACT_PER_FORWARD = {"bf16": 31, "int8": 13}
 # a bottleneck, 4 downsamples, 5 FPN, 15 SSH, 3 merged heads) and the
 # residual variant once a bottleneck.
 RETINAFACE_PASSES = {"bias_act": 60, "residual": 16}
+# Phase 24 (L2Norm): launches of the one-pass L2Norm a DAN forward (its
+# three shallow taps; none in a recorded forward, a TTA launch or a
+# RetinaFace forward), its eps, and the largest distance from ATen's output
+# in units in the last place: one bf16 ulp (the rounding of a product that
+# differs in its last bits, since the two sum the squares in other orders);
+# in float32 the same differences show at float32's finer grain.
+L2NORM_SOURCE = "l2norm"
+L2NORM_PER_FORWARD = 3
+L2NORM_EPS = 1e-12
+L2NORM_ULPS = {torch.bfloat16: 1, torch.float32: 16}
 RETINAFACE_SIZE = 840
 BIAS_ACT_SPECIALS = (float("nan"), -0.0, 0.0, float("inf"), -float("inf"), 1.0, 1.0078125, -1.0)
 BIAS_ACT_BIASES = (2.0 ** -8, -0.0, 0.0)
@@ -868,7 +891,8 @@ def main() -> int:
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     _cuda_build.build_all(["nms"] + [src for _, src, _ in TRAIN_KERNELS.values()]
-                          + list(TTA_SOURCES) + [INT8_SOURCE, QUANT_SOURCE, BIAS_ACT_SOURCE])
+                          + list(TTA_SOURCES) + [INT8_SOURCE, QUANT_SOURCE, BIAS_ACT_SOURCE,
+                                                            L2NORM_SOURCE])
     secs = _cuda_build.BUILDS["nms"].seconds
     log(f"phase 2: built all CUDA sources in {time.perf_counter() - t0:.3f} s; "
         f"{KERNEL_SOURCE} " + (f"in {secs:.3f} s" if secs is not None else "was already built"))
@@ -1331,6 +1355,19 @@ def main() -> int:
          "ms_covers": "each of a forward's calls at batch 128, 640x640, timed alone at its "
                       "shape and summed (bf16 and int8 forwards); library_ms is ATen's "
                       "in-place add and F.relu on the same tensors"})
+    nl = ba["l2norm"]
+    kernels.append(
+        {"name": "l2norm", "route": "cuda", "source": f"dan_tpu_torch/csrc/{L2NORM_SOURCE}.cu",
+         "replaces": "no TPU kernel: ATen's six passes of L2Norm on the three shallow taps "
+                     "(XLA fuses L2Norm on the TPU)",
+         "launches_per_forward": ba["l2norm_launches"],
+         "max_ulps": {k: nl[k]["max_ulps"] for k in ("bf16", "f32")},
+         "share_differing": {k: nl[k]["share_differing"] for k in ("bf16", "f32")},
+         "ms": nl["ms"], "plain_ms": nl["aten_ms"], "library_ms": None,
+         "bound_ms": nl["bound_ms"], "bound_by": "bytes",
+         "ms_covers": "the three taps of a bf16 forward at batch 128, 640x640, each timed "
+                      "alone and summed; plain_ms is ATen's expression (the plain version) on "
+                      "the same tensors"})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5524,11 +5561,12 @@ def phase24_retinaface(dev, smi):
     with torch.inference_mode():
         det.model(x)
         torch.cuda.synchronize()
-        before = bias_act_cuda.LAUNCHES, bias_act_cuda.RESIDUAL_LAUNCHES
+        before = bias_act_cuda.LAUNCHES, bias_act_cuda.RESIDUAL_LAUNCHES, l2norm_cuda.LAUNCHES
         det.model(x)
         torch.cuda.synchronize()
         counts = {"bias_act": bias_act_cuda.LAUNCHES - before[0],
                   "residual": bias_act_cuda.RESIDUAL_LAUNCHES - before[1]}
+        l2norm = l2norm_cuda.LAUNCHES - before[2]
     del det, x
     torch.cuda.empty_cache()
     if counts != RETINAFACE_PASSES:
@@ -5561,7 +5599,192 @@ def phase24_retinaface(dev, smi):
         f"{t['ms']:.4f} ms, ATen {t['aten_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
         f"{t['bound_ms']:.4f} ms (3 accesses a value); bound/kernel "
         f"{t['bound_ms'] / t['ms']:.1%}; {smi}")
-    return {"launches": counts, **t}
+    return {"launches": dict(counts, l2norm=l2norm), **t}
+
+
+def ulps_apart(a, b):
+    """|a - b| element by element in units in the last place of their
+    dtype (int64), 0 where both are NaN, -1 where one alone is."""
+    bits, mag = (torch.int16, 0x7FFF) if a.dtype == torch.bfloat16 else (torch.int32, 0x7FFFFFFF)
+
+    def key(t):
+        i = t.view(bits).to(torch.int64)
+        return torch.where(i < 0, -(i & mag), i)
+
+    d = (key(a) - key(b)).abs()
+    na, nb = a.isnan(), b.isnan()
+    d = torch.where(na & nb, 0, d)
+    return torch.where(na ^ nb, -1, d)
+
+
+def l2norm_twice(x, scale, what):
+    """Two launches of the kernel on x: bit for bit the same, x's dtype and
+    layout; -> the output."""
+    got = l2norm_cuda.l2norm(x, scale, L2NORM_EPS)
+    if got.dtype != x.dtype or not got.is_contiguous(memory_format=torch.channels_last):
+        raise AssertionError(f"phase 24: l2norm gave {got.dtype} {got.stride()} for {what}")
+    if not same_bits(got, l2norm_cuda.l2norm(x, scale, L2NORM_EPS)):
+        raise AssertionError(f"phase 24: l2norm differs from launch to launch at {what}")
+    return got
+
+
+def l2norm_ulps(got, want, what, exact=False):
+    """The kernel's output against ATen's: NaN where ATen's is, every
+    element within L2NORM_ULPS (0 where `exact`); -> the ulps (int64)."""
+    u = ulps_apart(got, want)
+    limit = 0 if exact else L2NORM_ULPS[got.dtype]
+    if bool((u < 0).any()) or int(u.max()) > limit:
+        raise AssertionError(f"phase 24: l2norm != ATen's expression at {what}: "
+                             f"{int((u < 0).sum())} NaNs apart, up to {int(u.max())} ulps "
+                             f"(limit {limit})")
+    return u
+
+
+def l2norm_edge_cases(dev):
+    """The kernel against ATen's expression off the forward's shapes: bf16
+    and float32; widths 6 (the scalar path), 8 and 24 (groups of fewer lanes
+    than a warp), 256 and 512 (the taps'), 1,000 (packs past the pixel's
+    masked) and 4,096 (past the registers: the scalar path); a fresh
+    channels-last tensor and a view one value off 16 bytes (the scalar
+    path); pixels 0-6 NaN, +inf, -inf, all zero, one value 3, values of
+    1e-20 (subnormal squares) and of 1e30 (squares that overflow), the rest
+    normal: NaN where ATen's is, every element within L2NORM_ULPS, pixels
+    0-4 and 6 bit for bit.  Then one nonzero value a pixel over 60 decades,
+    at C = 1 (scalar) and 8 (vector) in float32: sums that are exact in any
+    order, so every bit must be ATen's, rsqrt included.  -> the number of
+    cases."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 324)
+    n = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for c in (6, 8, 24, 256, 512, 1000, 4096):
+            for layout in ("fresh", "offset"):
+                v = torch.randn((37, c), generator=gen, device=dev) * 3
+                v[0, c // 2] = float("nan")
+                v[1, 0] = float("inf")
+                v[2, -1] = -float("inf")
+                v[3] = 0.0
+                v[4] = 0.0
+                v[4, 1 % c] = 3.0
+                v[5] *= 1e-20
+                v[6] *= 1e30
+                buf = torch.empty(37 * c + 1, dtype=dtype, device=dev)
+                flat = buf[1:] if layout == "offset" else buf[: 37 * c]
+                flat.copy_(v.reshape(-1))
+                x = flat.view(1, 37, 1, c).permute(0, 3, 1, 2)
+                scale = torch.rand(c, generator=gen, device=dev) * 10
+                what = f"{layout} {tuple(x.shape)} {dtype}"
+                got = l2norm_twice(x, scale, what)
+                want = l2norm_cuda.l2norm_plain(x, scale, L2NORM_EPS)
+                l2norm_ulps(got, want, what)
+                for r in (0, 1, 2, 3, 4, 6):
+                    l2norm_ulps(pixel_rows(got)[r], pixel_rows(want)[r], f"{what} pixel {r}",
+                                exact=True)
+                n += 1
+    for c in (1, 8):
+        v = torch.zeros((4096, c), device=dev)
+        mag = 10.0 ** (torch.rand(4096, generator=gen, device=dev) * 60 - 30)
+        v[torch.arange(4096, device=dev), torch.arange(4096, device=dev) % c] = (
+            torch.randn(4096, generator=gen, device=dev) * mag)
+        x = v.view(1, 64, 64, c).permute(0, 3, 1, 2)
+        scale = torch.rand(c, generator=gen, device=dev) * 10
+        what = f"one value a pixel {tuple(x.shape)}"
+        l2norm_ulps(l2norm_twice(x, scale, what), l2norm_cuda.l2norm_plain(x, scale, L2NORM_EPS),
+                    what, exact=True)
+        n += 1
+    return n
+
+
+def l2norm_tap_shapes(cfg):
+    """(C, H) of the three L2Norm taps at the configuration's size."""
+    size = cfg.model.image_size
+    return [(c, size // s) for c, s in zip(cfg.model.lfpn_channels, (4, 8, 16))]
+
+
+def l2norm_taps(cfg, dev, smi):
+    """The kernel at the three taps' shapes at batch 128 in bf16 and
+    float32, on normal values: against ATen's expression (NaN nowhere,
+    every element within L2NORM_ULPS, the share that differs), both against
+    a float64 normalisation (relative L2; the kernel's no larger than
+    ATen's, to 1 %: the two differ only in the order of one sum a pixel);
+    on small integers at batch 8 (sums exact in any order) bit for bit;
+    then, in bf16, each shape timed (CUDA events) beside ATen's six passes
+    and the bound (each value read and written once).  -> the readings."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 325)
+    shapes = l2norm_tap_shapes(cfg)
+    res = {"ms": 0.0, "aten_ms": 0.0, "bound_ms": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        worst, differ, total, err, aten_err, ref_sq = 0, 0, 0, 0.0, 0.0, 0.0
+        for c, h in shapes:
+            what = f"{(BATCH, c, h, h)} {dtype}"
+            x = torch.empty((BATCH, c, h, h), dtype=dtype, device=dev,
+                            memory_format=torch.channels_last).normal_(generator=gen)
+            scale = torch.rand(c, generator=gen, device=dev) * 10
+            got = l2norm_twice(x, scale, what)
+            s64 = scale.double()[:, None, None]
+            for i in range(0, BATCH, 16):
+                xs = x[i: i + 16]
+                want = l2norm_cuda.l2norm_plain(xs, scale, L2NORM_EPS)
+                u = l2norm_ulps(got[i: i + 16], want, what)
+                worst, differ, total = max(worst, int(u.max())), differ + int((u > 0).sum()), \
+                    total + u.numel()
+                del u
+                x64 = xs.double()
+                ref = x64 * torch.rsqrt((x64 * x64).sum(dim=1, keepdim=True) + L2NORM_EPS) * s64
+                err += float((got[i: i + 16].double() - ref).square().sum())
+                aten_err += float((want.double() - ref).square().sum())
+                ref_sq += float(ref.square().sum())
+                del want, x64, ref
+            xi = torch.randint(-8, 9, (8, h, h, c), generator=gen, device=dev).to(dtype)
+            xi = xi.permute(0, 3, 1, 2)
+            l2norm_ulps(l2norm_twice(xi, scale, f"integers {what}"),
+                        l2norm_cuda.l2norm_plain(xi, scale, L2NORM_EPS), f"integers {what}",
+                        exact=True)
+            del xi, got
+            if dtype == torch.bfloat16:
+                fns = {"ms": (lambda: l2norm_cuda.l2norm(x, scale, L2NORM_EPS), 5),
+                       "aten_ms": (lambda: l2norm_cuda.l2norm_plain(x, scale, L2NORM_EPS), 3)}
+                for key, (fn, iters) in fns.items():
+                    fn()
+                    torch.cuda.synchronize()
+                    res[key] += cuda_ms(fn, iters)
+                res["bound_ms"] += 2 * nbytes(x) / PEAK_BYTES * 1e3
+            del x
+            torch.cuda.empty_cache()
+        err, aten_err = (err / ref_sq) ** 0.5, (aten_err / ref_sq) ** 0.5
+        if err > 1.01 * aten_err:
+            raise AssertionError(f"phase 24: l2norm's error against float64 {err:.4e} exceeds "
+                                 f"ATen's {aten_err:.4e} ({dtype})")
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        res[name] = {"max_ulps": worst, "share_differing": differ / total,
+                     "rel_l2_f64": err, "aten_rel_l2_f64": aten_err}
+        log(f"phase 24: l2norm at the taps {shapes} x batch {BATCH}, {dtype}: every element "
+            f"within {worst} ulp of ATen's expression ({differ / total:.4%} of "
+            f"{total} differ), NaN nowhere, two launches bit for bit; relative L2 against "
+            f"float64 {err:.4e} (ATen {aten_err:.4e}); small integers bit for bit")
+    log(f"phase 24: l2norm at the three taps, bf16, summed (CUDA events): kernel "
+        f"{res['ms']:.4f} ms, ATen's six passes {res['aten_ms']:.4f} ms, bound "
+        f"{res['bound_ms']:.4f} ms (each value read and written once); bound/kernel "
+        f"{res['bound_ms'] / res['ms']:.1%}; {smi}")
+    return res
+
+
+def l2norm_off_paths(det, dev):
+    """L2Norm's launches where the kernel must not run: a recorded forward
+    and backward at batch 2 (the train step's), a detect_tta of one image
+    (the TTA runner's NCHW canvases).  -> {path: launches}."""
+    out = {}
+    before = l2norm_cuda.LAUNCHES
+    x = torch.randn((2, 128, 128, 3), device=dev) * 50
+    cls, loc = det.model(x)
+    (cls.float().sum() + loc.float().sum()).backward()
+    det.model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    out["train"] = l2norm_cuda.LAUNCHES - before
+    before = l2norm_cuda.LAUNCHES
+    det.detect_tta(np.random.default_rng(SEED).integers(0, 255, (300, 400, 3), dtype=np.uint8))
+    torch.cuda.synchronize()
+    out["tta"] = l2norm_cuda.LAUNCHES - before
+    return out
 
 
 def phase24(cfg, dev, smi):
@@ -5578,7 +5801,7 @@ def phase24(cfg, dev, smi):
     images = torch.from_numpy(rng.integers(0, 255, (BATCH, cfg.model.image_size,
                                                     cfg.model.image_size, 3),
                                            dtype=np.uint8)).to(dev)
-    res = {"launches": {}}
+    res = {"launches": {}, "l2norm_launches": {}}
     calls = {}
     with torch.inference_mode():
         x = normalize_image(images.float(), cfg.preprocess).to(compute_dtype(cfg.model))
@@ -5590,20 +5813,26 @@ def phase24(cfg, dev, smi):
             with checked_bias_act([]) as calls[which]:
                 model(x)
             torch.cuda.synchronize()
-            before = bias_act_cuda.LAUNCHES
+            before = bias_act_cuda.LAUNCHES, l2norm_cuda.LAUNCHES
             model(x)
             torch.cuda.synchronize()
-            n = bias_act_cuda.LAUNCHES - before
+            n = bias_act_cuda.LAUNCHES - before[0]
             if n != BIAS_ACT_PER_FORWARD[which] or len(calls[which]) != n:
                 raise AssertionError(f"phase 24: {which} forward launched bias_act {n} times "
                                      f"({len(calls[which])} calls checked), expected "
                                      f"{BIAS_ACT_PER_FORWARD[which]}")
+            n_norm = l2norm_cuda.LAUNCHES - before[1]
+            if n_norm != L2NORM_PER_FORWARD:
+                raise AssertionError(f"phase 24: {which} forward launched l2norm {n_norm} times, "
+                                     f"expected {L2NORM_PER_FORWARD}")
             res["launches"][which] = n
+            res["l2norm_launches"][which] = n_norm
             relus = sum(r for *_, r in calls[which])
             log(f"phase 24: {which} forward at batch {BATCH}: {n} calls of the pass ({relus} "
                 f"with ReLU), each bit for bit equal to ATen's add-then-clamp and the plain "
                 f"version with NaN, -0, +0, +-inf and bf16 ties in its first and last pixel")
         del models, x
+    off = l2norm_off_paths(det, dev)
     del det
     torch.cuda.empty_cache()
     for which in ("bf16", "int8"):
@@ -5617,6 +5846,13 @@ def phase24(cfg, dev, smi):
     log(f"phase 24: the residual pass == ATen's add, add and clamp bit for bit in "
         f"{residual_edge_cases(dev)} edge cases")
     res["retinaface"] = phase24_retinaface(dev, smi)
+    off["retinaface"] = res["retinaface"]["launches"].pop("l2norm")
+    if any(off.values()):
+        raise AssertionError(f"phase 24: l2norm launched off the inference path: {off}")
+    log(f"phase 24: l2norm launched {L2NORM_PER_FORWARD} times a bf16 and an int8 forward, "
+        f"{off} in a recorded forward and backward, a detect_tta and a RetinaFace forward; "
+        f"== ATen's expression in {l2norm_edge_cases(dev)} edge cases")
+    res["l2norm"] = l2norm_taps(cfg, dev, smi)
     log(f"phase 24: {time.perf_counter() - t0:.1f} s")
     return res
 

@@ -9,6 +9,8 @@ activations and OIHW kernels.
   * A convolution's bias and ReLU run, on the card and outside autograd,
     as one in-place pass of ops/bias_act_cuda.py with ATen's arithmetic;
     elsewhere (the CPU, the train step) ATen adds the bias and clamps.
+    L2Norm runs there as one pass of ops/l2norm_cuda.py, elsewhere as
+    ATen's float32 expression.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dan_tpu_torch.ops import bias_act_cuda, upsample_cuda
+from dan_tpu_torch.ops import bias_act_cuda, l2norm_cuda, upsample_cuda
 
 
 def same_padding(size: int, kernel: int, stride: int, dilation: int) -> Tuple[int, int]:
@@ -44,13 +46,16 @@ def _on_card(x: torch.Tensor) -> bool:
 
 
 def fused_epilogue(x: torch.Tensor, *params: torch.Tensor) -> bool:
-    """Whether the bias (and ReLU) of a convolution of x runs as one
-    in-place pass of ops/bias_act_cuda.py: x is on the card in channels-last
-    memory (so cuDNN writes the output channels-last too) and autograd
-    records nothing through x or params.  Otherwise F.conv2d takes the bias
-    and F.relu clamps; on the card ATen then runs them as two passes after
-    cuDNN's convolution, with the kernel's bits.  (The TTA runner's
-    resampled canvases are NCHW, so its forward keeps ATen's passes.)"""
+    """Whether an inference step on x runs as a hand-written pass: the bias
+    (and ReLU) of a convolution of x as one in-place pass of
+    ops/bias_act_cuda.py, an L2Norm of x as one pass of ops/l2norm_cuda.py.
+    It does where x is on the card in channels-last memory (so cuDNN writes
+    the output channels-last too) and autograd records nothing through x or
+    params.  Otherwise F.conv2d takes the bias and F.relu clamps; on the
+    card ATen then runs them as two passes after cuDNN's convolution, with
+    the kernel's bits; and L2Norm runs as ATen's six passes.  (The TTA
+    runner's resampled canvases are NCHW, so its forward keeps ATen's
+    passes.)"""
     if not (_on_card(x) and x.is_contiguous(memory_format=torch.channels_last)):
         return False
     return not (torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)))
@@ -148,7 +153,8 @@ def max_pool(x: torch.Tensor) -> torch.Tensor:
 
 class L2Norm(nn.Module):
     """Channelwise L2 normalization with a learned scale, computed in
-    float32 and cast back."""
+    float32 and cast back: one pass of ops/l2norm_cuda.py where
+    fused_epilogue says so, else ATen's expression (`l2norm_plain`)."""
 
     def __init__(self, channels: int, scale_init: float, eps: float = 1e-12):
         super().__init__()
@@ -156,9 +162,9 @@ class L2Norm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        norm = torch.rsqrt((xf * xf).sum(dim=1, keepdim=True) + self.eps)
-        return (xf * norm * self.scale.float()[:, None, None]).to(x.dtype)
+        if fused_epilogue(x, self.scale):
+            return l2norm_cuda.l2norm(x, self.scale, self.eps)
+        return l2norm_cuda.l2norm_plain(x, self.scale, self.eps)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

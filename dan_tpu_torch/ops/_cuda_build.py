@@ -43,6 +43,7 @@ EXTRA_FLAGS = {
     "conv_i8": ("-fmad=false",),
     "quantize_i8": ("-fmad=false",),
     "bias_act": ("-fmad=false",),
+    "l2norm": ("-fmad=false",),
     "upsample2x_bwd": ("-fmad=false",),
 }
 

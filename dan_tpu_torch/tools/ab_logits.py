@@ -1,9 +1,10 @@
 #!/usr/bin/env python
 """Compare the bf16 and int8 logits of two checkouts of this repository
-bit for bit on one CUDA card: a change that should keep every bit (a
-kernel that redoes PyTorch's arithmetic) is held to the checkout before it.
+on one CUDA card: a change that should keep every bit (a kernel that redoes
+PyTorch's arithmetic) is held to the checkout before it bit for bit, one
+that changes only the order of a sum to a relative L2 distance.
 
-    python3 dan_tpu_torch/tools/ab_logits.py DIR_A DIR_B [--batch 16]
+    python3 dan_tpu_torch/tools/ab_logits.py DIR_A DIR_B [--batch 16] [--max_rel_l2 0]
 
 Each side is a fresh process started in its checkout (which builds that
 checkout's kernels and imports its `dan_tpu_torch`).  It draws the default
@@ -15,11 +16,14 @@ images, `quant.QuantizedDetector`) on the same images, all under
 inference_mode.  The parent compares the four logit tensors and the
 calibration scales as integers of their width.  The last line is one JSON
 object: the card's name and power limit, each side's launches of the
-bias + ReLU pass where the checkout has one, the number of differing
-elements of each tensor, and `same`; the exit code is 0 only if every bit
-is the same.
+bias + ReLU pass and of the one-pass L2Norm where the checkout has them,
+the number of differing elements of each tensor, each logit tensor's
+relative L2 distance ||B - A|| / ||A||, and `same` (every bit); the exit
+code is 0 only if the scales are the same bit for bit and every logit
+tensor is within `--max_rel_l2` (0: bit for bit).
 """
 import argparse
+import importlib
 import json
 import os
 import subprocess
@@ -40,10 +44,12 @@ def child(out: str, batch: int) -> None:
     from dan_tpu_torch.models.detector import compute_dtype
     from dan_tpu_torch.ops.preprocess import normalize_image
 
-    try:
-        from dan_tpu_torch.ops import bias_act_cuda
-    except ImportError:
-        bias_act_cuda = None
+    counters = {}
+    for name in ("bias_act", "l2norm"):
+        try:
+            counters[name] = importlib.import_module(f"dan_tpu_torch.ops.{name}_cuda")
+        except ImportError:
+            pass
     dev = torch.device("cuda", 0)
     cfg = default_config()
     det = Detector.from_random(SEED, cfg, dev)
@@ -66,10 +72,11 @@ def child(out: str, batch: int) -> None:
                 model = quant.QuantizedDetector(det.model, scales).to(dev).eval()
             else:
                 model = det.model
-            before = bias_act_cuda.LAUNCHES if bias_act_cuda else None
+            before = {name: mod.LAUNCHES for name, mod in counters.items()}
             cls, loc = model(x)
             torch.cuda.synchronize()
-            launches[which] = (bias_act_cuda.LAUNCHES - before) if bias_act_cuda else None
+            launches[which] = {name: counters[name].LAUNCHES - before[name]
+                               if name in counters else None for name in ("bias_act", "l2norm")}
             got[f"{which}_cls"], got[f"{which}_loc"] = cls, loc
     np.savez(out, **{k: v.float().cpu().numpy().view(np.uint32) for k, v in got.items()})
     print(json.dumps({"launches": launches}))
@@ -79,6 +86,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("dirs", nargs="*")
     ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--max_rel_l2", type=float, default=0.0,
+                    help="the largest relative L2 distance a logit tensor may have (0: every bit)")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
@@ -111,10 +120,19 @@ def main() -> int:
                   else -1)
               for k in sorted(set(a) | set(b))}
     same = all(v == 0 for v in differ.values())
+    rel_l2 = {}
+    for k in sorted(set(a) & set(b)):
+        if k.startswith("scale_") or a[k].shape != b[k].shape:
+            continue
+        fa, fb = (t.view(np.float32).astype(np.float64) for t in (a[k], b[k]))
+        rel_l2[k] = float(np.linalg.norm(fb - fa) / np.linalg.norm(fa))
+    ok = (all(v == 0 for k, v in differ.items() if k.startswith("scale_"))
+          and len(rel_l2) == 4
+          and all(differ[k] == 0 or rel_l2[k] <= args.max_rel_l2 for k in rel_l2))
     print(json.dumps({"card": smi, "batch": args.batch,
                       "launches": {s: sides[s][0]["launches"] for s in "AB"},
-                      "differing": differ, "same": same}))
-    return 0 if same else 1
+                      "differing": differ, "rel_l2": rel_l2, "same": same, "ok": ok}))
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
