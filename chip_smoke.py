@@ -1,389 +1,80 @@
 #!/usr/bin/env python
-"""Drive the PyTorch port's detect path, train step, TTA evaluation path,
-data parallelism, int8 deployment, checkpoint loading, tools and host C++
-helpers on one CUDA card and its host, and check them.
+"""Check the PyTorch port on one CUDA card and its host: every hand-written
+kernel against its plain version, the paths that launch them, the CLIs and
+tools.  The benchmark (benchmark/run.py, BENCHMARK.json) measures the paths
+its cells run; this script times each kernel beside its bound and the
+library call of its function, and the paths that no cell measures.
 
     python3 chip_smoke.py
 
 Phases (each raises on failure; the exit code is 0 only if all pass):
-  1. require a CUDA card; print its name and power limit (nvidia-smi);
-  2. build every CUDA source (csrc/*.cu, one nvcc each, all at once) and
-     print the NMS kernel's build time; then the two host C++ helpers
-     (native/*.cc, g++);
-  3. compare the NMS kernel with its plain PyTorch version on the card,
-     ranks, indices and valid flags identical, and the path each row took
-     (`nms_cuda.LAST_PATHS`: tile scan for a sorted row, argmax loop
-     otherwise) as expected and as `rows_sorted` says: the (128, 5000) rows
-     of a random-init 640x640 forward (sorted, with exact ties: all tile
-     scan); the same rows shuffled (all argmax loop, the same boxes kept
-     with the same ranks); both kinds in one launch; one sorted row with
-     max_out 20 and 65, a score threshold of 0.5, a tail of zeros from box
-     0, 64 and 100, one swapped pair (argmax loop); 300 equal boxes with
-     equal scores; N = 257, 64 and 1 sorted; N = 257 unsorted with
-     max_out > N, all-zero scores and a score threshold; a bench row with a
-     NaN x1 and a NaN y2 on two boxes, sorted (tile scan) and shuffled
-     (argmax loop);
-  4. serve requests through dan_tpu_torch.api.Detector at the default
-     config (640x640, bf16): detect() on 3 images of different sizes and
-     one detect_batch() of 4, checking shapes, finiteness and boxes inside
-     each image; every NMS row must have taken the tile scan;
-  5. run the bench path at batch 128 (normalize -> forward ->
-     postprocess_batch), timed with CUDA events after warm-up; the kernel
-     launch counts of phases 4-5 must be > 0 and every NMS row of every
-     bench step must have taken the tile scan;
-  6. numeric check: the float32 forward on the card (TF32 off) against the
-     same forward on the CPU, and the bf16 forward against the float32 one;
-  7. time the NMS kernel against the plain version at (128, 5000, 750) and
-     (1, 5000, 750), and beside it the argmax loop (the design the tile
-     scan replaced on sorted rows) on the same rows shuffled and on the
-     sorted rows with one swapped pair; the tile scan must be the faster;
-  8. print the build time and the ptxas registers, spills and shared
-     memory of the train-step kernels (matching.cu, phase_pool.cu,
-     conv12_wgrad.cu, conv12_wgrad_f32.cu, upsample2x_bwd.cu) and the TTA
-     ones;
-  9. hold each train-step kernel against its plain version on the card at
-     the train shapes (batch 32, 640x640): the matcher (A = 34125, G = 256)
-     with all four MatchTargets leaves bit-identical, on the
-     train-preprocessed synthetic batch, on the same with an image without
-     gts and one with a gt in slot >= 128, and on that with one image
-     added whose 256 gts are all valid; the phase-pool
-     backward bit for bit on winners from a real packed forward; the
-     conv1_2' weight grad's bf16 kernel within relative L2 1e-4 of the
-     plain version in float32 (TF32 off), and its float32 kernel on the
-     same values in float32 within 1e-5 of a float64 oracle and 1e-4 of the
-     plain version, each bit-identical across two runs and launched on its
-     own dtype alone, at the train shape, at batch 1 and 3, at o1 (2, 37,
-     53, 256), (1, 64, 65, 256) and (3, 1, 70, 256) (rows that end inside a
-     segment, a single row), on a border-only o1 and dr, and exactly 0 on
-     an all-negative o1; the LFPN upsample's gradient kernel bit for bit
-     (torch.equal) and run to run at a step's three shapes (g (32, 512,
-     40, 40), (32, 512, 80, 80), (32, 256, 160, 160)), at planes that fill
-     a ring stage's item exactly and that do not, at odd sizes and W =
-     1,500, and on g views one pair off 16 bytes, in bf16 and float32,
-     then 200 times more at each train shape (a race in the ring shows as
-     a launch that differs);
- 10. train the default config at batch 32, 640x640, bf16, on synthetic
-     data (warm-up 50, clip 10): 6 steps on one batch must lower the loss;
-     10 timed steps on fresh batches give ms/step, img/s, the split into
-     H2D + preprocess + match, forward + backward and optimizer, and peak
-     memory; each train kernel must have launched its expected count per
-     step (K3 + K4, K5, K6 once, the upsample gradient three times); then
-     2 steps through `python -m dan_tpu_torch.train`'s main(),
-     the second resumed from the first one's checkpoint; K6's float32
-     kernel must never launch;
- 10f. train the same config in float32 at batch 8, 640x640, through
-     create_train_state and train_step, with TF32 allowed for convolutions
-     and matmuls as a caller may have it (PyTorch's default allows it for
-     convolutions): the model's forward must run with TF32 off and cuDNN
-     deterministic, as the float32 step sets them; two runs of 4 steps on
-     one batch from seed 0, the loss falling and the runs bit-identical in
-     every parameter, momentum buffer and metric, K6's float32 kernel once
-     a step and its bf16 kernel never (every train kernel counted), ms a
-     step printed; then one float32 step at 64x64, batch 8, on the card and
-     on the CPU (oneDNN off) from the same state and batch: the loss within
-     1e-4 relative, num_pos and the selected negatives equal, the
-     parameters within rtol 1e-4 / atol 1e-6, and the momentum (the step's
-     gradient) element by element within rtol 1e-4 + atol 2e-4 of its
-     tensor's largest (the CPU parity test's size and tolerance);
- 11. time each train-step kernel against its plain version at the train
-     shapes, the matcher call beside its three kernels' own device time
-     (torch.profiler), cuDNN's weight gradient beside the conv1_2'
-     kernels (bf16, and float32 with TF32 off in turns), ATen's
-     max_pool2d_with_indices_backward (K5's routing in the
-     unpacked layout, in turns with K5) and ATen's
-     upsample_bilinear2d_backward (the atomic backward the upsample kernel
-     replaces) beside a step's three upsample gradients (the PyTorch calls
-     that compute a kernel's function); each upsample
-     call alone beside its own bound, and the three at ring stages of 12,
-     16 and 24 KB; one call of each kernel must launch what a train step
-     launches (PER_STEP);
- 12. hold the vote kernel and the blocked-NMS kernel against their plain
-     versions on the card: the vote at (7, 6000) -> 750 on seeded rows
-     (clusters, an empty row, a full row, score ties, a pair at IoU exactly
-     the threshold, scores <= 0, a packed prefix) at thresholds 0.3, 0 and
-     1, at B = 1, on edge rows at 6000 (300 near-equal boxes merging into
-     one output across tiles, max_out 20 and 70 cutting inside a tile, a
-     zero-area box selected first, NaN coordinates and a NaN score), at
-     R = 1, and -- after phase 13 -- at (128, 6000) on the pre-vote
-     detections of the real TTA run: valid, scores and counts identical,
-     boxes within rtol 1e-5 / atol 1e-4 (NaN where the plain version's
-     are), two kernel runs bit-identical, and every row's tiles
-     (`bbox_vote_cuda.LAST_TILES`) positive exactly when it has an active
-     detection and at most one a 64 active ones; the blocked NMS at
-     N = 5000 on the bench path's candidates, on the NaN row of phase 3, at
-     N = 257 and at N = 20,000 (greedy_nms_rank's long-row path there):
-     ranks identical to its plain version and to those of greedy_nms_rank
-     (the tile scan) at max_out N, 750, 1, 20 and where the kernel's stop at
-     the max_out-th kept box falls on a tile's edge and one past it;
- 13. the TTA path at the default config (full width, bf16, random weights):
-     160 seeded images of 8 WIDER-like sizes that reach every bucket,
-     `warmup_tta`, `detect_tta` on one image of each size, then
-     `detect_tta_dataset` on all (tta_batch 16, vote_batch 128,
-     max_pending 32).  Its launch statistics must equal the planners'
-     arithmetic and the kernels' launch counters those statistics; every
-     NMS row of every bucket launch must have taken the tile scan; outputs
-     finite, inside the image, at most 750, scores descending; every vote
-     row's tiles as in phase 12; a second run, each image alone through
-     the dataset runner, and a second detect_tta of each image (timed warm)
-     bit-identical.
-     Against per-image detect_tta (other launch shapes, so other cuDNN
-     kernels) the bf16 run is held as a set of boxes (>= 90 % with a
-     partner at IoU > 0.5 and >= 70 % at IoU > 0.9) and the same weights in
-     float32 by value: a float32 dataset run over all 160 images against
-     detect_tta on one image of each size from its middle (equal counts;
-     all but 1 % of an image's boxes paired within rtol 1e-4 / atol 1e-2 px
-     and score rtol 1e-4).  Then the eval CLI's tail: write the
-     detections, read them back, score them against seeded ground truth
-     (the APs are printed, not gated: random weights), and the same files
-     through `python -m dan_tpu_torch.eval --score_only`'s main(), which
-     must print the same AP line.
-     Prints images/s, ms per bucket launch by bucket, ms per vote launch,
-     peak memory overall and for one 2048-bucket launch of 8 units, and the
-     device's busy share from one profiler pass;
- 14. time the vote kernel at (128, 6000, 750) and (1, 6000, 750) with its
-     own device time (torch.profiler, up to three sessions; CUDA events over
-     its launches alone if none shows it, as `device_ms_from` says) and the
-     blocked NMS at (5000, 750)
-     against their plain versions (the blocked
-     NMS's wrapper, its two passes together and each alone beside the first
-     design's time from PERF.md, and greedy_nms_rank's kernel at B = 1),
-     and replay the selections to count the IoUs and merges that this run's
-     rows need, for the bounds.
+  1. the card: its name and power limit (nvidia-smi);
+  2. build every CUDA source (csrc/*.cu) and the host C++ helpers (native/);
+  3. K1/K2 (csrc/nms.cu) == plain on the bench rows, shuffled, mixed, and a
+     row's edge cases (max_out cuts, zero tails, ties, NaN boxes), with the
+     path each row took (tile scan when sorted, else the argmax loop);
+  4. Detector.detect() and detect_batch(): shapes, finite boxes inside the
+     image, every NMS row on the tile scan; detect()'s latency (host clock);
+  5. the bench path at batch 128 (tools/bench.py::build_detect_fn): its
+     output and its NMS launches, every row on the tile scan;
+  6. the float32 forward on the card against the CPU's, and bf16 against it;
+  7. K1 and K2 timed on the bench rows; rows with a swapped pair take the
+     argmax loop;
+  8. the train and TTA kernels' ptxas registers, spills and shared memory;
+  9. the matcher (K3/K4), the phase-pool backward (K5), the conv1_2' weight
+     gradient in bf16 and float32 (K6) and the LFPN upsample's gradient ==
+     plain at the train shapes and their edge cases, run to run identical;
+ 10. 6 train steps on one batch lower the loss, each train kernel launched
+     its count a step; the train CLI with a checkpoint and a resume;
+ 10f. the float32 train step: TF32 off inside, two runs bit-identical, K6's
+     float32 kernel alone, the card against the CPU; ms a step;
+ 11. each train kernel timed at the train shapes beside its bound and its
+     library call (cuDNN's weight gradient, ATen's max-pool and upsample
+     backwards); the upsample gradient's ring stages give the same bits;
+ 12. the vote (K7/K8) and blocked-NMS (K9) kernels == plain on seeded edge
+     rows, the bench rows, long blocked rows and, after 13, the TTA run's
+     own vote rows;
+ 13. the TTA path on 160 WIDER-like images: launch statistics, counters,
+     bit-identical reruns, detect_tta against the dataset run (bf16 by box
+     sets, float32 by value), the eval CLI's AP line; images/s, ms a bucket
+     and a vote launch, peak memory, the device's busy share;
+ 14. K7, K8 and K9 timed, with the vote's device time and their bounds;
+ 15. data parallelism: NCCL at world size 1 and 2 gloo ranks on one card
+     against one device, dryrun_multichip's legs, NCCL over the host's cards
+     where it has two or more, the train and eval CLIs' teardown under
+     torchrun; ms a step and the all-reduce's share;
+ 16. the int8 kernels (csrc/conv_i8.cu, quantize_i8.cu) == plain at the
+     forward's 18 layer shapes and their edge cases;
+ 17. the int8 bench path counted (18 conv_i8, 1 quantize_i8, 1 NMS a
+     step); each int8 convolution at batch 128 bit for bit over the batch
+     and timed beside its bound, torch._int_mm and cuDNN's bf16 conv; the
+     int8 serving path through Detector.quantize_int8 (host clock);
+ 18. smoke_e2e --int8 twice: the reference's AP gates, the two trained
+     models identical, the kernel's int8 detections == the plain conv's;
+     the deterministic mode's cost a train step;
+ 19. checkpoints (TF bundle, .npz, .pt) loaded bit-identical and serving the
+     source's detections; a VGG-16 classifier bundle's partial import; the
+     train CLI warm-started and resumed; write and read seconds;
+ 20. the tools and CLIs (demo, train --trace_dir / --debug_nans,
+     tools.profile, TFRecords, the fixture soak, make_synth_wider + TTA
+     eval), each counted; the soak's and the TTA eval's rates;
+ 21. the host C++ helpers: overlaps.cc == numpy, loader.cc == cv2 byte for
+     byte, the native-fed train steps; profile_host_feed's rates;
+ 22. the bench CLIs (bench, bench_train, bench_int8, bench_tta_dataset,
+     entry): exit codes, printed lines, every launch counted;
+     bench_tta_dataset's rows;
+ 23. the long-row paths of K1/K2, K7/K8 and the matcher == plain, through
+     detect, TTA and two train steps; their times and bounds;
+ 24. the bias + ReLU pass, its residual variant and the one-pass L2Norm ==
+     ATen's on every call of a bf16, int8 and RetinaFace forward and their
+     edge cases, launches counted; each timed beside ATen's passes and its
+     bound.
 
- 15. data parallelism (dan_tpu_torch/parallel/), every rank a spawned
-     process that launches its own kernels: (a) NCCL at world size 1 on
-     cuda:0, at the train and TTA shapes above: two runs of three
-     `train_step` calls from create_train_state(0) on the same batches must
-     be bit-identical in every parameter, momentum buffer and metric (the
-     default step trains one model a seed); three DP train steps from the
-     same state and global batches bit-identical to them (metrics, hard
-     negatives, parameters, momentum), and a 32-image
-     `detect_tta_dataset(mesh=)` bit-identical to the call without it;
-     (b) gloo, 2 ranks on cuda:0 (NCCL refuses two ranks on one card), each
-     held to half of 0.9 of its memory (`dryrun_multichip.card_share`), a
-     global batch of 32 = 16 a rank: matcher targets, num_pos and the
-     selected-negative count identical to the one-device step, the hard
-     negatives' agreement printed, the loss within 1e-2 and the
-     parameters' update within 5e-2 (relative L2, bf16), K3-K6 once and
-     the upsample gradient three times a step on each rank; the 32 images
-     through both ranks bit-identical to the one-device run at the same
-     tta_batch, launch counters = last_run_stats = the planners'
-     arithmetic a rank; on every leg no rank's allocation
-     ran out of device memory (cuDNN would then take another algorithm and
-     other bits); ms a step and the all-reduce's
-     share; the three legs of tools/dryrun_multichip.py in float32, as the
-     JAX dry run trains (the restored state's step bit-identical to the
-     original's; K6's float32 kernel once a step on each rank, its bf16
-     kernel never); (c) NCCL over
-     min(cards, 4) cards with the same checks and images/s against one
-     card, or one line saying why it did not run; (d) the train CLI's
-     teardown under torchrun on NCCL: `python -m torch.distributed.run
-     --standalone --nproc_per_node 1 -m dan_tpu_torch.train --synthetic
-     --batch_size 32 --steps 1 --checkpoint_every 1`, then `--steps 2
-     --resume`, three times over, then `-m dan_tpu_torch.eval` on 4 images of
-     the fixture with TTA and with --no_tta: every launch exits 0 and
-     prints the seconds it took, the train log holds steps [1, 2], the
-     eval CLI prints its AP line, and when the rank's interpreter starts to
-     shut down no Python thread but its main one is alive (a
-     sitecustomize on the rank's PYTHONPATH prints them, and the names of
-     the process's other threads: NCCL's, gloo's and the rest).
-
- 16. int8 deployment (dan_tpu_torch/quant.py): calibrate on 8 bench images
-     and quantize the random-init detector; print the int8 kernel's ptxas
-     registers, spills and shared memory; hold the int8 convolution kernel
-     (csrc/conv_i8.cu) against its plain version at each of the forward's 18
-     layer shapes at batch 2, 640x640, on the s8 inputs of a real forward --
-     the s32 sum, the float32 and bf16 taps and the s8 output bit-identical,
-     and a second run bit-identical -- and on: batch 1; the unpacked path of
-     a 37x53 input (every body layer); an all-zero input; +-127 saturation
-     at fc6 (|acc| = 127 * 127 * 4608); a ragged M (63 pixels) and N (64
-     channels in a 128-channel tile); each output mode alone; the packed
-     conv1_2' with its phase max in one launch against the plain conv +
-     phase_max_i8 (its plan without the zero taps); conv2_1 launched again
-     after conv4_3's plan, bit-identical to its first launch; a layer on a
-     second card where the host has one.  The fused relu + quantize kernel
-     (csrc/quantize_i8.cu) against its plain version on the conv1_1' output
-     in bf16 and float32 and on pool1 of the odd input;
- 17. the int8 bench path at batch 128 (normalize -> QuantizedDetector ->
-     postprocess_batch) beside the bf16 one, CUDA events after warm-up:
-     img/s, peak memory, the int8 logits' relative L2 against bf16; the
-     counts of the main path (every count set to 0 just before, read just
-     after) must be 18 conv_i8, 1 quantize_i8 and 1 NMS launch a step, every
-     NMS row on the tile scan; a profiler breakdown of one forward of each;
-     then each of the 18 convolutions at the bench shape, as the forward
-     launches it (conv1_2' with its phase max), bit for bit against plain
-     over all 128 images, with its plan, beside its bound, its plain
-     version, torch._int_mm over its im2col (the yardstick, checked equal
-     to the kernel's s32 sum on its first chunk), cuDNN's bf16 convolution
-     of the same shape and the earlier mma.sync design's time (PERF.md);
-     the sum of the 18; and
-     the quantize kernel's time;
- 18. `python -m dan_tpu_torch.tools.smoke_e2e --int8`'s main() at its
-     defaults (300 steps at batch 8, 640x640, then 24 held-out synthetic
-     images): the reference's gates (hard AP >= 0.5, int8 hard AP >= bf16
-     hard AP - 0.02) must pass; prints both APs, train img/s, the trained
-     model's NMS load (kept boxes an image, tiles a row) on the int8 and the
-     bf16 path, and the TTA AP and vote tiles on the same images (printed,
-     not gated); the trained model's int8 detections through the kernel must
-     equal those with the plain conv in its place.  smoke_e2e runs under
-     torch.use_deterministic_algorithms: it runs twice, and the two trained
-     models (every parameter, the last loss, every AP) must be identical;
-     the train step is timed with the upsample's gradient by ATen's atomic
-     backward, by default (the kernel), by the slice sums (its plain
-     version), with the kernel and cuDNN's deterministic choice, and under
-     the mode, at batch 8 and 32, and the kernels the mode adds are listed;
- 19. checkpoint loading (dan_tpu_torch/ckpt/): (a) a seeded full-width
-     detector written as a TF V2 bundle (the port's export_tf_checkpoint),
-     an .npz and a .pt (the convert CLI's main(), --strict); each loaded by
-     Detector.from_checkpoint with every tensor bit-identical to the source,
-     and detect() on 3 images of different sizes and detect_batch() of 4
-     from each, boxes and scores bit-identical to the source detector's,
-     counted (K2 and K1 launches > 0, every row on the tile scan); the
-     bundle's write and read seconds and the CRC-32C rate (host numbers);
-     (b) a VGG-16 classifier-shaped bundle from the port's writer (13 convs,
-     fc6 (25088, 4096), fc7 (4096, 4096), int64 global_step, a Momentum
-     slot): the non-strict import places exactly the 30 backbone leaves,
-     fc6/fc7 the [::4] subsample, the heads, LFPN, L2Norm and conv6/7 left
-     at init, and strict raises; (c) `python -m dan_tpu_torch.train`'s main()
-     with --synthetic --warm_start <bundle> --steps 2 --batch_size 32 and
-     the synthetic recipe's --warmup_steps 50 --grad_clip 10 (the weights are
-     random):
-     exit 0, K3 + K4, K5 and K6 once and the upsample gradient three
-     times a step (counted), the first step's loss equal to train_step's
-     on the source weights and the same batch, and a --resume run
-     continuing from its step-2 checkpoint;
- 20. the tools, scripts and utils (dan_tpu_torch/tools/, utils/,
-     data/tfrecords.py), each through the entry point a user calls: (a) the
-     demo CLI on a 1024x768 JPEG with phase 19's .pt, its detections equal
-     to Detector.detect's bit for bit and printed as the reference prints
-     them, --out at the input's shape, --tta launching K1 and K8, --int8
-     the int8 kernels; (b) the train CLI, 3 steps at batch 32, with
-     --trace_dir (the trace names the matcher's, the phase-pool backward's
-     and the conv1_2' weight-grad kernels and the upsample gradient's as
-     many times as their counters say), the same steps with --debug_nans
-     timed beside the default, and a NaN in one parameter under
-     --debug_nans: a non-zero exit naming the
-     module, no checkpoint; (c) tools.profile detect at batch 128 and train
-     at batch 32, their device time an iteration beside phases 5 and 10, the
-     hand-written kernels under their own names; (d) the TFRecord roundtrip
-     of the fixture with its MB/s; (e) the fixture soak at its defaults (300
-     steps at batch 8 through the TrainPipeline, then the eval CLI with the
-     official .mat ground truth), K3-K6 once and the upsample gradient
-     three times a step, and its eval CLI again in process, K2 once an
-     image; (f) make_synth_wider --n 320 and the eval CLI with TTA on
-     them, K1 and K7 equal to last_run_stats plus the warm-up's one
-     launch a shape ((g), profile_host_feed, runs in 21e);
- 21. the host C++ helpers (dan_tpu_torch/native/) on the card's host: (a) a
-     probe: PIL's version and the libjpeg it ships, that library's
-     libjpeg-turbo symbols (nm -D, or ctypes), g++'s version, each
-     library's build seconds; the phase fails if a libjpeg is found and the
-     loader does not load; (b) overlaps.cc: bbox_overlaps bit for bit
-     against the numpy IoU on 3,000 x 1,000 seeded boxes, image_eval bit
-     for bit against the numpy matcher on 50 seeded images, and the eval CLI
-     with --no_tta and the official .mat gt on the fixture with phase 20e's
-     trained model: K2 once an image, the same AP with and without the
-     native matcher; (c) loader.cc: the native batch equal to the cv2 batch
-     at window 'full', byte for byte, every key, over the fixture's 20
-     images, 64 synthetic JPEGs 1024 wide and 16 re-encoded at 4:2:0 /
-     4:4:4, quality 60-99 and progressive, with no fallback row; at 'crop'
-     the train preprocess and matcher targets on the card equal to the cv2
-     batch's bit for bit; an EXIF-rotated JPEG and a PNG take the fallback;
-     (d) TrainPipeline (native, crop window) -> device_prefetch ->
-     train_step, 20 steps at batch 8, 640x640, the synthetic recipe, on the
-     64 JPEGs: K3 + K4, K5 and K6 once and the upsample gradient three
-     times a step, every loss finite; (e)
-     profile_host_feed --n 64: the per-image stages of the native and the
-     cv2 path (decode ms an image at 'crop' and 'full', one thread), the
-     pipeline's img/s at 1/2/4 producers on each, and the cores one card's
-     train step needs.  Without a libjpeg on the host, (c)-(e) print why
-     they did not run;
- 22. the bench entry points (dan_tpu_torch/tools/bench*.py, entry.py) on
-     the JAX package's PRNGKey(0) weights (models/reference_init.py, drawn
-     once on the host and handed to (b)-(e)): (a) `python -m
-     dan_tpu_torch.tools.bench` in a subprocess, as a shell runs it:
-     exactly one JSON line with the reference's four keys, its value within
-     5 % of phase 5's img/s, and the line it prints to stderr says it
-     launched the NMS kernel 1 + 3 + 20 times with every row of the last
-     launch on the tile scan; with CUDA_VISIBLE_DEVICES="" it exits 5 and
-     prints no number; (b) bench_train --batch 32 --iters 10 in process, its
-     ms/step beside phase 10's, K3 + K4, K5 and K6 once and the upsample
-     gradient three times a step (counted);
-     (c) bench_int8 --iters 10, its bf16 img/s within 5 % of phase 5's and
-     its int8 img/s within 5 % of phase 17's, conv_i8 18 times and
-     quantize_i8 once a forward, K1 once a step; (d) bench_tta_dataset
-     --images 48 --tta_batches 4,16 --vote_batches 32,128: every row's
-     bucket and vote launches equal to the K1 and K7 counters of its run and
-     to last_run_stats; (e) entry()'s forward on the card: finite logits of
-     the default shapes, no kernel launched.  The blocked NMS must launch 0
-     times.  In (b)-(e) the batch of every NMS and vote launch is read after
-     the launch (`launch_batches`): their count must equal the counters',
-     every NMS row must take the tile scan, and a launch at B = 1 counts
-     for K2 / K8, any other for K1 / K7.  The reference times on the host clock, phase 5 with CUDA
-     events; both are printed, neither is adjusted.
- 23. long rows: rows longer than a kernel's shared memory holds take its
-     long-row path (the row in global scratch; `nms_cuda.LAST_PATHS` bit
-     LONG_ROW, `bbox_vote_cuda.LAST_PATH` and `matching_cuda.LAST_PATH`
-     LONG_ROW).  Each against its plain version on the card, two runs
-     bit-identical: K1 on the (8, 34125) rows of a random-init forward at
-     pre_nms_topk 34,125, K2 on one of them, rows of 9,557 and 9,558 boxes
-     (either side of the limit), one row shuffled (the argmax loop), a row
-     with a NaN x1 and a NaN y2 sorted and shuffled, and the JAX kernel's
-     longest row (56,064); the vote on seeded edge rows of 7,136 and 7,137,
-     4 rows of 8,000 and 4 of 29,440 (K7) and one of 8,000 (K8); the
-     matcher at B = 4, G = 1,024 (700, 1,024, 0 and 100 valid gts, the
-     last all past slot 512) and at G = 512 / 513; each timed beside plain
-     with its bound.  Then through the entry points at full width:
-     `detect_batch` of 8 WIDER-sized images and `detect()` at pre_nms_topk
-     34,125 (K1 and K2 once each, every row on the long-row tile scan);
-     `detect_tta` and `detect_tta_dataset` on 16 images at max_detections
-     1,000 (vote rows of max_variants x 1,000: every vote launch on the
-     long-row path, its rows against plain, counters against
-     last_run_stats, a second run bit-identical); two train steps at batch
-     8, 640x640, max_gt 1,024 with one image of 700 synthetic faces (the
-     matcher must see > 512 valid gts in an image, K3-K6 once a step).
-     Every shape of phases 3-22 must keep the shared-memory paths.
- 24. the bias + ReLU pass after the inference convolutions
-     (csrc/bias_act.cu): one bf16 and one int8 forward at batch 128,
-     640x640, with seeded nonzero biases (the first three of each conv
-     2^-8, -0 and +0), each call of the pass checked where it runs: the
-     first and last pixel of its output overwritten with NaN, -0, +0,
-     +-inf and bf16 ties, then the kernel's result bit for bit against
-     ATen's add-then-clamp (`out.add_(b)`, `F.relu`) and the plain version
-     on a copy; bias_act_cuda.LAUNCHES must be 31 a bf16 forward and 13 an
-     int8 one; at each call's shape the kernel, ATen's add + clamp and the
-     plain version timed with CUDA events, summed a forward, beside the bound
-     (each value read and written once at 3.35 TB/s).  The logits against
-     the parent commit's are `dan_tpu_torch/tools/ab_logits.py`'s.  Then
-     the residual variant (relu(y + b + r), closing each ResNet
-     bottleneck): 48 edge cases off the forward's shapes with the same
-     specials in y and in r, bit for bit against ATen's add, add and clamp
-     and the plain version; a RetinaFace-R50 forward at batch 128, 840x840,
-     must launch the plain pass 60 times and the residual one 16 times;
-     the residual pass at the 16 bottleneck shapes of that batch checked
-     the same way, then timed beside ATen's three passes, the plain version
-     and its bound (3 accesses a value).  Then the one-pass L2Norm
-     (csrc/l2norm.cu): 3 launches in each of those bf16 and int8 forwards,
-     0 in a recorded forward and backward, a detect_tta and the RetinaFace
-     forward; 30 edge cases (bf16 and float32, widths 6 to 4,096, a view
-     off 16 bytes, NaN, +-inf, all-zero, subnormal and overflowing pixels)
-     within 1 bf16 ulp (16 float32 ulps) of ATen's expression and bit for
-     bit on the special pixels, and one value a pixel over 60 decades bit
-     for bit (rsqrt included); at the three taps' shapes at batch 128 in
-     bf16 and float32 the same limits with the share that differs, two
-     launches bit for bit, the error against a float64 normalisation no
-     larger than ATen's (to 1 %), small integers bit for bit; then the
-     kernel and ATen's six passes timed at the bf16 shapes beside the bound
-     (each value read and written once).
-
-Phase 12's first half runs before phase 13, its real-data half after it.
-The line before the last is a JSON object describing each kernel, with the
-least time the card could take for this run's inputs (`bound_ms`), its
-launches in phase 20 (`launches_tools`), in phase 21 (`launches_native`),
-in phase 22 (`launches_bench`) and on phase 23's long rows
-(`launches_long_rows`, with the long-row path's times and bounds under
-`long_row`); the last
-line is {"ok": true, "device": {...}}.  Imports no JAX and nothing of the
-JAX package.
+The line before the last is a JSON object describing each kernel (its
+time, bound, library time and launches on each path); the last line is
+{"ok": true, "device": {...}}.  Imports no JAX and nothing of the JAX
+package.  Every phase is a function that runs alone from a script given the
+card, the configuration and the inputs it checks.
 """
 import collections
 import contextlib
@@ -444,7 +135,7 @@ from dan_tpu_torch.ops import (
 )
 from dan_tpu_torch.ops.conv_i8 import conv_i8_epilogue_plain, conv_i8_plain, out_size
 from dan_tpu_torch.models.detector import compute_dtype
-from dan_tpu_torch.models import layers, lfpn, resnet
+from dan_tpu_torch.models import resnet
 from dan_tpu_torch.models.layers import max_pool
 from dan_tpu_torch import quant
 from dan_tpu_torch.quant import QuantizedDetector, calibrate_act_scales, phase_max_i8
@@ -557,10 +248,6 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
-# The blocked NMS's two passes at (5000, 750) in its first design (a serial
-# scan over the 64 bits of every tile, its words read from L2), PERF.md
-# section 6, printed beside the redesign's.
-K9_FIRST_DESIGN_MS = 0.3454
 # Phase 15: DP train steps and TTA images a leg; the tolerances of a
 # 2-rank step against one device in bf16 (the ranks' forward runs at batch
 # 16, whose convolutions may take other kernels than batch 32's): the loss
@@ -645,17 +332,17 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def turns(kernel, plain, kernel_iters=10, plain_iters=2):
-    """Mean ms of kernel() and plain(), timed in turns plain, kernel,
-    kernel, plain after one warm call of each.  Each kernel turn follows
-    three untimed calls, so that no turn starts cold after the plain
-    version's run."""
+def turns(kernel, library, kernel_iters=10, library_iters=2):
+    """Mean ms of kernel() and of the library call that computes its
+    function, timed in turns library, kernel, kernel, library after one warm
+    call of each.  Each kernel turn follows three untimed calls, so that no
+    turn starts cold after the library's run."""
     kernel()
-    plain()
+    library()
     torch.cuda.synchronize()
-    times = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        fn, iters = (kernel, kernel_iters) if which == "kernel" else (plain, plain_iters)
+    times = {"library": [], "kernel": []}
+    for which in ("library", "kernel", "kernel", "library"):
+        fn, iters = (kernel, kernel_iters) if which == "kernel" else (library, library_iters)
         if which == "kernel":
             for _ in range(3):
                 fn()
@@ -902,7 +589,7 @@ def main() -> int:
     native.load_loader()
     log(f"phase 2: host helpers (g++, seconds; None = found built): {native.BUILD_SECONDS}")
 
-    # -- 3. kernel vs plain on the card ---------------------------------------
+    # -- 3-7. the NMS kernel; the detect and bench paths ---------------------
     cfg = default_config()
     post = cfg.postprocess
     size = cfg.model.image_size
@@ -911,6 +598,225 @@ def main() -> int:
     images_u8 = torch.from_numpy(
         rng.integers(0, 255, (BATCH, size, size, 3), dtype=np.uint8)
     ).to(dev)
+    k1 = phase3(det, images_u8, rng, post, dev)
+    launches_one, launches_batched = phase45(det, images_u8, rng, cfg, dev)
+    phase6(det, images_u8, cfg, dev)
+    nms_ms = phase7(k1["boxes"], k1["scores"], k1["tiles"], post, dev, smi)
+    nms_rows, nan_row = k1["nms_rows"], k1["nan_row"]
+    del det, images_u8, k1["boxes"], k1["scores"]
+    torch.cuda.empty_cache()
+
+    # -- 8. build of the train-step and TTA kernels ---------------------------
+    for src in [src for _, src, _ in TRAIN_KERNELS.values()] + list(TTA_SOURCES):
+        secs = _cuda_build.BUILDS[src].seconds
+        log(f"phase 8: csrc/{src}.cu " + (f"built in {secs:.3f} s" if secs is not None
+                                          else "was already built"))
+        for line in _cuda_build.ptxas_summary(src):
+            log(f"  ptxas: {line}")
+
+    # -- 9. train kernels vs plain at the train shapes ------------------------
+    tcfg = train_config(cfg)
+    errs, cases = phase9(tcfg, dev)
+
+    # -- 10. the train step, counted; 10f. in float32 -----------------------------
+    launches = phase10(tcfg, dev)
+    launches["conv12_wgrad_f32"] = phase10f(tcfg, dev, smi)
+
+    # -- 11. train kernel timing -----------------------------------------------
+    train_ms, train_bounds = phase11(cases, smi)
+    del cases
+    torch.cuda.empty_cache()
+
+    # -- 12a, 13, 12b, 14: the TTA evaluation path ---------------------------------
+    vote_err = phase12_synthetic(post, dev)
+    blocked_err = phase12_blocked(nms_rows, nan_row, post, dev)
+    tta = phase13(cfg, dev, smi)
+    vote_err = max(vote_err, phase12_real(tta["vote_inputs"], post, dev))
+    tta_ms, tta_bounds = phase14(tta["vote_inputs"], nms_rows, post, dev, smi)
+    del tta["vote_inputs"], nms_rows
+    torch.cuda.empty_cache()
+
+    # -- 15. data parallel ---------------------------------------------------
+    dp_launches = phase15(cfg, tcfg, dev, smi)
+
+    # -- 16-18. int8 deployment -------------------------------------------------
+    det8, qdet, images8, i8_err, quant_err = phase16(cfg, dev)
+    i8 = phase17(cfg, dev, smi, det8, qdet, images8)
+    del det8, qdet, images8
+    torch.cuda.empty_cache()
+    phase18(dev, smi)
+
+    # -- 19. checkpoint loading; 20. the tools -----------------------------------
+    with tempfile.TemporaryDirectory() as d:
+        ck = phase19(cfg, dev, smi, d)
+        tools, soak_dir = phase20(cfg, dev, smi, d)
+        nat = phase21(dev, smi, d, soak_dir)
+
+    # -- 22. the bench entry points ------------------------------------------
+    bl = phase22(cfg, dev, smi)
+
+    # -- 23. long rows ---------------------------------------------------------
+    lr = phase23(cfg, dev, smi)
+    lr_nms, lr_vote, lr_tta = lr["nms"], lr["vote"], lr["tta"]
+    err_b, err_1 = max(k1["err_b"], lr_nms["err"]), max(k1["err_1"], lr_nms["err"])
+    vote_err = max(vote_err, lr_vote["err"], lr_tta["err"])
+
+    # -- 24. the bias + ReLU pass ------------------------------------------------
+    ba = phase24(cfg, dev, smi)
+
+    n_rows, n_box = BATCH, post.pre_nms_topk
+    # NMS: 20 bytes a box in, its rank out; for every selected box an IoU, a
+    # threshold test and (the input need not be sorted) an argmax compare
+    # for every box that is still active, counted from this run's rows.  The
+    # chain of dependent steps is the tile scan's tiles.
+    pair_ops = IOU_OPS + TEST_OPS + ARGMAX_OPS
+    nms_pairs, nms_tiles, kept_rows = k1["pairs"], k1["tiles"], k1["kept"]
+    b_nms = bound(n_rows * n_box * 24, int(nms_pairs.sum()) * pair_ops, PEAK_F32)
+    b_nms1 = bound(n_box * 24, int(nms_pairs[0]) * pair_ops, PEAK_F32)
+    kernels = [
+        {"name": "greedy_nms_rank (batched)", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": "dan_tpu/ops/nms_batched_pallas.py:29", "launches": launches_batched,
+         "launches_tta": tta["nms_launches"], "max_abs_err": err_b, "ms": nms_ms["kernel"],
+         "bound_ms": b_nms[0],
+         "bound_by": b_nms[1], "dependent_steps": int(nms_tiles.max()),
+         "kept": int(kept_rows.max()), "library_ms": None,
+         "launches_dp_ranks": [r["nms"] for r in dp_launches["tta"]],
+         "launches_ckpt": ck["nms_batched"], "launches_tools": tools["K1"],
+         "launches_bench": bl["K1"], "launches_long_rows": lr_nms["launches"]["K1"],
+         "long_row": dict(lr_nms["K1"], shape=lr_nms["shape"],
+                          jax_longest_row_ms=lr_nms["jax_row_ms"])},
+        {"name": "greedy_nms_rank (B=1)", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": "dan_tpu/ops/nms_pallas.py:34", "launches": launches_one,
+         "max_abs_err": err_1, "ms": nms_ms["kernel1"],
+         "bound_ms": b_nms1[0], "bound_by": b_nms1[1],
+         "dependent_steps": int(nms_tiles[0]), "kept": int(kept_rows[0]), "library_ms": None,
+         "launches_ckpt": ck["nms_one"], "launches_tools": tools["K2"],
+         "launches_native": nat["nms"], "launches_bench": bl["K2"],
+         "launches_long_rows": lr_nms["launches"]["K2"],
+         "long_row": dict(lr_nms["K2"], shape=[1] + lr_nms["shape"][1:])},
+    ]
+    for name, (_, src, replaces) in TRAIN_KERNELS.items():
+        entry = {
+            "name": name, "route": "cuda", "source": f"dan_tpu_torch/csrc/{src}.cu",
+            "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
+            "ms": train_ms[name]["kernel"], "library_ms": train_ms[name].get("library"),
+            "launches_dp_ranks": [r[name] for r in dp_launches["train"]],
+            "launches_dryrun_ranks": [r[name] for r in dp_launches["dryrun"]],
+            "launches_ckpt": ck["train"][name], "launches_tools": tools[name],
+            "launches_native": nat[name], "launches_bench": bl[name]}
+        if name in ("conv12_wgrad", "conv12_wgrad_f32"):
+            plan = train_bounds[f"{name} tiling"]
+            entry.update(partials=plan.partials, flush_pixels=plan.flush_segs * plan.seg,
+                         pixels_per_block=plan.segs_per_range * plan.seg)
+        if name != "matcher":
+            ms_b, by = train_bounds[name]
+            kernels.append(dict(entry, bound_ms=ms_b, bound_by=by))
+            continue
+        # One call of the matcher launches both passes: one entry for each
+        # TPU kernel with its own bound and its kernels' device time; `ms` is
+        # the call's (both passes and the wrapper's host work).
+        dev_t = train_ms[name]["device"]
+        for pass_name, line, names in (("matcher pass 1", 87, MATCHER_KERNELS[:2]),
+                                       ("matcher pass 2", 208, MATCHER_KERNELS[2:])):
+            ms_b, by = train_bounds[pass_name]
+            lb = lr["matcher"]["bounds"][pass_name]
+            kernels.append(dict(
+                entry, name=pass_name, replaces=f"dan_tpu/ops/matching_pallas.py:{line}",
+                bound_ms=ms_b, bound_by=by, device_ms=sum(dev_t[k] for k in names),
+                ms_covers="one match_anchors_cuda call: both passes and the wrapper",
+                launches_long_rows=lr["matcher"]["launches"],
+                long_row={"shape": lr["matcher"]["shape"], "ms": lr["matcher"]["ms"],
+                          "bound_ms": lb[0], "bound_by": lb[1],
+                          "valid_gts": lr["matcher"]["valid_gts"]}))
+    vote_src = "dan_tpu_torch/csrc/bbox_vote.cu"
+    kernels += [
+        {"name": "bbox_vote (batched)", "route": "cuda", "source": vote_src,
+         "replaces": "dan_tpu/ops/bbox_vote_pallas.py:162", "launches": tta["vote_launches"],
+         "max_abs_err": vote_err, "ms": tta_ms["vote"]["kernel"],
+         "device_ms": tta_ms["vote"]["device"], "device_ms_from": tta_ms["vote"]["device_from"],
+         "bound_ms": tta_bounds["vote"][0], "bound_by": tta_bounds["vote"][1],
+         "dependent_steps": tta_bounds["vote"][2], "outputs": tta_bounds["vote"][3],
+         "library_ms": None, "launches_dp_ranks": [r["bbox_vote"] for r in dp_launches["tta"]],
+         "launches_tools": tools["K7"], "launches_bench": bl["K7"],
+         "launches_long_rows": lr_tta["K7"], "long_row": lr_vote["K7"]},
+        {"name": "bbox_vote (B=1)", "route": "cuda", "source": vote_src,
+         "replaces": "dan_tpu/ops/bbox_vote_pallas.py:30", "launches": tta["vote_launches_one"],
+         "max_abs_err": vote_err, "ms": tta_ms["vote1"]["kernel"],
+         "device_ms": tta_ms["vote1"]["device"], "device_ms_from": tta_ms["vote1"]["device_from"],
+         "bound_ms": tta_bounds["vote1"][0], "bound_by": tta_bounds["vote1"][1],
+         "dependent_steps": tta_bounds["vote1"][2], "outputs": tta_bounds["vote1"][3],
+         "library_ms": None, "launches_tools": tools["K8"], "launches_bench": bl["K8"],
+         "launches_long_rows": lr_tta["K8"], "long_row": lr_vote["K8"]},
+        {"name": "greedy_nms_blocked", "route": "cuda",
+         "source": "dan_tpu_torch/csrc/nms_blocked.cu",
+         "replaces": "dan_tpu/ops/nms_blocked_pallas.py:39",
+         "launches": tta["blocked_launches"], "max_abs_err": blocked_err,
+         "ms": tta_ms["blocked"]["kernel"], "launch_ms": tta_ms["blocked"]["launch"],
+         "pass1_ms": tta_ms["blocked"]["pass1"], "pass2_ms": tta_ms["blocked"]["pass2"],
+         "ms_covers": "the wrapper: order check that waits for the device, both passes, "
+                      "rank_to_result; launch_ms is the two passes alone, pass1_ms / pass2_ms "
+                      "each alone",
+         "bound_ms": tta_bounds["blocked"][0], "bound_by": tta_bounds["blocked"][1],
+         "dependent_steps": tta_bounds["blocked"][2], "library_ms": None,
+         "launches_tools": tools["K9"], "launches_bench": bl["K9"]},
+    ]
+    kernels.append(
+        {"name": "conv_i8", "route": "cuda", "source": f"dan_tpu_torch/csrc/{INT8_SOURCE}.cu",
+         "replaces": I8_REPLACES, "launches": i8["launches"],
+         "max_abs_err": max(i8_err, i8["err"]),
+         "ms": i8["ms"], "bound_ms": i8["bound"],
+         "bound_by": i8["bound_by"], "library_ms": i8["library"], "cudnn_bf16_ms": i8["cudnn"],
+         "ms_covers": f"the {I8_PER_FORWARD} convolutions of one int8 forward at batch {BATCH}, "
+                      "640x640, each timed alone as the forward launches it (conv1_2' with "
+                      "the phase max fused); library_ms is torch._int_mm over each "
+                      "layer's im2col; bound_ms counts conv1_2' as the 3x3 conv it computes "
+                      "(the packed 2x2 form's zero taps left out)",
+         "launches_per_forward": i8["launches"] // i8["iters"],
+         "launches_tools": tools["conv_i8"], "launches_bench": bl["conv_i8"]})
+    kernels.append(
+        {"name": "quantize_i8", "route": "cuda", "source": f"dan_tpu_torch/csrc/{QUANT_SOURCE}.cu",
+         "replaces": "dan_tpu/quant.py:383-394 (no TPU kernel: XLA's fused relu + "
+                     "_quantize_act of conv1_1')",
+         "launches": i8["quant"]["launches"],
+         "max_abs_err": max(quant_err, i8["quant"]["err"]), "ms": i8["quant"]["ms"],
+         "bound_ms": i8["quant"]["bound"][0],
+         "bound_by": i8["quant"]["bound"][1], "library_ms": None,
+         "launches_tools": tools["quantize_i8"], "launches_bench": bl["quantize_i8"]})
+    kernels.append(
+        {"name": "bias_act", "route": "cuda", "source": f"dan_tpu_torch/csrc/{BIAS_ACT_SOURCE}.cu",
+         "replaces": "no TPU kernel: ATen's broadcast bias add and ReLU clamp after each "
+                     "inference convolution (XLA fuses them into the TPU convolution)",
+         "launches_per_forward": ba["launches"], "max_abs_err": 0.0,
+         "ms": ba["ms"], "library_ms": ba["aten_ms"], "bound_ms": ba["bound_ms"],
+         "bound_by": "bytes",
+         "ms_covers": "each of a forward's calls at batch 128, 640x640, timed alone at its "
+                      "shape and summed (bf16 and int8 forwards); library_ms is ATen's "
+                      "in-place add and F.relu on the same tensors"})
+    nl = ba["l2norm"]
+    kernels.append(
+        {"name": "l2norm", "route": "cuda", "source": f"dan_tpu_torch/csrc/{L2NORM_SOURCE}.cu",
+         "replaces": "no TPU kernel: ATen's six passes of L2Norm on the three shallow taps "
+                     "(XLA fuses L2Norm on the TPU)",
+         "launches_per_forward": ba["l2norm_launches"],
+         "max_ulps": {k: nl[k]["max_ulps"] for k in ("bf16", "f32")},
+         "share_differing": {k: nl[k]["share_differing"] for k in ("bf16", "f32")},
+         "ms": nl["ms"], "library_ms": nl["aten_ms"],
+         "bound_ms": nl["bound_ms"], "bound_by": "bytes",
+         "ms_covers": "the three taps of a bf16 forward at batch 128, 640x640, each timed "
+                      "alone and summed; library_ms is ATen's expression (the kernel's plain "
+                      "version) on the same tensors"})
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))
+    return 0
+
+
+def phase3(det, images_u8, rng, post, dev):
+    """The NMS kernel against its plain version on the card (compare_kernel):
+    the bench rows of one forward, shuffled, mixed, and one row's edge cases.
+    -> the rows later phases take, the largest rank differences, and what
+    the bounds count: kept boxes, tiles and IoU pairs a row."""
     boxes_k, scores_k = nms_candidates(det, images_u8)
     log(f"phase 3: NMS rows {tuple(boxes_k.shape)} from a random-init forward")
     thr, max_out = post.nms_iou_threshold, post.max_detections
@@ -936,6 +842,7 @@ def main() -> int:
         torch.where(odd[:, None, None], boxes_u, boxes_k),
         torch.where(odd[:, None], scores_u, scores_k), thr, max_out,
         path=(~odd).to(torch.uint8), what="sorted and shuffled rows in one launch"))
+    del boxes_u, scores_u
     b1, s1 = boxes_k[:1].contiguous(), scores_k[:1].contiguous()
     err_1 = compare_kernel(b1, s1, thr, max_out, path=1, what="one bench row")
     # max_out inside a tile and one past a tile's edge.
@@ -983,19 +890,30 @@ def main() -> int:
     bu_nan, su_nan, _ = shuffle_rows(b_nan, s1, SEED + 5)
     err_1 = max(err_1, compare_kernel(bu_nan, su_nan, thr, max_out, path=0,
                                       what="NaN x1 and y2, shuffled"))
-    nan_row = (b_nan[0].clone(), s1[0].clone())
-    # Rows of the bench path's candidates (descending scores) for phase 12,
-    # and the dependent steps and IoU pairs that this run's NMS rows need.
-    nms_rows = (boxes_k[:4].clone(), scores_k[:4].clone())
-    kept_rows = (nms_cuda.greedy_nms_rank(
-        boxes_k, scores_k, post.nms_iou_threshold, post.max_detections) >= 0).sum(dim=1)
+    # The dependent steps and IoU pairs that this run's NMS rows need.
+    kept_rows = (nms_cuda.greedy_nms_rank(boxes_k, scores_k, thr, max_out) >= 0).sum(dim=1)
     nms_tiles = nms_cuda.LAST_TILES.clone()
-    nms_steps, nms_pairs, _ = selection_work(
-        boxes_k, scores_k, scores_k > 0.0, post.nms_iou_threshold, post.max_detections, False)
+    nms_steps, nms_pairs, _ = selection_work(boxes_k, scores_k, scores_k > 0.0, thr, max_out,
+                                             False)
     if not torch.equal(nms_steps, kept_rows):
         raise AssertionError("the replay of the NMS selection counts other steps than the kernel")
+    # nms_rows: rows of the bench path's candidates (descending scores) for
+    # phases 12 and 14; nan_row: the bench row with two NaN coordinates.
+    return {"boxes": boxes_k, "scores": scores_k, "err_b": err_b, "err_1": err_1,
+            "nms_rows": (boxes_k[:4].clone(), scores_k[:4].clone()),
+            "nan_row": (b_nan[0].clone(), s1[0].clone()), "kept": kept_rows, "tiles": nms_tiles,
+            "pairs": nms_pairs}
 
-    # -- 4 + 5. the main path, counted --------------------------------------
+
+def phase45(det, images_u8, rng, cfg, dev):
+    """detect() on 3 images of different sizes and one detect_batch() of 4
+    (shapes, finiteness, boxes inside each image), then the bench path at
+    batch 128 (tools/bench.py::build_detect_fn), every NMS row of every
+    launch on the tile scan; then detect()'s latency on one image (the
+    host clock: no cell measures the serving path).  -> (NMS launches at
+    B = 1, batched launches)."""
+    post = cfg.postprocess
+    size = cfg.model.image_size
     nms_cuda.LAUNCHES = 0
     req = [rng.integers(0, 255, hw + (3,), dtype=np.uint8)
            for hw in ((480, 640), (720, 1280), (300, 200))]
@@ -1032,21 +950,10 @@ def main() -> int:
     log(f"  detect_batch() of 4: {[len(d['scores']) for d in dets]} detections")
     check_dets(dets, batch_req, post.max_detections)
 
-    anchors = det.anchors
     bench_detect = bench_tool.build_detect_fn(cfg, dev)
-
-    def bench_step():
+    for _ in range(2):
         out = bench_detect(det.model, images_u8)
         nms_paths.append(nms_cuda.LAST_PATHS)
-        return out
-
-    for _ in range(2):
-        out = bench_step()
-    torch.cuda.synchronize()
-    iters = 10
-    bench_ms = cuda_ms(bench_step, iters)
-    img_s = BATCH / (bench_ms / 1e3)
-    out = bench_step()
     torch.cuda.synchronize()
     if not (torch.isfinite(out["bboxes"]).all() and torch.isfinite(out["scores"]).all()):
         raise AssertionError("non-finite bench-path output")
@@ -1057,22 +964,12 @@ def main() -> int:
     launches_batched = nms_cuda.LAUNCHES - launches_one
     n_rows_scanned = took_tile_scan("the bench path")
     log(f"phase 5: bench path batch {BATCH} at {size}x{size} bf16: "
-        f"{bench_ms:.3f} ms/batch = {img_s:.1f} img/s ({smi}); "
         f"valid detections per image {int(n_valid.min())}..{int(n_valid.max())}")
     log(f"  NMS kernel launches in phases 4-5: {launches_one} at B=1, "
         f"{launches_batched} batched; all {n_rows_scanned} rows of the bench steps took the "
         f"tile scan")
     if launches_one == 0 or launches_batched == 0:
         raise AssertionError("the main path did not launch the NMS kernel")
-
-    # Where the batch-128 time goes: forward and postprocess apart.
-    with torch.inference_mode():
-        x = normalize_image(images_u8.float(), cfg.preprocess)
-        fwd_ms = cuda_ms(lambda: det.model(x), 5)
-        cls, loc = det.model(x)
-        post_ms = cuda_ms(lambda: postprocess_batch(
-            cls, loc, anchors, cfg.anchors, post, float(size), float(size)), 5)
-    log(f"  split: forward {fwd_ms:.3f} ms, postprocess {post_ms:.3f} ms per batch")
     one = req[0]
     det.detect(one)
     torch.cuda.synchronize()
@@ -1083,11 +980,12 @@ def main() -> int:
         lat.append((time.perf_counter() - t0) * 1e3)
     log(f"  detect() latency on one 480x640 image: median {np.median(lat):.3f} ms, "
         f"min {min(lat):.3f} ms (host clock, 10 calls)")
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"  peak device memory so far {peak:.2f} GiB")
-    nms_paths.clear()
+    return launches_one, launches_batched
 
-    # -- 6. numerics ----------------------------------------------------------
+
+def phase6(det, images_u8, cfg, dev):
+    """The float32 forward on the card (TF32 off) against the same forward
+    on the CPU, and the bf16 forward against the float32 one."""
     f32_cfg = dataclasses.replace(cfg.model, compute_dtype="float32")
     model32 = DANDetector(f32_cfg)
     model32.load_state_dict(det.model.state_dict())
@@ -1107,272 +1005,33 @@ def main() -> int:
     if not (e_cpu < 1e-3 and e_bf16 < 5e-2):
         raise AssertionError("forward numerics out of tolerance")
 
-    # -- 7. NMS kernel vs plain timing ----------------------------------------
-    # The tile scan on the bench rows, and the argmax loop (the design of the
-    # earlier kernel, kept for unsorted rows) on the same rows shuffled: the
-    # same launch shape, the same boxes kept, the same run on the same card.
+
+def phase7(boxes_k, scores_k, tiles, post, dev, smi):
+    """The NMS kernel's time on the bench rows (the tile scan) at (128,
+    5000, 750) and on the first at B = 1, each a mean of back-to-back calls
+    after warm-up; rows with one neighbouring pair of scores swapped must
+    take the argmax loop.  -> {'kernel': ms, 'kernel1': ms}."""
     args = (post.nms_iou_threshold, post.max_detections)
-    b1, s1 = boxes_k[:1], scores_k[:1]
-    bu1, su1 = boxes_u[:1], scores_u[:1]
-    # A third input: the sorted rows with one neighbouring pair of scores
-    # swapped in each.  They take the argmax loop too, but their active boxes
-    # stay packed at the row's end as in a sorted row (in a shuffled row they
-    # are spread over every warp), which is what the loop saw before the tile
-    # scan took the sorted rows.
     first = (scores_k[:, :-1] > scores_k[:, 1:]).float().argmax(dim=1)
-    rows = torch.arange(BATCH, device=dev)
+    rows = torch.arange(scores_k.shape[0], device=dev)
     scores_w = scores_k.clone()
     scores_w[rows, first], scores_w[rows, first + 1] = (scores_k[rows, first + 1],
                                                         scores_k[rows, first])
-    for _ in range(3):
-        nms_cuda.greedy_nms_rank(boxes_k, scores_k, *args)
-        if not bool((nms_cuda.LAST_PATHS == nms_cuda.TILE_SCAN).all()):
-            raise AssertionError("a bench row did not take the tile scan in shared memory")
-        nms_cuda.greedy_nms_rank(boxes_u, scores_u, *args)
-        nms_cuda.greedy_nms_rank(boxes_k, scores_w, *args)
+    nms_cuda.greedy_nms_rank(boxes_k, scores_w, *args)
     if bool(nms_cuda.LAST_PATHS.any()):
         raise AssertionError("a row with a swapped pair took the tile scan or the long-row path")
-    times = {k: [] for k in ("plain", "kernel", "argmax", "swapped", "plain1", "kernel1",
-                             "argmax1", "swapped1")}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        if name == "plain":
-            times["plain"].append(cuda_ms(
-                lambda: nms_cuda.greedy_nms_rank_plain(boxes_k, scores_k, *args), 2))
-            times["plain1"].append(cuda_ms(
-                lambda: nms_cuda.greedy_nms_rank_plain(b1, s1, *args), 2))
-            continue
-        for key, (bx, sc) in (("kernel", (boxes_k, scores_k)), ("argmax", (boxes_u, scores_u)),
-                              ("swapped", (boxes_k, scores_w)), ("kernel1", (b1, s1)),
-                              ("argmax1", (bu1, su1)), ("swapped1", (b1, scores_w[:1]))):
-            times[key].append(cuda_ms(lambda: nms_cuda.greedy_nms_rank(bx, sc, *args), 20))
-    ms = {k: float(np.mean(v)) for k, v in times.items()}
-    log(f"phase 7: NMS at ({BATCH}, {boxes_k.shape[1]}, {post.max_detections}): "
-        f"kernel (tile scan, at most {int(nms_tiles.max())} tiles a row) {ms['kernel']:.4f} ms, the "
-        f"argmax loop on the shuffled rows {ms['argmax']:.4f} ms and on the sorted rows with one "
-        f"swapped pair {ms['swapped']:.4f} ms, plain {ms['plain']:.4f} ms; at B=1: kernel "
-        f"({int(nms_tiles[0])} tiles) {ms['kernel1']:.4f} ms, argmax loop {ms['argmax1']:.4f} ms "
-        f"shuffled and {ms['swapped1']:.4f} ms swapped, plain {ms['plain1']:.4f} ms ({smi})")
-    if not (ms["kernel"] < min(ms["argmax"], ms["swapped"])
-            and ms["kernel1"] < min(ms["argmax1"], ms["swapped1"])):
-        raise AssertionError("the tile scan is not faster than the argmax loop")
-
-    del det, model32, images_u8, boxes_k, scores_k, boxes_u, scores_u, scores_w, out
-    torch.cuda.empty_cache()
-
-    # -- 8. build of the train-step and TTA kernels ---------------------------
-    for src in [src for _, src, _ in TRAIN_KERNELS.values()] + list(TTA_SOURCES):
-        secs = _cuda_build.BUILDS[src].seconds
-        log(f"phase 8: csrc/{src}.cu " + (f"built in {secs:.3f} s" if secs is not None
-                                          else "was already built"))
-        for line in _cuda_build.ptxas_summary(src):
-            log(f"  ptxas: {line}")
-
-    # -- 9. train kernels vs plain at the train shapes ------------------------
-    tcfg = train_config(cfg)
-    errs, cases = phase9(tcfg, dev)
-
-    # -- 10. the train step, counted; 10f. in float32 -----------------------------
-    launches, train_step_ms = phase10(tcfg, dev, smi)
-    launches["conv12_wgrad_f32"] = phase10f(tcfg, dev, smi)
-
-    # -- 11. train kernel timing -----------------------------------------------
-    train_ms, train_bounds = phase11(cases, smi)
-    del cases
-    torch.cuda.empty_cache()
-
-    # -- 12a, 13, 12b, 14: the TTA evaluation path ---------------------------------
-    vote_err = phase12_synthetic(post, dev)
-    blocked_err = phase12_blocked(nms_rows, nan_row, post, dev)
-    tta = phase13(cfg, dev, smi)
-    vote_err = max(vote_err, phase12_real(tta["vote_inputs"], post, dev))
-    tta_ms, tta_bounds = phase14(tta["vote_inputs"], nms_rows, post, dev, smi)
-    del tta["vote_inputs"], nms_rows
-    torch.cuda.empty_cache()
-
-    # -- 15. data parallel ---------------------------------------------------
-    dp_launches = phase15(cfg, tcfg, dev, smi)
-
-    # -- 16-18. int8 deployment -------------------------------------------------
-    det8, qdet, images8, i8_err, quant_err = phase16(cfg, dev)
-    i8 = phase17(cfg, dev, smi, det8, qdet, images8)
-    del det8, qdet, images8
-    torch.cuda.empty_cache()
-    phase18(dev, smi)
-
-    # -- 19. checkpoint loading; 20. the tools -----------------------------------
-    with tempfile.TemporaryDirectory() as d:
-        ck = phase19(cfg, dev, smi, d)
-        tools, soak_dir = phase20(cfg, dev, smi, d, bench_ms, train_step_ms)
-        nat = phase21(dev, smi, d, soak_dir)
-
-    # -- 22. the bench entry points ------------------------------------------
-    bl = phase22(cfg, dev, smi, img_s, train_step_ms, BATCH / i8["ms_i8"] * 1e3)
-
-    # -- 23. long rows ---------------------------------------------------------
-    lr = phase23(cfg, dev, smi)
-    lr_nms, lr_vote, lr_tta = lr["nms"], lr["vote"], lr["tta"]
-    err_b, err_1 = max(err_b, lr_nms["err"]), max(err_1, lr_nms["err"])
-    vote_err = max(vote_err, lr_vote["err"], lr_tta["err"])
-
-    # -- 24. the bias + ReLU pass ------------------------------------------------
-    ba = phase24(cfg, dev, smi)
-
-    n_rows, n_box = BATCH, post.pre_nms_topk
-    # NMS: 20 bytes a box in, its rank out; for every selected box an IoU, a
-    # threshold test and (the input need not be sorted) an argmax compare
-    # for every box that is still active, counted from this run's rows.  The
-    # chain of dependent steps is the tile scan's tiles; the argmax loop's
-    # time on the same rows shuffled stands beside the kernel's.
-    pair_ops = IOU_OPS + TEST_OPS + ARGMAX_OPS
-    b_nms = bound(n_rows * n_box * 24, int(nms_pairs.sum()) * pair_ops, PEAK_F32)
-    b_nms1 = bound(n_box * 24, int(nms_pairs[0]) * pair_ops, PEAK_F32)
-    kernels = [
-        {"name": "greedy_nms_rank (batched)", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": "dan_tpu/ops/nms_batched_pallas.py:29", "launches": launches_batched,
-         "launches_tta": tta["nms_launches"], "max_abs_err": err_b, "ms": ms["kernel"],
-         "argmax_loop_ms": ms["argmax"], "argmax_loop_swapped_ms": ms["swapped"],
-         "plain_ms": ms["plain"], "bound_ms": b_nms[0],
-         "bound_by": b_nms[1], "dependent_steps": int(nms_tiles.max()),
-         "kept": int(kept_rows.max()), "library_ms": None,
-         "launches_dp_ranks": [r["nms"] for r in dp_launches["tta"]],
-         "launches_ckpt": ck["nms_batched"], "launches_tools": tools["K1"],
-         "launches_bench": bl["K1"], "launches_long_rows": lr_nms["launches"]["K1"],
-         "long_row": dict(lr_nms["K1"], shape=lr_nms["shape"],
-                          argmax_loop_ms_b1=lr_nms["argmax_ms"],
-                          jax_longest_row_ms=lr_nms["jax_row_ms"])},
-        {"name": "greedy_nms_rank (B=1)", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": "dan_tpu/ops/nms_pallas.py:34", "launches": launches_one,
-         "max_abs_err": err_1, "ms": ms["kernel1"], "argmax_loop_ms": ms["argmax1"],
-         "argmax_loop_swapped_ms": ms["swapped1"],
-         "plain_ms": ms["plain1"], "bound_ms": b_nms1[0], "bound_by": b_nms1[1],
-         "dependent_steps": int(nms_tiles[0]), "kept": int(kept_rows[0]), "library_ms": None,
-         "launches_ckpt": ck["nms_one"], "launches_tools": tools["K2"],
-         "launches_native": nat["nms"], "launches_bench": bl["K2"],
-         "launches_long_rows": lr_nms["launches"]["K2"],
-         "long_row": dict(lr_nms["K2"], shape=[1] + lr_nms["shape"][1:])},
-    ]
-    for name, (_, src, replaces) in TRAIN_KERNELS.items():
-        entry = {
-            "name": name, "route": "cuda", "source": f"dan_tpu_torch/csrc/{src}.cu",
-            "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
-            "ms": train_ms[name]["kernel"], "plain_ms": train_ms[name]["plain"],
-            "library_ms": train_ms[name].get("library"),
-            "launches_dp_ranks": [r[name] for r in dp_launches["train"]],
-            "launches_dryrun_ranks": [r[name] for r in dp_launches["dryrun"]],
-            "launches_ckpt": ck["train"][name], "launches_tools": tools[name],
-            "launches_native": nat[name], "launches_bench": bl[name]}
-        if name in ("conv12_wgrad", "conv12_wgrad_f32"):
-            plan = train_bounds[f"{name} tiling"]
-            entry.update(partials=plan.partials, flush_pixels=plan.flush_segs * plan.seg,
-                         pixels_per_block=plan.segs_per_range * plan.seg)
-        if name != "matcher":
-            ms_b, by = train_bounds[name]
-            kernels.append(dict(entry, bound_ms=ms_b, bound_by=by))
-            continue
-        # One call of the matcher launches both passes: one entry for each
-        # TPU kernel with its own bound and its kernels' device time; `ms` is
-        # the call's (both passes and the wrapper's host work).
-        dev_t = train_ms[name]["device"]
-        for pass_name, line, names in (("matcher pass 1", 87, MATCHER_KERNELS[:2]),
-                                       ("matcher pass 2", 208, MATCHER_KERNELS[2:])):
-            ms_b, by = train_bounds[pass_name]
-            lb = lr["matcher"]["bounds"][pass_name]
-            kernels.append(dict(
-                entry, name=pass_name, replaces=f"dan_tpu/ops/matching_pallas.py:{line}",
-                bound_ms=ms_b, bound_by=by, device_ms=sum(dev_t[k] for k in names),
-                ms_covers="one match_anchors_cuda call: both passes and the wrapper",
-                launches_long_rows=lr["matcher"]["launches"],
-                long_row={"shape": lr["matcher"]["shape"], "ms": lr["matcher"]["ms"],
-                          "plain_ms": lr["matcher"]["plain_ms"], "bound_ms": lb[0],
-                          "bound_by": lb[1], "valid_gts": lr["matcher"]["valid_gts"]}))
-    vote_src = "dan_tpu_torch/csrc/bbox_vote.cu"
-    kernels += [
-        {"name": "bbox_vote (batched)", "route": "cuda", "source": vote_src,
-         "replaces": "dan_tpu/ops/bbox_vote_pallas.py:162", "launches": tta["vote_launches"],
-         "max_abs_err": vote_err, "ms": tta_ms["vote"]["kernel"],
-         "device_ms": tta_ms["vote"]["device"], "device_ms_from": tta_ms["vote"]["device_from"],
-         "plain_ms": tta_ms["vote"]["plain"],
-         "bound_ms": tta_bounds["vote"][0], "bound_by": tta_bounds["vote"][1],
-         "dependent_steps": tta_bounds["vote"][2], "outputs": tta_bounds["vote"][3],
-         "library_ms": None, "launches_dp_ranks": [r["bbox_vote"] for r in dp_launches["tta"]],
-         "launches_tools": tools["K7"], "launches_bench": bl["K7"],
-         "launches_long_rows": lr_tta["K7"], "long_row": lr_vote["K7"]},
-        {"name": "bbox_vote (B=1)", "route": "cuda", "source": vote_src,
-         "replaces": "dan_tpu/ops/bbox_vote_pallas.py:30", "launches": tta["vote_launches_one"],
-         "max_abs_err": vote_err, "ms": tta_ms["vote1"]["kernel"],
-         "device_ms": tta_ms["vote1"]["device"], "device_ms_from": tta_ms["vote1"]["device_from"],
-         "plain_ms": tta_ms["vote1"]["plain"],
-         "bound_ms": tta_bounds["vote1"][0], "bound_by": tta_bounds["vote1"][1],
-         "dependent_steps": tta_bounds["vote1"][2], "outputs": tta_bounds["vote1"][3],
-         "library_ms": None, "launches_tools": tools["K8"], "launches_bench": bl["K8"],
-         "launches_long_rows": lr_tta["K8"], "long_row": lr_vote["K8"]},
-        {"name": "greedy_nms_blocked", "route": "cuda",
-         "source": "dan_tpu_torch/csrc/nms_blocked.cu",
-         "replaces": "dan_tpu/ops/nms_blocked_pallas.py:39",
-         "launches": tta["blocked_launches"], "max_abs_err": blocked_err,
-         "ms": tta_ms["blocked"]["kernel"], "launch_ms": tta_ms["blocked"]["launch"],
-         "pass1_ms": tta_ms["blocked"]["pass1"], "pass2_ms": tta_ms["blocked"]["pass2"],
-         "first_design_ms": K9_FIRST_DESIGN_MS,
-         "ms_covers": "the wrapper: order check that waits for the device, both passes, "
-                      "rank_to_result; launch_ms is the two passes alone, pass1_ms / pass2_ms "
-                      "each alone; first_design_ms the two passes of the first design "
-                      "(PERF.md)",
-         "plain_ms": tta_ms["blocked"]["plain"],
-         "bound_ms": tta_bounds["blocked"][0], "bound_by": tta_bounds["blocked"][1],
-         "dependent_steps": tta_bounds["blocked"][2], "library_ms": None,
-         "launches_tools": tools["K9"], "launches_bench": bl["K9"]},
-    ]
-    kernels.append(
-        {"name": "conv_i8", "route": "cuda", "source": f"dan_tpu_torch/csrc/{INT8_SOURCE}.cu",
-         "replaces": I8_REPLACES, "launches": i8["launches"],
-         "max_abs_err": max(i8_err, i8["err"]),
-         "ms": i8["ms"], "plain_ms": i8["plain"], "bound_ms": i8["bound"],
-         "bound_by": i8["bound_by"], "library_ms": i8["library"], "cudnn_bf16_ms": i8["cudnn"],
-         "ms_covers": f"the {I8_PER_FORWARD} convolutions of one int8 forward at batch {BATCH}, "
-                      "640x640, each timed alone as the forward launches it (conv1_2' with "
-                      "the phase max fused); library_ms is torch._int_mm over each "
-                      "layer's im2col; bound_ms counts conv1_2' as the 3x3 conv it computes "
-                      "(the packed 2x2 form's zero taps left out)",
-         "launches_per_forward": i8["launches"] // i8["iters"],
-         "bench_ms": i8["ms_i8"], "bench_bf16_ms": i8["ms_bf"],
-         "launches_tools": tools["conv_i8"], "launches_bench": bl["conv_i8"]})
-    kernels.append(
-        {"name": "quantize_i8", "route": "cuda", "source": f"dan_tpu_torch/csrc/{QUANT_SOURCE}.cu",
-         "replaces": "dan_tpu/quant.py:383-394 (no TPU kernel: XLA's fused relu + "
-                     "_quantize_act of conv1_1')",
-         "launches": i8["quant"]["launches"],
-         "max_abs_err": max(quant_err, i8["quant"]["err"]), "ms": i8["quant"]["ms"],
-         "plain_ms": i8["quant"]["plain"], "bound_ms": i8["quant"]["bound"][0],
-         "bound_by": i8["quant"]["bound"][1], "library_ms": None,
-         "launches_tools": tools["quantize_i8"], "launches_bench": bl["quantize_i8"]})
-    kernels.append(
-        {"name": "bias_act", "route": "cuda", "source": f"dan_tpu_torch/csrc/{BIAS_ACT_SOURCE}.cu",
-         "replaces": "no TPU kernel: ATen's broadcast bias add and ReLU clamp after each "
-                     "inference convolution (XLA fuses them into the TPU convolution)",
-         "launches_per_forward": ba["launches"], "max_abs_err": 0.0,
-         "ms": ba["ms"], "plain_ms": ba["plain_ms"],
-         "library_ms": ba["aten_ms"], "bound_ms": ba["bound_ms"], "bound_by": "bytes",
-         "ms_covers": "each of a forward's calls at batch 128, 640x640, timed alone at its "
-                      "shape and summed (bf16 and int8 forwards); library_ms is ATen's "
-                      "in-place add and F.relu on the same tensors"})
-    nl = ba["l2norm"]
-    kernels.append(
-        {"name": "l2norm", "route": "cuda", "source": f"dan_tpu_torch/csrc/{L2NORM_SOURCE}.cu",
-         "replaces": "no TPU kernel: ATen's six passes of L2Norm on the three shallow taps "
-                     "(XLA fuses L2Norm on the TPU)",
-         "launches_per_forward": ba["l2norm_launches"],
-         "max_ulps": {k: nl[k]["max_ulps"] for k in ("bf16", "f32")},
-         "share_differing": {k: nl[k]["share_differing"] for k in ("bf16", "f32")},
-         "ms": nl["ms"], "plain_ms": nl["aten_ms"], "library_ms": None,
-         "bound_ms": nl["bound_ms"], "bound_by": "bytes",
-         "ms_covers": "the three taps of a bf16 forward at batch 128, 640x640, each timed "
-                      "alone and summed; plain_ms is ATen's expression (the plain version) on "
-                      "the same tensors"})
-    log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))
-    return 0
+    ms = {}
+    for key, (bx, sc) in (("kernel", (boxes_k, scores_k)), ("kernel1", (boxes_k[:1],
+                                                                        scores_k[:1]))):
+        for _ in range(3):
+            nms_cuda.greedy_nms_rank(bx, sc, *args)
+        if not bool((nms_cuda.LAST_PATHS == nms_cuda.TILE_SCAN).all()):
+            raise AssertionError("a bench row did not take the tile scan in shared memory")
+        ms[key] = cuda_ms(lambda: nms_cuda.greedy_nms_rank(bx, sc, *args), 40)
+    log(f"phase 7: NMS at ({scores_k.shape[0]}, {scores_k.shape[1]}, {post.max_detections}): "
+        f"kernel (tile scan, at most {int(tiles.max())} tiles a row) {ms['kernel']:.4f} ms; at "
+        f"B=1: kernel ({int(tiles[0])} tiles) {ms['kernel1']:.4f} ms ({smi})")
+    return ms
 
 
 def train_config(cfg):
@@ -1648,78 +1307,43 @@ def compare_upsample(gen, dev):
         f"{list(UPSAMPLE_SHAPES)} bf16")
 
 
-def phase10(cfg, dev, smi):
-    """The train step on the card; returns each train kernel's launches and
-    the mean ms of a timed step."""
+def phase10(cfg, dev):
+    """The train step on the card: 6 steps on one batch must lower the
+    loss, each train kernel launched its count a step; then the train CLI
+    with a checkpoint and a resume.  Returns each train kernel's launches."""
     state = create_train_state(cfg, SEED, dev)
     batch = synthetic_batch(cfg, TRAIN_BATCH, seed=SEED)
-    fresh = [synthetic_batch(cfg, TRAIN_BATCH, seed=100 + i) for i in range(12)]
     named = dict(state.model.named_parameters())
 
-    def step(b, ev=None):
-        if ev:
-            ev[0].record()
+    def step(b):
         images, targets = preprocess_and_match(b, cfg, dev)
-        if ev:
-            ev[1].record()
         grads, metrics = loss_and_grads(state, images, targets)
-        if ev:
-            ev[2].record()
         metrics["grad_norm"] = sgd_update(named, grads, state.momentum, state.step, cfg.train)
         state.step += 1
-        if ev:
-            ev[3].record()
         return metrics
 
     for mod, _, _ in TRAIN_KERNELS.values():
         mod.LAUNCHES = 0
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    losses = [float(step(batch)["loss"]) for _ in range(6)]
+    steps = [step(batch) for _ in range(6)]
+    losses = [float(m["loss"]) for m in steps]
     log(f"phase 10: 6 steps on one batch ({TRAIN_BATCH}x640x640, bf16, warm-up 50, "
         f"clip 10): loss {' '.join(f'{x:.4f}' for x in losses)} "
         f"({time.perf_counter() - t0:.2f} s, first step cold)")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError("the loss did not fall over 6 steps")
-    for b in fresh[:2]:  # warm-up on fresh batches
-        step(b)
-    torch.cuda.synchronize()
-    evs = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in fresh[2:]]
-    t0 = time.perf_counter()
-    for b, ev in zip(fresh[2:], evs):
-        metrics = step(b, ev)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / len(evs)
-    split = np.array([[ev[i].elapsed_time(ev[i + 1]) for i in range(3)] for ev in evs])
-    step_ms = np.array([ev[0].elapsed_time(ev[3]) for ev in evs])
-    gaps = np.array([a[3].elapsed_time(b[0]) for a, b in zip(evs[:-1], evs[1:])])
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    m = {k: float(v) for k, v in metrics.items()}
-    log(f"phase 10: train step at batch {TRAIN_BATCH}: {step_ms.mean():.3f} ms/step on the "
-        f"card's clock (events, mean of {len(evs)}) = {TRAIN_BATCH / step_ms.mean() * 1e3:.1f} "
-        f"img/s; host clock {wall:.3f} ms/step = {TRAIN_BATCH / wall * 1e3:.1f} img/s "
-        f"({smi})")
-    log(f"  split: H2D + preprocess + match {split[:, 0].mean():.3f} ms, forward + backward "
-        f"{split[:, 1].mean():.3f} ms, optimizer {split[:, 2].mean():.3f} ms; between steps "
-        f"{gaps.mean():.3f} ms; peak device memory {peak:.2f} GiB")
-    t0 = time.perf_counter()
-    for b in fresh:
-        sample_augment_batch(b["seed"], cfg.preprocess)
-    log(f"  the augmentation draws on the host (sample_augment_batch, part of H2D + preprocess):"
-        f" {(time.perf_counter() - t0) * 1e3 / len(fresh):.3f} ms a batch of {TRAIN_BATCH} "
-        f"(host clock, mean of {len(fresh)})")
+    m = {k: float(v) for k, v in steps[-1].items()}
     log(f"  last step: {' '.join(f'{k}={v:.5g}' for k, v in m.items())}")
     if not all(np.isfinite(v) for v in m.values()):
         raise AssertionError("non-finite metrics")
-    n_steps = 6 + len(fresh)
+    n_steps = len(steps)
     launches = {name: mod.LAUNCHES for name, (mod, _, _) in TRAIN_KERNELS.items()}
-    profile_steps(step, fresh[2:5])
     log(f"  train kernel launches over {n_steps} steps: {launches}")
     for name, n in launches.items():
         if n != PER_STEP[name] * n_steps:
             raise AssertionError(f"{name} launched {n} times, expected "
                                  f"{PER_STEP[name] * n_steps}")
-    del state, batch, fresh
+    del state, batch, steps
 
     # The entry point a user calls, with a checkpoint and a resume.
     with tempfile.TemporaryDirectory() as d:
@@ -1735,7 +1359,7 @@ def phase10(cfg, dev, smi):
         f"latest checkpoint step {last}")
     if (rc1, rc2, [r["step"] for r in logged], last) != (0, 0, [1, 2], 2):
         raise AssertionError("train CLI run or resume failed")
-    return launches, float(step_ms.mean())
+    return launches
 
 
 def f32_config(cfg, **preprocess):
@@ -1890,32 +1514,6 @@ def phase10f(cfg, dev, smi):
     return 2 * launches["conv12_wgrad_f32"]
 
 
-def profile_steps(step, batches):
-    """torch.profiler over a few steady train steps: device kernel time
-    per step against the steps' event time (the device's busy share), and
-    the kernels that take the most of it."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for b in batches:
-            step(b)
-        end.record()
-        torch.cuda.synchronize()
-    span = start.elapsed_time(end) / len(batches)
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    dev_us = lambda e: e.self_device_time_total  # noqa: E731
-    busy = sum(dev_us(e) for e in events) / 1e3 / len(batches)
-    log(f"  profiler over {len(batches)} steps: device kernel time {busy:.3f} ms/step of "
-        f"{span:.3f} ms/step (event clock) = busy share {busy / span:.3f}")
-    top = sorted(events, key=dev_us, reverse=True)[:12]
-    for e in top:
-        log(f"    {dev_us(e) / 1e3 / len(batches):9.3f} ms/step  {e.count // len(batches):4d}x  "
-            f"{e.key[:90]}")
-
-
 def aten_ups_one(g):
     """ATen's gradient of the 2x bilinear upsample of g (N, C, 2H, 2W)."""
     return torch.ops.aten.upsample_bilinear2d_backward.default(
@@ -1924,31 +1522,27 @@ def aten_ups_one(g):
 
 
 def phase11(cases, smi):
-    """Each train kernel against its plain version, same inputs, in turns
-    plain, kernel, kernel, plain."""
-    # A step's three upsample gradients (made here, so that phase 10's peak
-    # memory does not hold them).
+    """Each train kernel's time at the train shapes (CUDA events over
+    back-to-back calls after warm-up), beside the library call that
+    computes its function where there is one, and its bound."""
+    # A step's three upsample gradients, and K6's inputs in float32.
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     cases = dict(cases, upsample2x_bwd=tuple(
         torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
         for shape in UPSAMPLE_SHAPES), conv12_wgrad_f32=tuple(
         t.float() for t in cases["conv12_wgrad"]))
     fns = {
-        "matcher": (matching_cuda.match_anchors_cuda, match_anchors),
-        "phase_pool_bwd": (phase_pool_cuda.phase_pool_bwd,
-                           phase_pool_cuda.phase_pool_bwd_plain),
-        "conv12_wgrad": (conv12_wgrad_cuda.conv12_wgrad,
-                         conv12_wgrad_cuda.conv12_wgrad_plain),
+        "matcher": matching_cuda.match_anchors_cuda,
+        "phase_pool_bwd": phase_pool_cuda.phase_pool_bwd,
+        "conv12_wgrad": conv12_wgrad_cuda.conv12_wgrad,
         # The same function on the same values in float32: its own kernel.
-        "conv12_wgrad_f32": (conv12_wgrad_cuda.conv12_wgrad,
-                             conv12_wgrad_cuda.conv12_wgrad_plain),
+        "conv12_wgrad_f32": conv12_wgrad_cuda.conv12_wgrad,
         # A step's three upsample gradients, one call each.
-        "upsample2x_bwd": (lambda *gs: [upsample_cuda.upsample2x_bwd(g) for g in gs],
-                           lambda *gs: [upsample_cuda.upsample2x_bwd_plain(g) for g in gs]),
+        "upsample2x_bwd": lambda *gs: [upsample_cuda.upsample2x_bwd(g) for g in gs],
     }
     out = {}
     launched = {}
-    for name, (kernel, plain) in fns.items():
+    for name, kernel in fns.items():
         args = cases[name]
         # One call launches what one train step in its dtype launches.
         mod = TRAIN_KERNELS[name][0]
@@ -1959,9 +1553,10 @@ def phase11(cases, smi):
         if launched[name] != per_call:
             raise AssertionError(f"phase 11: {name} launched {launched[name]} times a call, "
                                  f"not {per_call}")
-        out[name] = turns(lambda: kernel(*args), lambda: plain(*args), 10, 3)
-        log(f"phase 11: {name}: kernel {out[name]['kernel']:.4f} ms, plain "
-            f"{out[name]['plain']:.4f} ms ({smi})")
+        for _ in range(3):
+            kernel(*args)
+        out[name] = {"kernel": cuda_ms(lambda: kernel(*args), 20)}
+        log(f"phase 11: {name}: kernel {out[name]['kernel']:.4f} ms ({smi})")
     # The matcher call (host work, allocations, three launches) beside its
     # kernels' own device time.
     margs = cases["matcher"]
@@ -2002,10 +1597,10 @@ def phase11(cases, smi):
     lib_f = lambda: torch.nn.grad.conv2d_weight(xf, size, drf.permute(0, 3, 1, 2))  # noqa: E731
     e_lib_f = rel_l2(lib_f(), conv12_wgrad_cuda.conv12_wgrad(o1f, drf))
     f32_turns = turns(lambda: conv12_wgrad_cuda.conv12_wgrad(o1f, drf), lib_f, 5, 3)
-    out["conv12_wgrad_f32"]["library"] = f32_turns["plain"]
+    out["conv12_wgrad_f32"]["library"] = f32_turns["library"]
     log(f"phase 11: conv12_wgrad_f32 beside torch.nn.grad.conv2d_weight (cuDNN, float32, TF32 "
         f"off, materialised input), in turns library, kernel, kernel, library: library "
-        f"{f32_turns['plain']:.4f} ms, kernel {f32_turns['kernel']:.4f} ms; rel L2 to the "
+        f"{f32_turns['library']:.4f} ms, kernel {f32_turns['kernel']:.4f} ms; rel L2 to the "
         f"kernel {e_lib_f:.3e} ({smi})")
     if not e_lib_f < 1e-4:
         raise AssertionError("the float32 library call does not compute the kernel's function")
@@ -2026,12 +1621,12 @@ def phase11(cases, smi):
     lib_routes = torch.equal(routed.flatten(2).gather(2, idx.flatten(2)), g_lib.flatten(2)) \
         and int((routed != 0).sum()) == int((g_lib != 0).sum())
     del routed
-    k5 = fns["phase_pool_bwd"][0]
+    k5 = fns["phase_pool_bwd"]
     pool_turns = turns(lambda: k5(*cases["phase_pool_bwd"]), pool_lib, 10, 10)
-    out["phase_pool_bwd"]["library"] = pool_turns["plain"]
+    out["phase_pool_bwd"]["library"] = pool_turns["library"]
     log(f"phase 11: phase_pool_bwd beside aten::max_pool2d_with_indices_backward (g "
         f"{tuple(g_lib.shape)} bf16, indices of a 2x2 max pool of {tuple(pool_in.shape)}), in "
-        f"turns library, K5, K5, library: library {pool_turns['plain']:.4f} ms, K5 "
+        f"turns library, K5, K5, library: library {pool_turns['library']:.4f} ms, K5 "
         f"{pool_turns['kernel']:.4f} ms; the library routes every gradient to its index: "
         f"{lib_routes} ({smi})")
     if not lib_routes:
@@ -2039,24 +1634,23 @@ def phase11(cases, smi):
     del pool_in, idx, g_lib
 
     # The upsample gradient's library call: ATen's upsample_bilinear2d_backward
-    # (atomic adds), the backward the port took before the kernel.
+    # (atomic adds: not reproducible run to run).
     ups = cases["upsample2x_bwd"]
 
     def aten_ups():
         return [aten_ups_one(g) for g in ups]
 
-    e_ups = max(rel_l2(a, k) for a, k in zip(aten_ups(), fns["upsample2x_bwd"][0](*ups)))
+    e_ups = max(rel_l2(a, k) for a, k in zip(aten_ups(), fns["upsample2x_bwd"](*ups)))
     torch.cuda.synchronize()
     out["upsample2x_bwd"]["library"] = cuda_ms(aten_ups, 10)
     log(f"phase 11: launches a call == PER_STEP: {launched}")
     log(f"phase 11: upsample2x_bwd, a step's three calls at g {[tuple(g.shape) for g in ups]} "
-        f"bf16: kernel {out['upsample2x_bwd']['kernel']:.4f} ms, plain "
-        f"{out['upsample2x_bwd']['plain']:.4f} ms, ATen's upsample_bilinear2d_backward "
+        f"bf16: kernel {out['upsample2x_bwd']['kernel']:.4f} ms, ATen's upsample_bilinear2d_backward "
         f"{out['upsample2x_bwd']['library']:.4f} ms (rel L2 to the kernel {e_ups:.3e}) ({smi})")
     # Each call alone beside its own bound (bytes: g read once, gx written
     # once): the kernel's device time (profiler) and the call's time back to
-    # back (CUDA events; the wrapper's host time a call beside it), ATen's
-    # backward and the plain version of the same call.
+    # back (CUDA events; the wrapper's host time a call beside it) and ATen's
+    # backward of the same call.
     alone = []
     for g in ups:
         ms_b, _ = bound(nbytes(g) * 5 // 4, 21 * g.numel() // 4, PEAK_F32)
@@ -2067,28 +1661,17 @@ def phase11(cases, smi):
         log(f"  g {tuple(g.shape)}: kernel {ms_d:.4f} ms ({how}), bound {ms_b:.4f} ms "
             f"({nbytes(g) * 5 // 4 / 1e6:.1f} MB): {100 * ms_b / ms_d:.1f} % of it; the call "
             f"back to back {ms_k:.4f} ms (host {host_ms(call):.4f} ms); ATen "
-            f"{cuda_ms(lambda: aten_ups_one(g), 20):.4f} ms, plain "
-            f"{cuda_ms(lambda: upsample_cuda.upsample2x_bwd_plain(g), 3):.4f} ms")
+            f"{cuda_ms(lambda: aten_ups_one(g), 20):.4f} ms")
     d_sum, k_sum, b_sum = (sum(a[i] for a in alone) for i in range(3))
     log(f"  the three calls alone: kernels {d_sum:.4f} ms ({k_sum:.4f} ms back to back) against "
-        f"a bound of {b_sum:.4f} ms: {100 * b_sum / d_sum:.1f} % of it (the first design: "
-        f"0.5368 ms, 47 %) ({smi})")
+        f"a bound of {b_sum:.4f} ms: {100 * b_sum / d_sum:.1f} % of it ({smi})")
     # The ring's stage size: a step's three calls with 12, 16 (the default)
-    # and 24 KB stages, in turns.
-    sizes = (12 * 1024, upsample_cuda.STAGE_BYTES, 24 * 1024)
+    # and 24 KB stages give the default's bits.
     ref = [upsample_cuda.upsample2x_bwd(g) for g in ups]
-    for sb in sizes:
+    for sb in (12 * 1024, upsample_cuda.STAGE_BYTES, 24 * 1024):
         if not all(torch.equal(upsample_cuda._launch(g, sb), r) for g, r in zip(ups, ref)):
             raise AssertionError(f"upsample gradient kernel with {sb} B stages != the default's")
     del ref
-    stage_ms = {sb: [] for sb in sizes}
-    for sb in sizes + sizes[::-1]:
-        step = lambda: [upsample_cuda._launch(g, sb) for g in ups]  # noqa: E731
-        step()
-        stage_ms[sb].append(cuda_ms(step, 10))
-    log("  stage size (a step's three calls, ms, two turns): " + ", ".join(
-        f"{sb // 1024} KB {np.mean(v):.4f} ({v[0]:.4f} / {v[1]:.4f})"
-        for sb, v in stage_ms.items()))
     if not e_ups < 1e-2:
         raise AssertionError("ATen's upsample backward does not compute the kernel's function")
 
@@ -2376,11 +1959,6 @@ class RecordingRunner(TTARunner):
         return fetch
 
 
-def tta_images(n):
-    """n seeded uint8 images cycling over TTA_SIZES (tools/profile.py)."""
-    return profile_tool.tta_images(n, SEED + 13)
-
-
 def expected_stats(items, runner, tta_batch, vote_batch):
     """run_dataset's launch statistics from the planners' arithmetic."""
     groups, variants = {}, 0
@@ -2398,7 +1976,7 @@ def phase13(cfg, dev, smi):
     post = cfg.postprocess
     det = Detector.from_random(SEED, cfg, dev)
     runner = det._tta_runner = RecordingRunner(det.model, cfg, device=dev)
-    items = tta_images(TTA_IMAGES)
+    items = profile_tool.tta_images(TTA_IMAGES)
     keyed = [(k, im) for k, im, _ in items]
     sizes = [im.shape[:2] for _, im in keyed]
     want_stats, groups = expected_stats(items, runner, 16, 128)
@@ -2710,23 +2288,24 @@ def blocked_passes(bx, sc, thr, max_out):
 
 
 def phase14(vote_inputs, nms_rows, post, dev, smi):
-    """Times of the vote and blocked-NMS kernels beside their plain
-    versions, the vote's own device time, and their bounds from these
-    inputs."""
+    """Times of the vote and blocked-NMS kernels (CUDA events over
+    back-to-back calls after warm-up), the vote's own device time, and
+    their bounds from these inputs."""
     thr, max_out = post.vote_iou_threshold, post.max_detections
     b, s, v = (torch.from_numpy(a).to(dev) for a in vote_inputs[0][:3])
     b1, s1, v1 = b[:1].contiguous(), s[:1].contiguous(), v[:1].contiguous()
-    out = {
-        "vote": turns(lambda: bbox_vote_cuda.bbox_vote_batched_cuda(b, s, v, thr, max_out),
-                      lambda: bbox_vote_batched(b, s, v, thr, max_out), 20, 2),
-        "vote1": turns(lambda: bbox_vote_cuda.bbox_vote_batched_cuda(b1, s1, v1, thr, max_out),
-                       lambda: bbox_vote_batched(b1, s1, v1, thr, max_out), 20, 2),
-    }
     bx, sc = nms_rows[0][0], nms_rows[1][0]
     nthr = post.nms_iou_threshold
-    out["blocked"] = turns(
-        lambda: nms_blocked_cuda.greedy_nms_blocked_cuda(bx, sc, nthr, max_out),
-        lambda: nms_blocked_cuda.greedy_nms_blocked_plain(bx, sc, nthr, max_out), 20, 2)
+    calls = {
+        "vote": lambda: bbox_vote_cuda.bbox_vote_batched_cuda(b, s, v, thr, max_out),
+        "vote1": lambda: bbox_vote_cuda.bbox_vote_batched_cuda(b1, s1, v1, thr, max_out),
+        "blocked": lambda: nms_blocked_cuda.greedy_nms_blocked_cuda(bx, sc, nthr, max_out),
+    }
+    out = {}
+    for key, call in calls.items():
+        for _ in range(3):
+            call()
+        out[key] = {"kernel": cuda_ms(call, 40)}
     # The wrapper's check of the descending order waits for the device, and
     # rank_to_result follows the kernel: the two launches alone, beside it,
     # and each pass alone.
@@ -2748,17 +2327,16 @@ def phase14(vote_inputs, nms_rows, post, dev, smi):
             raise AssertionError(f"the vote at {tuple(args[1].shape)} left shared memory")
     log(f"phase 14: bbox_vote at {tuple(s.shape)} -> {max_out}: kernel "
         f"{out['vote']['kernel']:.4f} ms (its device time {out['vote']['device']:.4f} ms by "
-        f"{out['vote']['device_from']}, the wrapper's host time {out['vote']['host']:.4f} ms), "
-        f"plain {out['vote']['plain']:.4f} ms; at B=1: kernel {out['vote1']['kernel']:.4f} ms "
+        f"{out['vote']['device_from']}, the wrapper's host time {out['vote']['host']:.4f} ms); "
+        f"at B=1: kernel {out['vote1']['kernel']:.4f} ms "
         f"(device {out['vote1']['device']:.4f} ms by {out['vote1']['device_from']}, host "
-        f"{out['vote1']['host']:.4f} ms), plain {out['vote1']['plain']:.4f} ms ({smi})")
+        f"{out['vote1']['host']:.4f} ms) ({smi})")
     log(f"phase 14: greedy_nms_blocked at ({sc.shape[0]}, {max_out}): the wrapper (order check "
         f"that waits for the device, both passes, rank_to_result) "
         f"{out['blocked']['kernel']:.4f} ms, its two passes alone "
         f"{out['blocked']['launch']:.4f} ms (pass 1, the mask, {out['blocked']['pass1']:.4f} ms; "
-        f"pass 2, the scan with the ranks, {out['blocked']['pass2']:.4f} ms, each alone), plain "
-        f"{out['blocked']['plain']:.4f} ms; the first design's two passes "
-        f"{K9_FIRST_DESIGN_MS} ms (PERF.md); greedy_nms_rank (tile scan) at B=1 with "
+        f"pass 2, the scan with the ranks, {out['blocked']['pass2']:.4f} ms, each alone); "
+        f"greedy_nms_rank (tile scan) at B=1 with "
         f"rank_to_result {k1_ms:.4f} ms, alone {k1_launch_ms:.4f} ms ({smi})")
 
     # Bounds, from what these inputs need.  Vote: 21 bytes a detection in,
@@ -2816,7 +2394,7 @@ def dp_batch(cfg, i):
 
 def dp_items(n):
     """Phase 15's TTA images: the first n of phase 13's, as (key, image)."""
-    return [(k, img) for k, img, _ in tta_images(n)]
+    return [(k, img) for k, img, _ in profile_tool.tta_images(n)]
 
 
 def one_device_steps(cfg, dev):
@@ -3195,17 +2773,6 @@ def phase15(cfg, tcfg, dev, smi):
 I8_PER_FORWARD = 18
 CALIB_IMAGES = 8
 I8_REPLACES = "dan_tpu/quant.py:126 (no TPU kernel: XLA's s8 conv + the fused epilogue)"
-# The earlier design's times (mma.sync m16n8k32 fed by a cp.async ring) at
-# batch 128, 640x640, from PERF.md section 6, printed beside this kernel's;
-# its conv1_2' wrote the packed output and left the phase max to a separate
-# pass.
-MMA_SYNC_SUM_MS = 84.585
-MMA_SYNC_LAYER_MS = {
-    "conv1_2": 16.929, "conv2_1": 5.697, "conv2_2": 9.307, "conv3_1": 4.926, "conv3_2": 8.691,
-    "conv3_3": 9.403, "conv4_1": 4.712, "conv4_2": 8.155, "conv4_3": 8.198, "conv5_1": 2.204,
-    "conv5_2": 1.991, "conv5_3": 2.076, "fc6": 1.015, "fc7": 0.360, "conv6_1": 0.0945,
-    "conv6_2": 0.110, "conv7_1": 0.0365, "conv7_2": 0.0683,
-}
 
 
 def i8_layers(qdet):
@@ -3276,21 +2843,6 @@ def check_quant(y, inv, what) -> int:
         f"s8 at 127: {float((got == 127).float().mean()):.4f}, at 0: "
         f"{float((got == 0).float().mean()):.4f}")
     return int((got.int() - want.int()).abs().max())
-
-
-def top_kernels(fn, n=10):
-    """The n CUDA kernels with the most device time in one call of fn()
-    (torch.profiler, after a warm call) -> ([(name, ms)], total ms)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = sorted(((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
-                   if e.device_type.name == "CUDA"), key=lambda r: -r[1])
-    return rows[:n], sum(ms for _, ms in rows)
 
 
 def phase16(cfg, dev):
@@ -3371,7 +2923,7 @@ def phase16(cfg, dev):
                              fc6.padding_for(xs), "fc6 saturated (+-127)"))
         # A ragged M (63 pixels) and N, each output mode alone.  The kernel
         # takes Ci % 64 == 0 and Co % 64 == 0, so the ragged N is 64 channels
-        # of a 128-channel tile (the mma.sync design took 32 and 8).
+        # of a 128-channel tile.
         g = torch.Generator(device=dev).manual_seed(16)
         xr = torch.randint(-127, 128, (1, 7, 9, 64), generator=g, device=dev).to(torch.int8)
         kr = torch.randint(-127, 128, (64, 3, 3, 64), generator=g, device=dev).to(torch.int8)
@@ -3463,10 +3015,9 @@ def im2col_i8(q8, kh, kw, stride, dilation, pad):
 def time_i8_layer(name, layer, q8, tap_dtype, smi, packed=False):
     """One layer of the int8 forward at the bench shape: the kernel with the
     forward's outputs, held bit for bit against the plain version (batch
-    chunks of 16) over the whole batch, its bound, the plain version's
-    time, torch._int_mm over the layer's im2col (chunks of 2^22 rows, the
-    yardstick; the port never calls it) and cuDNN's bf16 conv of the same
-    shape.  `packed`: the layer is the packed 2x2 conv1_2', launched as the
+    chunks of 16) over the whole batch, its bound, torch._int_mm over the
+    layer's im2col (chunks of 2^22 rows, the yardstick; the port never
+    calls it) and cuDNN's bf16 conv of the same shape.  `packed`: the layer is the packed 2x2 conv1_2', launched as the
     forward launches it, with the phase max (its output is pool1, held
     against the plain conv + epilogue + phase_max_i8); its bound counts the
     work of the 3x3 conv it computes (9 of its 16 taps a phase are zero by
@@ -3511,7 +3062,6 @@ def time_i8_layer(name, layer, q8, tap_dtype, smi, packed=False):
         if q is not None:
             err = max(err, float((out.q[i:i + 16].int() - q.int()).abs().max()))
     del tap, q
-    plain_ms = cuda_ms(lambda: [plain(i) for i in range(0, b, 16)], 1)
     a = im2col_i8(q8, kh, kw, layer.stride, layer.dilation, pad)
     bmat = layer.kq.reshape(co, kdim).t()
     rows = 2**22
@@ -3539,21 +3089,20 @@ def time_i8_layer(name, layer, q8, tap_dtype, smi, packed=False):
             f"counting the packed form's zero taps, bound {dense_ops / PEAK_INT8 * 1e3:.4f} ms), "
             f"with the phase max: pool1 {out_shape}"
             if packed else f"{ops / 1e12:.3f} T operations")
-    before = MMA_SYNC_LAYER_MS[name]
     log(f"  {name}: ({b}, {q8.shape[1]}, {q8.shape[2]}, {ci}) -> ({ho}, {wo}, {co}), K {kdim}: "
         f"== plain bit for bit over all {b} images; kernel {ms:.4f} ms = "
         f"{ops / ms / 1e9:.1f} TOPS of {work}, bound {bnd[0]:.4f} ms ({bnd[1]}), "
-        f"{bnd[0] / ms:.0%} of it; plain {plain_ms:.3f} ms, torch._int_mm {lib_ms:.4f} ms, "
-        f"cuDNN bf16 {cudnn_ms:.4f} ms, the mma.sync design {before} ms "
-        f"({'conv alone' if packed else 'same work'}, PERF.md) ({smi})")
+        f"{bnd[0] / ms:.0%} of it; torch._int_mm {lib_ms:.4f} ms, "
+        f"cuDNN bf16 {cudnn_ms:.4f} ms ({smi})")
     log(f"    plan: {plan.describe()}")
-    return {"ms": ms, "bound": bnd, "plain": plain_ms, "library": lib_ms, "cudnn": cudnn_ms,
-            "ops": ops, "err": err}
+    return {"ms": ms, "bound": bnd, "library": lib_ms, "cudnn": cudnn_ms, "ops": ops,
+            "err": err}
 
 
 def phase17(cfg, dev, smi, det, qdet, images_u8):
     """The int8 bench path at batch 128 beside the bf16 one, counted; each
-    int8 kernel at the bench shapes held against its plain version."""
+    int8 kernel at the bench shapes held against its plain version and
+    timed beside its bound and the library calls of its shape."""
     post, size = cfg.postprocess, cfg.model.image_size
     anchors = det.anchors
     nms_paths = []
@@ -3567,32 +3116,27 @@ def phase17(cfg, dev, smi, det, qdet, images_u8):
             nms_paths.append(nms_cuda.LAST_PATHS)
             return out, cls, loc
 
-    for _ in range(2):
-        step(qdet)
-        step(det.model)
+    step(qdet)
+    step(det.model)
     torch.cuda.synchronize()
-    iters = 10
+    iters = 2
     # The main path, counted: every count set to 0 just before, read just after.
     conv_i8_cuda.LAUNCHES = 0
     quantize_i8_cuda.LAUNCHES = 0
     nms_cuda.LAUNCHES = 0
     nms_paths.clear()
-    torch.cuda.reset_peak_memory_stats()
-    ms_i8 = cuda_ms(lambda: step(qdet), iters)
-    peak_i8 = torch.cuda.max_memory_allocated() / 2**30
+    for _ in range(iters):
+        out_q, cls_q, loc_q = step(qdet)
+    torch.cuda.synchronize()
     launches = {"conv_i8": conv_i8_cuda.LAUNCHES, "quantize_i8": quantize_i8_cuda.LAUNCHES,
                 "nms": nms_cuda.LAUNCHES}
     rows = torch.cat(nms_paths)
-    torch.cuda.reset_peak_memory_stats()
-    ms_bf = cuda_ms(lambda: step(det.model), iters)
-    peak_bf = torch.cuda.max_memory_allocated() / 2**30
     if launches != {"conv_i8": I8_PER_FORWARD * iters, "quantize_i8": iters, "nms": iters}:
         raise AssertionError(f"phase 17: launches in {iters} int8 bench steps {launches}, "
                              f"expected {I8_PER_FORWARD} conv_i8, 1 quantize_i8 and 1 NMS a step")
     if not bool(rows.all()):
         raise AssertionError(f"phase 17: {int((rows == 0).sum())} of {rows.numel()} NMS rows "
                              "of the int8 bench steps took the argmax loop")
-    out_q, cls_q, loc_q = step(qdet)
     out_f, cls_f, loc_f = step(det.model)
     torch.cuda.synchronize()
     for out in (out_q, out_f):
@@ -3602,27 +3146,16 @@ def phase17(cfg, dev, smi, det, qdet, images_u8):
         raise AssertionError("phase 17: non-finite int8 logits")
     e_cls, e_loc = rel_l2(cls_q, cls_f), rel_l2(loc_q, loc_f)
     n_q, n_f = out_q["valid"].sum(dim=1), out_f["valid"].sum(dim=1)
-    with torch.inference_mode():
-        x = normalize_image(images_u8.float(), cfg.preprocess)
-        fwd_q = cuda_ms(lambda: qdet(x), 5)
-        fwd_f = cuda_ms(lambda: det.model(x), 5)
-    log(f"phase 17: int8 bench path batch {BATCH} at {size}x{size}: {ms_i8:.3f} ms/batch = "
-        f"{BATCH / ms_i8 * 1e3:.1f} img/s, peak {peak_i8:.2f} GiB; bf16 {ms_bf:.3f} ms/batch = "
-        f"{BATCH / ms_bf * 1e3:.1f} img/s, peak {peak_bf:.2f} GiB; int8 / bf16 = "
-        f"{ms_bf / ms_i8:.3f}x img/s ({smi})")
-    log(f"  forward alone: int8 {fwd_q:.3f} ms, bf16 {fwd_f:.3f} ms; launches in {iters} int8 "
+    log(f"phase 17: int8 bench path batch {BATCH} at {size}x{size}: launches in {iters} int8 "
         f"steps: conv_i8 {launches['conv_i8']}, quantize_i8 {launches['quantize_i8']}, NMS "
         f"{launches['nms']}, all {rows.numel()} NMS "
         f"rows on the tile scan; int8 logits vs bf16 rel L2 cls {e_cls:.4e} loc {e_loc:.4e}; "
         f"valid detections an image int8 {int(n_q.min())}..{int(n_q.max())}, bf16 "
         f"{int(n_f.min())}..{int(n_f.max())}")
     del out_q, out_f, cls_q, loc_q, cls_f, loc_f
-    time_user_int8(det, images_u8, x, fwd_q, smi)
+    time_user_int8(det, images_u8, smi)
     with torch.inference_mode():
-        for label, model in (("int8", qdet), ("bf16", det.model)):
-            top, total = top_kernels(lambda: model(x))
-            log(f"  profiler, one {label} forward: {total:.3f} ms of device kernel time; top: "
-                + "; ".join(f"{name[:70]} {ms:.3f}" for name, ms in top))
+        x = normalize_image(images_u8.float(), cfg.preprocess)
         # The fused relu + quantize at the bench shape.
         dt = compute_dtype(cfg.model)
         xn = x.to(dt).permute(0, 3, 1, 2)
@@ -3630,13 +3163,11 @@ def phase17(cfg, dev, smi, det, qdet, images_u8):
                                                  qdet.k1p.to(dt), qdet.b1.to(dt), stride=2))
         inv = qdet.inv_conv1_2
         q_err = check_quant(o1_pre, inv, f"conv1_1' output at batch {BATCH}, {size}x{size}")
-        qt = turns(lambda: quantize_i8_cuda.quantize_i8(o1_pre, inv),
-                   lambda: quantize_i8_cuda.quantize_i8_plain(o1_pre, inv))
+        q_ms = cuda_ms(lambda: quantize_i8_cuda.quantize_i8(o1_pre, inv), 20)
         qb = bound(o1_pre.numel() * (o1_pre.element_size() + 1) + inv.numel() * 4,
                    2 * o1_pre.numel(), PEAK_F32)
         log(f"phase 17: quantize_i8 at {tuple(o1_pre.shape)} {o1_pre.dtype}: kernel "
-            f"{qt['kernel']:.4f} ms, plain {qt['plain']:.3f} ms, bound {qb[0]:.4f} ms ({qb[1]}) "
-            f"({smi})")
+            f"{q_ms:.4f} ms, bound {qb[0]:.4f} ms ({qb[1]}) ({smi})")
         del o1_pre, xn
     # Each layer at the bench shape, on its own inputs from one int8 forward.
     record = {}
@@ -3650,41 +3181,33 @@ def phase17(cfg, dev, smi, det, qdet, images_u8):
                                       dt if name in taps else None, smi,
                                       packed=name == "conv1_2")
                   for name, layer in i8_layers(qdet)}
-    tot = {k: sum(v[k] for v in layers.values())
-           for k in ("ms", "plain", "cudnn", "ops", "library")}
+    tot = {k: sum(v[k] for v in layers.values()) for k in ("ms", "cudnn", "ops", "library")}
     tot["err"] = max(v["err"] for v in layers.values())
     by_ops = sum(v["bound"][0] for v in layers.values() if v["bound"][1] == "operations")
     tot["bound"] = sum(v["bound"][0] for v in layers.values())
     tot["bound_by"] = "operations" if by_ops >= tot["bound"] / 2 else "bytes"
     log(f"  sum of the {I8_PER_FORWARD}: kernel {tot['ms']:.3f} ms "
         f"({tot['ops'] / tot['ms'] / 1e9:.1f} TOPS for {tot['ops'] / 1e12:.2f} T operations), "
-        f"bound {tot['bound']:.3f} ms ({tot['bound_by']}), plain {tot['plain']:.1f} ms, "
-        f"torch._int_mm {tot['library']:.3f} ms, cuDNN bf16 {tot['cudnn']:.3f} ms; the mma.sync "
-        f"design {MMA_SYNC_SUM_MS} ms (PERF.md; its conv1_2' without the phase max) ({smi})")
+        f"bound {tot['bound']:.3f} ms ({tot['bound_by']}), "
+        f"torch._int_mm {tot['library']:.3f} ms, cuDNN bf16 {tot['cudnn']:.3f} ms ({smi})")
     slower = [n for n, v in layers.items() if v["ms"] > v["library"]]
     log(f"  layers where the kernel is slower than torch._int_mm on the im2col: "
-        f"{', '.join(slower) if slower else 'none'}; int8 bench path "
-        f"{BATCH / ms_i8 * 1e3:.1f} img/s beside bf16's {BATCH / ms_bf * 1e3:.1f} in this run")
-    return {"launches": launches["conv_i8"], "iters": iters, "ms_i8": ms_i8, "ms_bf": ms_bf,
-            "quant": {"launches": launches["quantize_i8"], "ms": qt["kernel"],
-                      "plain": qt["plain"], "bound": qb, "err": q_err}, **tot}
+        f"{', '.join(slower) if slower else 'none'}")
+    return {"launches": launches["conv_i8"], "iters": iters,
+            "quant": {"launches": launches["quantize_i8"], "ms": q_ms, "bound": qb,
+                      "err": q_err}, **tot}
 
 
-def time_user_int8(det, images_u8, x, fwd_q, smi):
-    """The int8 path as users reach it: Detector.quantize_int8 (which builds
-    its QuantizedDetector in inference mode) on the calibration images, then
-    its forward on the card's clock beside phase 16's QuantizedDetector, and
-    detect_batch of the bench batch and detect() of one image on the host's
-    clock, int8 beside bf16."""
+def time_user_int8(det, images_u8, smi):
+    """The int8 path as serving callers reach it (no cell measures it):
+    Detector.quantize_int8 (which builds its QuantizedDetector in inference
+    mode) on the calibration images, then detect_batch of the bench batch
+    and detect() of one image on the host's clock, int8 beside bf16."""
     imgs = list(images_u8.cpu().numpy())
     t0 = time.perf_counter()
     det.quantize_int8(imgs[:CALIB_IMAGES], batch_size=CALIB_IMAGES)
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
-    with torch.inference_mode():
-        model = det._quant
-        model(x)
-        fwd_user = cuda_ms(lambda: model(x), 5)
     out = {}
     for mode in ("int8", "bf16"):
         det.detect_batch(imgs)
@@ -3701,9 +3224,8 @@ def time_user_int8(det, images_u8, x, fwd_q, smi):
             lat.append((time.perf_counter() - t0) * 1e3)
         out[mode] = (batch_ms, float(np.median(lat)), min(lat))
         det.dequantize()
-    log(f"  through Detector.quantize_int8 ({CALIB_IMAGES} calibration images, {quant_s:.3f} s): "
-        f"int8 forward {fwd_user:.3f} ms at batch {BATCH} (phase 16's QuantizedDetector "
-        f"{fwd_q:.3f} ms, card's clock) ({smi})")
+    log(f"  Detector.quantize_int8 on {CALIB_IMAGES} calibration images: {quant_s:.3f} s "
+        f"(host clock) ({smi})")
     for mode, (batch_ms, med, lo) in out.items():
         log(f"  {mode}: detect_batch of the {BATCH} bench images {batch_ms:.3f} ms = "
             f"{BATCH / batch_ms * 1e3:.1f} img/s; detect() of one {images_u8.shape[1]}x"
@@ -3739,42 +3261,23 @@ def device_split(fn):
     return by["CUDA"], by["CPU"]
 
 
-class SliceUpsample(torch.autograd.Function):
-    """upsample2x with its gradient taken by the kernel's plain version
-    (slice sums in float32, several elementwise passes) on the card: the
-    gradient the deterministic mode took before the kernel, timed beside
-    the kernel."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return layers._bilinear2x(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return upsample_cuda.upsample2x_bwd_plain(g)
-
-
 def time_deterministic(dev, smi):
     """The train step's cost of smoke_e2e's deterministic mode, and of its
-    parts: ms a step at batch 8 (smoke_e2e's) and 32 with the LFPN
-    upsample's gradient by ATen's atomic backward (the default before the
-    kernel); by default (the kernel, csrc/upsample2x_bwd.cu); by the slice
-    sums (the kernel's plain version, the gradient of the mode before the
-    kernel); the kernel with torch.backends.cudnn.deterministic on; under
-    deterministic(); and under it with PyTorch's fill of new tensors on (the
-    mode's default).  Each is timed twice, in the order given and then in
-    reverse.  At batch 32, the kernels and the aten ops whose device time the
-    mode adds over the default with cuDNN deterministic (torch.profiler, one
-    step each)."""
+    parts: ms a step at batch 8 (smoke_e2e's) and 32 by default (the LFPN
+    upsample's gradient by csrc/upsample2x_bwd.cu); with
+    torch.backends.cudnn.deterministic on; under deterministic(); and under
+    it with PyTorch's fill of new tensors on (the mode's default).  Each is
+    timed twice, in the order given and then in reverse.  At batch 32, the
+    kernels and the aten ops whose device time the mode adds over the
+    default with cuDNN deterministic (torch.profiler, one step each)."""
     @contextlib.contextmanager
-    def upsample(fn=None, cudnn_deterministic=False):
-        prev = lfpn.upsample2x, torch.backends.cudnn.deterministic
-        lfpn.upsample2x = fn or prev[0]
-        torch.backends.cudnn.deterministic = cudnn_deterministic
+    def cudnn_deterministic():
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
         try:
             yield
         finally:
-            lfpn.upsample2x, torch.backends.cudnn.deterministic = prev
+            torch.backends.cudnn.deterministic = prev
 
     @contextlib.contextmanager
     def with_fill():
@@ -3782,10 +3285,8 @@ def time_deterministic(dev, smi):
             torch.utils.deterministic.fill_uninitialized_memory = True
             yield
 
-    modes = {"ATen backward": functools.partial(upsample, layers._bilinear2x),
-             "default (kernel)": contextlib.nullcontext,
-             "slice gradient": functools.partial(upsample, SliceUpsample.apply),
-             "kernel + cudnn.deterministic": functools.partial(upsample, None, True),
+    modes = {"default (kernel)": contextlib.nullcontext,
+             "kernel + cudnn.deterministic": cudnn_deterministic,
              "deterministic()": smoke_e2e.deterministic, "with the fill": with_fill}
     out, split = {}, {}
     for batch in (8, TRAIN_BATCH):
@@ -4322,20 +3823,15 @@ def phase20b(dev, smi, tools, d, pt):
         tools[k] += c_trace[k] + c_def[k] + c_dbg[k]
 
 
-def phase20c(dev, smi, tools, d, bench_ms, train_ms):
-    """tools.profile detect at batch 128 and train at batch 32: the device
-    time an iteration beside phases 5 and 10; the hand-written kernels by
-    name in the tables."""
+def phase20c(dev, tools, d):
+    """tools.profile detect at batch 128 and train at batch 32: the
+    hand-written kernels by name in the tables."""
     rows = {}
-    for graph, batch, phase_ms, phase in (("detect", BATCH, bench_ms, "phase 5's bench step"),
-                                          ("train", TRAIN_BATCH, train_ms,
-                                           "phase 10's train step")):
-        (ips, dev_ms, table), c = counted(lambda: profile_tool.profile(
+    for graph, batch in (("detect", BATCH), ("train", TRAIN_BATCH)):
+        (_, _, table), c = counted(lambda: profile_tool.profile(
             graph, batch, 3, 12, os.path.join(d, f"profile_{graph}"), dev))
         rows[graph] = [r.name for r in table]
-        log(f"phase 20c: tools.profile {graph} at batch {batch}: {ips:.1f} img/s warm (host "
-            f"clock), device kernel time {dev_ms:.3f} ms an iteration (profiler) against "
-            f"{phase} {phase_ms:.3f} ms (CUDA events; {smi}); {len(table)} rows; launches {c}")
+        log(f"phase 20c: tools.profile {graph} at batch {batch}: {len(table)} rows; launches {c}")
         if graph == "detect":
             tools["K1"] += c["nms"]
         else:
@@ -4417,7 +3913,7 @@ def phase20f(dev, smi, tools, d):
     tools["K7"] += c["vote"]
 
 
-def phase20(cfg, dev, smi, d, bench_ms, train_ms):
+def phase20(cfg, dev, smi, d):
     """The tools, scripts and utils of the port (dan_tpu_torch/tools/,
     utils/, data/tfrecords.py) on the card; returns each kernel's launches
     in them, by kernels-line entry, and the fixture soak's model dir."""
@@ -4429,7 +3925,7 @@ def phase20(cfg, dev, smi, d, bench_ms, train_ms):
     pt = os.path.join(d, "dan.pt")
     phase20a(cfg, dev, tools, d, pt)
     phase20b(dev, smi, tools, d, pt)
-    phase20c(dev, smi, tools, d, bench_ms, train_ms)
+    phase20c(dev, tools, d)
     soak_dir = phase20de(dev, smi, tools, d)
     phase20f(dev, smi, tools, d)
     tools["K9"] = COUNTED["blocked"]
@@ -4775,8 +4271,10 @@ def phase21(dev, smi, d, soak_dir):
 # the bench entry points (tools/bench*.py, tools/entry.py): phase 22
 # ---------------------------------------------------------------------------
 
-BENCH_TOL = 0.05  # a bench module's img/s against the phase that times the same path
-BENCH_ITERS = 10  # timed steps of 22b and 22c
+# 22b and 22c: the smallest run bench_train and bench_int8 take.  They are
+# checked for their exit code, the line they print and their launches; the
+# benchmark's cells measure the paths they time.
+BENCH_ARGV = ["--batch", "1", "--iters", "1"]
 TTA_BENCH_ARGV = ["--images", "48", "--tta_batches", "4,16", "--vote_batches", "32,128"]
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
 NMS_LINE = (r"bench: greedy_nms_rank launches (\d+); rows of the last launch on the tile scan "
@@ -4785,16 +4283,12 @@ TRAIN_LINE = r"train batch=(\d+)/chip x (\d+) chip\(s\): ([\d.]+) img/s/chip \((
 INT8_LINE = r"bf16 ([\d.]+) -> int8 ([\d.]+) img/s/chip \(([\d.]+)x\)"
 
 
-def near(x, ref) -> bool:
-    return abs(x / ref - 1.0) <= BENCH_TOL
-
-
-def phase22a(smi, bench_img_s):
+def phase22a():
     """python -m dan_tpu_torch.tools.bench in a subprocess, as a shell runs
     it; then with no card visible.  Its NMS launches are read from the line
     it prints to stderr (nms_cuda.LAUNCHES over its measure(), and
     LAST_PATHS of the last launch: the 24 launches take the same images).
-    Returns (img/s, NMS launches at B = BATCH)."""
+    Returns the NMS launches at B = BATCH."""
     import re
 
     env = {k: v for k, v in os.environ.items()
@@ -4807,14 +4301,13 @@ def phase22a(smi, bench_img_s):
     lines = proc.stdout.strip().splitlines()
     log(f"phase 22a: python -m dan_tpu_torch.tools.bench (a subprocess, {secs:.1f} s, PyTorch's "
         f"TF32 defaults: the bf16 convolutions do not use TF32): rc {proc.returncode}, stdout "
-        f"{lines}; phase 5's bench step {bench_img_s:.1f} img/s (CUDA events) ({smi})")
+        f"{lines}")
     for line in proc.stderr.strip().splitlines()[-6:]:
         log(f"  {line}")
     head = json.loads(lines[0]) if len(lines) == 1 else {}
-    if proc.returncode != 0 or set(head) != BENCH_KEYS or (
-            head["metric"] != bench_tool.METRIC) or not near(head["value"], bench_img_s):
+    if proc.returncode != 0 or set(head) != BENCH_KEYS or head["metric"] != bench_tool.METRIC:
         raise AssertionError("phase 22a: the bench did not print one JSON line with the four "
-                             f"keys and a value within {BENCH_TOL:.0%} of phase 5's img/s")
+                             "keys")
     nms = re.search(NMS_LINE, proc.stderr)
     calls = 1 + bench_tool.WARMUP_ITERS + bench_tool.MEASURE_ITERS
     if nms is None or [int(g) for g in nms.groups()] != [calls, BATCH, BATCH]:
@@ -4830,51 +4323,44 @@ def phase22a(smi, bench_img_s):
     if proc.returncode != bench_tool.NO_CARD_EXIT or proc.stdout.strip():
         raise AssertionError("phase 22a: without a card the bench did not exit 5 or printed a "
                              "number")
-    return head["value"], calls
+    return calls
 
 
-def phase22b(smi, params, train_ms):
-    """bench_train --batch 32 --iters 10 in process, counted."""
+def phase22b(params):
+    """bench_train at BENCH_ARGV in process, counted."""
     import re
 
     from dan_tpu_torch.tools import bench_train
 
-    argv = ["--batch", str(TRAIN_BATCH), "--iters", str(BENCH_ITERS)]
-    (rc, out, err), c = counted(lambda: quiet(lambda: bench_train.main(argv, params=params)))
+    (rc, out, err), c = counted(lambda: quiet(lambda: bench_train.main(BENCH_ARGV,
+                                                                      params=params)))
     m = re.fullmatch(TRAIN_LINE, out.strip().splitlines()[-1])
-    steps = 1 + bench_train.WARMUP_STEPS + BENCH_ITERS
-    log(f"phase 22b: python -m dan_tpu_torch.tools.bench_train {' '.join(argv)}: rc {rc}, "
-        f"\"{out.strip()}\" ({err.strip().splitlines()[0]}); phase 10's train step "
-        f"{train_ms:.3f} ms (CUDA events; warm-up 50 and clip 10, where the bench takes the "
-        f"default config as the reference does) ({smi}); launches in {steps} steps "
+    steps = 1 + bench_train.WARMUP_STEPS + int(BENCH_ARGV[3])
+    log(f"phase 22b: python -m dan_tpu_torch.tools.bench_train {' '.join(BENCH_ARGV)}: rc {rc}, "
+        f"\"{out.strip()}\" ({err.strip().splitlines()[0]}); launches in {steps} steps "
         f"{ {k: c[k] for k in TRAIN_NAMES} }")
-    if rc != 0 or m is None or int(m.group(1)) != TRAIN_BATCH or not train_launches_ok(c, steps):
+    if rc != 0 or m is None or m.group(1) != BENCH_ARGV[1] or not train_launches_ok(c, steps):
         raise AssertionError("phase 22b: bench_train did not print the reference's line or did "
                              "not launch K3-K6 once and the upsample gradient three times a "
                              "step")
     return c
 
 
-def phase22c(smi, params, bench_img_s, int8_img_s):
-    """bench_int8 --iters 10 in process, counted: its two numbers beside
-    phases 5 and 17."""
+def phase22c(params):
+    """bench_int8 at BENCH_ARGV in process, counted."""
     import re
 
     from dan_tpu_torch.tools import bench_int8
 
-    argv = ["--iters", str(BENCH_ITERS)]
-    (rc, out, err), c = counted(lambda: quiet(lambda: bench_int8.main(argv, params=params)))
+    (rc, out, err), c = counted(lambda: quiet(lambda: bench_int8.main(BENCH_ARGV,
+                                                                     params=params)))
     m = re.fullmatch(INT8_LINE, out.strip().splitlines()[-1])
-    fwd = 1 + bench_tool.WARMUP_ITERS + BENCH_ITERS  # forwards of each measure()
-    log(f"phase 22c: python -m dan_tpu_torch.tools.bench_int8 {' '.join(argv)}: rc {rc}, "
-        f"\"{out.strip()}\"; phase 5's bf16 {bench_img_s:.1f} img/s, phase 17's int8 "
-        f"{int8_img_s:.1f} img/s (CUDA events) ({smi}); launches conv_i8 {c['conv_i8']}, "
+    fwd = 1 + bench_tool.WARMUP_ITERS + int(BENCH_ARGV[3])  # forwards of each measure()
+    log(f"phase 22c: python -m dan_tpu_torch.tools.bench_int8 {' '.join(BENCH_ARGV)}: rc {rc}, "
+        f"\"{out.strip()}\"; launches conv_i8 {c['conv_i8']}, "
         f"quantize_i8 {c['quantize_i8']}, NMS {c['nms']} in {fwd} int8 and {fwd} bf16 forwards")
     if rc != 0 or m is None:
         raise AssertionError("phase 22c: bench_int8 did not print the reference's line")
-    if not (near(float(m.group(1)), bench_img_s) and near(float(m.group(2)), int8_img_s)):
-        raise AssertionError(f"phase 22c: bench_int8's numbers are not within {BENCH_TOL:.0%} "
-                             "of phases 5 and 17")
     if (c["conv_i8"], c["quantize_i8"], c["nms"]) != (I8_PER_FORWARD * fwd, fwd, 2 * fwd):
         raise AssertionError(f"phase 22c: launches {dict(c)}, expected {I8_PER_FORWARD} conv_i8 "
                              "and 1 quantize_i8 an int8 forward, 1 NMS a step")
@@ -4967,7 +4453,7 @@ def launch_batches():
             COUNTERS[key]._launch = fn
 
 
-def phase22(cfg, dev, smi, bench_img_s, train_ms, int8_img_s):
+def phase22(cfg, dev, smi):
     """The bench entry points on the card; returns each kernel's launches in
     them, by kernels-line entry."""
     t0 = time.perf_counter()
@@ -4975,10 +4461,10 @@ def phase22(cfg, dev, smi, bench_img_s, train_ms, int8_img_s):
     params = init_reference_params(0, cfg.model)
     log(f"phase 22: the JAX package's PRNGKey(0) weights drawn on the host in "
         f"{time.perf_counter() - t0:.1f} s")
-    _, bench_nms = phase22a(smi, bench_img_s)
+    bench_nms = phase22a()
     with launch_batches() as seen:
-        train = phase22b(smi, params, train_ms)
-        i8 = phase22c(smi, params, bench_img_s, int8_img_s)
+        train = phase22b(params)
+        i8 = phase22c(params)
         tta = phase22d(smi, params)
         phase22e(cfg, dev, params)
     if COUNTED["blocked"]:
@@ -5029,8 +4515,8 @@ def phase23_nms(cfg, dev, smi):
     (8, 34125) rows of a random-init forward at pre_nms_topk 34,125, one of
     them alone, both sides of the shared-memory limit, one row shuffled
     (the argmax loop), a row with a NaN x1 and a NaN y2 sorted and shuffled,
-    and the JAX kernel's longest row; two runs bit-identical; times beside
-    plain; bounds from the replay.  -> (the Detector, results)."""
+    and the JAX kernel's longest row; two runs bit-identical; the kernel's
+    times and their bounds from the replay.  -> (the Detector, results)."""
     post = cfg.postprocess
     thr, max_out = post.nms_iou_threshold, post.max_detections
     k1_max = nms_cuda.build().nms_rank_shared_max_n()
@@ -5076,12 +4562,8 @@ def phase23_nms(cfg, dev, smi):
                                   what="the JAX kernel's longest row"))
 
     greedy = nms_cuda.greedy_nms_rank
-    plain = nms_cuda.greedy_nms_rank_plain
-    ms = {"K1": turns(lambda: greedy(boxes, scores, thr, max_out),
-                      lambda: plain(boxes, scores, thr, max_out), 5, 1),
-          "K2": turns(lambda: greedy(b1, s1, thr, max_out),
-                      lambda: plain(b1, s1, thr, max_out), 10, 1)}
-    argmax_ms = cuda_ms(lambda: greedy(bu, su, thr, max_out), 3)
+    ms = {"K1": cuda_ms(lambda: greedy(boxes, scores, thr, max_out), 10),
+          "K2": cuda_ms(lambda: greedy(b1, s1, thr, max_out), 20)}
     jax_row_ms = cuda_ms(lambda: greedy(bj, sj, thr, max_out), 5)
     kept = (rank >= 0).sum(dim=1)
     steps, pairs, _ = selection_work(boxes, scores, scores > 0.0, thr, max_out, False)
@@ -5092,17 +4574,14 @@ def phase23_nms(cfg, dev, smi):
     bounds = {"K1": bound(n_rows * n * 24, int(pairs.sum()) * pair_ops, PEAK_F32),
               "K2": bound(n * 24, int(pairs[0]) * pair_ops, PEAK_F32)}
     log(f"phase 23: NMS long-row path (tile scan from scratch) at ({n_rows}, {n}, {max_out}): "
-        f"{ms['K1']['kernel']:.4f} ms, plain {ms['K1']['plain']:.4f} ms, bound "
-        f"{bounds['K1'][0]:.5f} ms by {bounds['K1'][1]}; at (1, {n}): {ms['K2']['kernel']:.4f} "
-        f"ms, plain {ms['K2']['plain']:.4f} ms, bound {bounds['K2'][0]:.5f} ms; the argmax loop "
-        f"from scratch on the shuffled row {argmax_ms:.4f} ms; the tile scan at (1, "
+        f"{ms['K1']:.4f} ms, bound "
+        f"{bounds['K1'][0]:.5f} ms by {bounds['K1'][1]}; at (1, {n}): {ms['K2']:.4f} "
+        f"ms, bound {bounds['K2'][0]:.5f} ms; the tile scan at (1, "
         f"{JAX_NMS_ROW}) {jax_row_ms:.4f} ms; {int(kept.min())}..{int(kept.max())} kept, at most "
         f"{int(tiles.max())} tiles a row ({smi})")
-    res = {"err": err, "argmax_ms": argmax_ms, "jax_row_ms": jax_row_ms,
-           "shape": [n_rows, n, max_out]}
+    res = {"err": err, "jax_row_ms": jax_row_ms, "shape": [n_rows, n, max_out]}
     for k in ("K1", "K2"):
-        res[k] = {"ms": ms[k]["kernel"], "plain_ms": ms[k]["plain"], "bound_ms": bounds[k][0],
-                  "bound_by": bounds[k][1]}
+        res[k] = {"ms": ms[k], "bound_ms": bounds[k][0], "bound_by": bounds[k][1]}
     res["K1"]["tiles"], res["K2"]["tiles"] = int(tiles.max()), int(tiles[0])
     return det, res
 
@@ -5110,7 +4589,8 @@ def phase23_nms(cfg, dev, smi):
 def phase23_vote(cfg, dev, smi):
     """K7 / K8's long-row path against the plain version on seeded edge rows:
     both sides of the shared-memory limit, 4 rows of 8,000 and 4 of 29,440
-    (K7), one of 8,000 (K8); times beside plain; bounds from the replay."""
+    (K7), one of 8,000 (K8); the kernel's times and their bounds from the
+    replay."""
     thr, max_out = cfg.postprocess.vote_iou_threshold, cfg.postprocess.max_detections
     vmax = bbox_vote_cuda.build().bbox_vote_shared_max_rows()
     rng = np.random.default_rng(SEED + 230)
@@ -5141,8 +4621,7 @@ def phase23_vote(cfg, dev, smi):
         for name, args in cases:
             err = max(err, compare_vote(*args, thr, max_out, f"long rows ({name})"))
             path_is(bbox_vote_cuda.LONG_ROW, f"{tuple(args[1].shape)}")
-            t = turns(lambda: bbox_vote_cuda.bbox_vote_batched_cuda(*args, thr, max_out),
-                      lambda: bbox_vote_batched(*args, thr, max_out), 5, 1)
+            t = cuda_ms(lambda: bbox_vote_cuda.bbox_vote_batched_cuda(*args, thr, max_out), 10)
             out = bbox_vote_cuda.bbox_vote_batched_cuda(*args, thr, max_out)
             tiles = bbox_vote_cuda.LAST_TILES.cpu()
             steps, pairs, merged = selection_work(args[0], args[1], args[2] & (args[1] > 0.0),
@@ -5153,13 +4632,13 @@ def phase23_vote(cfg, dev, smi):
             ops = int((pairs * pair_ops + merged * MERGE_OPS).sum())
             bd = bound(rows * 21 * (r + max_out), ops, PEAK_F32)
             log(f"phase 23: vote long-row path ({name}) at ({rows}, {r}, {max_out}): "
-                f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, bound {bd[0]:.5f} ms by "
+                f"{t:.4f} ms, bound {bd[0]:.5f} ms by "
                 f"{bd[1]} ({int(pairs.sum())} IoU pairs, {int(merged.sum())} merges); tiles a "
                 f"row {int(tiles.min())}..{int(tiles.max())}, outputs "
                 f"{int(steps.min())}..{int(steps.max())} ({smi})")
             res.setdefault(name, []).append(
-                {"shape": [rows, r, max_out], "ms": t["kernel"], "plain_ms": t["plain"],
-                 "bound_ms": bd[0], "bound_by": bd[1], "tiles": int(tiles.max())})
+                {"shape": [rows, r, max_out], "ms": t, "bound_ms": bd[0], "bound_by": bd[1],
+                 "tiles": int(tiles.max())})
     res["err"] = err
     return res
 
@@ -5187,7 +4666,7 @@ def long_gt_batch(size, rng):
 def phase23_matcher(cfg, dev, smi):
     """The matcher at G = 1,024 (several chunks of gts) against the plain
     version on long_gt_batch, and at G = 512 / 513 either side of one
-    chunk; two runs bit-identical; the call beside plain; bounds."""
+    chunk; two runs bit-identical; the call's time and its bounds."""
     size = cfg.preprocess.train_image_size
     anchors = generate_anchors(cfg.anchors, size, size, dev)
     mcfg = dataclasses.replace(cfg.match, max_gt=LONG_GT)
@@ -5206,8 +4685,7 @@ def phase23_matcher(cfg, dev, smi):
         if matching_cuda.LAST_PATH != code:
             raise AssertionError(f"phase 23: the matcher at G = {g_n} took path "
                                  f"{matching_cuda.LAST_PATH}")
-    t = turns(lambda: matching_cuda.match_anchors_cuda(*margs), lambda: match_anchors(*margs),
-              10, 2)
+    t = cuda_ms(lambda: matching_cuda.match_anchors_cuda(*margs), 20)
     # Bounds as phase 11 counts them, pass by pass.
     bsz, n_anchor = boxes.shape[0], anchors.shape[0]
     pair_ops = 14 * n_anchor * int(mask.sum())
@@ -5217,11 +4695,10 @@ def phase23_matcher(cfg, dev, smi):
         "matcher pass 2": bound(nbytes(anchors, boxes, mask) + 16 * mask.numel()
                                 + bsz * n_anchor * 24, pair_ops, PEAK_F32)}
     log(f"phase 23: matcher call at B={bsz} A={n_anchor} G={LONG_GT} ({int(mask.sum())} valid "
-        f"gts, {-(-LONG_GT // chunk)} chunks of {chunk}): {t['kernel']:.4f} ms, plain "
-        f"{t['plain']:.4f} ms; bounds " + ", ".join(
+        f"gts, {-(-LONG_GT // chunk)} chunks of {chunk}): {t:.4f} ms; bounds " + ", ".join(
             f"{k} {v[0]:.5f} ms by {v[1]}" for k, v in bounds.items()) + f" ({smi})")
-    return {"shape": [bsz, n_anchor, LONG_GT], "ms": t["kernel"], "plain_ms": t["plain"],
-            "bounds": bounds, "valid_gts": int(mask.sum())}
+    return {"shape": [bsz, n_anchor, LONG_GT], "ms": t, "bounds": bounds,
+            "valid_gts": int(mask.sum())}
 
 
 def phase23_detect(det, cfg, smi):
@@ -5262,7 +4739,7 @@ def phase23_tta(cfg, dev, smi):
     post = tcfg.postprocess
     det = Detector.from_random(SEED, tcfg, dev)
     runner = det._tta_runner = RecordingRunner(det.model, tcfg, device=dev)
-    items = tta_images(LONG_TTA_IMAGES)
+    items = profile_tool.tta_images(LONG_TTA_IMAGES)
     keyed = [(k, im) for k, im, _ in items]
     want_stats, _ = expected_stats(items, runner, 16, 128)
     vmax = bbox_vote_cuda.build().bbox_vote_shared_max_rows()
@@ -5475,9 +4952,9 @@ def bias_act_edge_cases(dev):
 
 
 def time_bias_act(calls):
-    """Each call's shape timed alone (CUDA events): the kernel, ATen's
-    add + clamp and the plain version, summed; and the bound."""
-    out = {"ms": 0.0, "aten_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    """Each call's shape timed alone (CUDA events): the kernel and ATen's
+    add + clamp, summed; and the bound."""
+    out = {"ms": 0.0, "aten_ms": 0.0, "bound_ms": 0.0}
     gen = torch.Generator(device=calls[0][2].device).manual_seed(SEED)
     for shape, dtype, bias, relu in calls:
         buf = torch.empty(shape, dtype=dtype, device=bias.device,
@@ -5485,8 +4962,7 @@ def time_bias_act(calls):
                           else torch.contiguous_format)
         buf.normal_(generator=gen)
         fns = {"ms": (lambda: bias_act_cuda.bias_act(buf, bias, relu), 5),
-               "aten_ms": (lambda: aten_bias_act(buf, bias, relu), 3),
-               "plain_ms": (lambda: bias_act_cuda.bias_act_plain(buf, bias, relu), 3)}
+               "aten_ms": (lambda: aten_bias_act(buf, bias, relu), 3)}
         for key, (fn, iters) in fns.items():
             fn()
             torch.cuda.synchronize()
@@ -5550,8 +5026,7 @@ def phase24_retinaface(dev, smi):
     """RetinaFace-R50's forward at batch 128, 840x840: its launches of the
     two passes counted; the residual pass at each of the 16 bottleneck
     shapes bit for bit against ATen and the plain version, then timed beside
-    ATen's three passes, the plain version and the bound (3 accesses a
-    value)."""
+    ATen's three passes and the bound (3 accesses a value)."""
     rcfg = RetinaFaceConfig()
     det = Detector.from_random(SEED, rcfg, dev)
     seeded_biases(det.model, SEED + 25)
@@ -5573,7 +5048,7 @@ def phase24_retinaface(dev, smi):
         raise AssertionError(f"phase 24: a RetinaFace forward launched {counts}, expected "
                              f"{RETINAFACE_PASSES}")
     gen = torch.Generator(device=dev).manual_seed(SEED + 26)
-    t = {"ms": 0.0, "aten_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    t = {"ms": 0.0, "aten_ms": 0.0, "bound_ms": 0.0}
     shapes = resnet.bottleneck_shapes(rcfg.model, RETINAFACE_SIZE)
     for c, h, w in shapes:
         y, r = (torch.empty((BATCH, c, h, w), dtype=torch.bfloat16, device=dev,
@@ -5583,8 +5058,7 @@ def phase24_retinaface(dev, smi):
         bias[:3] = torch.tensor(BIAS_ACT_BIASES, device=dev)
         residual_case(y, r, bias, f"{(BATCH, c, h, w)}")
         fns = {"ms": (lambda: bias_act_cuda.bias_residual_relu(y, bias, r), 5),
-               "aten_ms": (lambda: aten_residual(y, bias, r), 3),
-               "plain_ms": (lambda: bias_act_cuda.bias_residual_relu_plain(y, bias, r), 3)}
+               "aten_ms": (lambda: aten_residual(y, bias, r), 3)}
         for key, (fn, iters) in fns.items():
             fn()
             torch.cuda.synchronize()
@@ -5596,7 +5070,7 @@ def phase24_retinaface(dev, smi):
         f"{counts} launches; the residual pass at its {len(shapes)} bottleneck shapes bit for bit "
         f"equal to ATen's add, add and clamp and the plain version (NaN, -0, +0, +-inf, bf16 "
         f"ties in the first and last pixel of y and r); summed (CUDA events): kernel "
-        f"{t['ms']:.4f} ms, ATen {t['aten_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+        f"{t['ms']:.4f} ms, ATen {t['aten_ms']:.4f} ms, bound "
         f"{t['bound_ms']:.4f} ms (3 accesses a value); bound/kernel "
         f"{t['bound_ms'] / t['ms']:.1%}; {smi}")
     return {"launches": dict(counts, l2norm=l2norm), **t}
@@ -5790,8 +5264,8 @@ def l2norm_off_paths(det, dev):
 def phase24(cfg, dev, smi):
     """The bias + ReLU pass: each call of a bf16 and an int8 forward at
     batch 128 checked bit for bit, its launches counted a forward, its time
-    beside ATen's two passes, the plain version and the bound; then its
-    residual variant (phase24_retinaface)."""
+    beside ATen's two passes and the bound; then its residual variant
+    (phase24_retinaface) and the one-pass L2Norm."""
     t0 = time.perf_counter()
     log(f"phase 24: bias_act == ATen's add-then-clamp bit for bit in "
         f"{bias_act_edge_cases(dev)} edge cases")
@@ -5840,8 +5314,8 @@ def phase24(cfg, dev, smi):
         for k, v in t.items():
             res.setdefault(k, {})[which] = v
         log(f"phase 24: {which}, summed over a forward's {len(calls[which])} shapes (CUDA "
-            f"events): kernel {t['ms']:.4f} ms, ATen add + clamp {t['aten_ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes: each value read and "
+            f"events): kernel {t['ms']:.4f} ms, ATen add + clamp {t['aten_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms (bytes: each value read and "
             f"written once); bound/kernel {t['bound_ms'] / t['ms']:.1%}; {smi}")
     log(f"phase 24: the residual pass == ATen's add, add and clamp bit for bit in "
         f"{residual_edge_cases(dev)} edge cases")

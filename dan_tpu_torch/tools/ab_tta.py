@@ -6,11 +6,11 @@ same call.
     python3 dan_tpu_torch/tools/ab_tta.py DIR_A DIR_B [--images 160] [--reps 3]
 
 Each turn is a fresh process started in its checkout (which builds that
-checkout's kernels and imports its `dan_tpu_torch` and `chip_smoke.py`):
-random-init weights (seed 0) at the default config, `warmup_tta` for the
-images' sizes, then `detect_tta` on one image of each size `--reps` times
-(host clock a call) and `detect_tta_dataset` over all `--images` images
-twice (host clock, synchronised), on `chip_smoke.tta_images`.  The last line
+checkout's kernels and imports its `dan_tpu_torch`): random-init weights
+(seed 0) at the default config, `warmup_tta` for the images' sizes, then
+`detect_tta` on one image of each size `--reps` times (host clock a call)
+and `detect_tta_dataset` over all `--images` images twice (host clock,
+synchronised), on `tools/profile.py::tta_images`.  The last line
 is one JSON object with every turn's readings and the card's name and power
 limit.
 """
@@ -27,13 +27,13 @@ def child(n_images: int, reps: int) -> None:
     import numpy as np
     import torch
 
-    from chip_smoke import SEED, TTA_SIZES, tta_images
     from dan_tpu_torch.api import Detector
     from dan_tpu_torch.config import default_config
+    from dan_tpu_torch.tools.profile import TTA_SIZES, tta_images
 
     dev = torch.device("cuda", 0)
     cfg = default_config()
-    det = Detector.from_random(SEED, cfg, dev)
+    det = Detector.from_random(0, cfg, dev)
     keyed = [(k, im) for k, im, _ in tta_images(n_images)]
     det.warmup_tta([im.shape[:2] for _, im in keyed])
     singles = keyed[:len(TTA_SIZES)]

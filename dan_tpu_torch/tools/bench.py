@@ -31,7 +31,9 @@ DAN_BENCH_DEADLINE_S (default 1500 s, 7200 s on the opt-in CPU paths): past
 it the bench exits 4 with a message.
 
 build_detect_fn and measure are the one definition of the bench path in
-the port: tools/profile.py, bench_int8 and chip_smoke.py use them.
+the port: tools/profile.py and bench_int8 use them, and the benchmark's
+detect drivers and chip_smoke.py's check of the bench path use
+build_detect_fn.
 """
 from __future__ import annotations
 
