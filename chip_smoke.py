@@ -65,10 +65,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      bench_tta_dataset's rows;
  23. the long-row paths of K1/K2, K7/K8 and the matcher == plain, through
      detect, TTA and two train steps; their times and bounds;
- 24. the bias + ReLU pass, its residual variant and the one-pass L2Norm ==
-     ATen's on every call of a bf16, int8 and RetinaFace forward and their
-     edge cases, launches counted; each timed beside ATen's passes and its
-     bound.
+ 24. the bias + ReLU pass, its residual variant, the one-pass L2Norm and
+     the LFPN's one-pass upsample x lateral == ATen's on every call of a
+     bf16, int8 and RetinaFace forward and their edge cases, launches
+     counted; each timed beside ATen's passes and its bound.
 
 The line before the last is a JSON object describing each kernel (its
 time, bound, library time and launches on each path); the last line is
@@ -125,6 +125,7 @@ from dan_tpu_torch.ops import (
     bias_act_cuda,
     conv12_wgrad_cuda,
     l2norm_cuda,
+    lfpn_fuse_cuda,
     conv_i8_cuda,
     matching_cuda,
     quantize_i8_cuda,
@@ -229,6 +230,17 @@ L2NORM_SOURCE = "l2norm"
 L2NORM_PER_FORWARD = 3
 L2NORM_EPS = 1e-12
 L2NORM_ULPS = {torch.bfloat16: 1, torch.float32: 16}
+# Phase 24 (LFPN fuse): launches of the LFPN's one-pass upsample x lateral
+# a DAN forward (its three blocks; none in a recorded forward, a TTA launch
+# or a RetinaFace forward).  Its bits are ATen's upsample-then-product: in
+# bf16 at every width, in float32 from LFPN_FUSE_NHWC_C channels, where
+# ATen takes its channels-last kernel; below, ATen's NCHW kernel contracts
+# its FMAs in another order, and float32 there is held to LFPN_FUSE_F32_RTOL
+# of the largest value.
+LFPN_FUSE_SOURCE = "lfpn_fuse"
+LFPN_FUSE_PER_FORWARD = 3
+LFPN_FUSE_NHWC_C = 16
+LFPN_FUSE_F32_RTOL = 1e-6
 RETINAFACE_SIZE = 840
 BIAS_ACT_SPECIALS = (float("nan"), -0.0, 0.0, float("inf"), -float("inf"), 1.0, 1.0078125, -1.0)
 BIAS_ACT_BIASES = (2.0 ** -8, -0.0, 0.0)
@@ -579,7 +591,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda_build.build_all(["nms"] + [src for _, src, _ in TRAIN_KERNELS.values()]
                           + list(TTA_SOURCES) + [INT8_SOURCE, QUANT_SOURCE, BIAS_ACT_SOURCE,
-                                                            L2NORM_SOURCE])
+                                                            L2NORM_SOURCE, LFPN_FUSE_SOURCE])
     secs = _cuda_build.BUILDS["nms"].seconds
     log(f"phase 2: built all CUDA sources in {time.perf_counter() - t0:.3f} s; "
         f"{KERNEL_SOURCE} " + (f"in {secs:.3f} s" if secs is not None else "was already built"))
@@ -792,7 +804,7 @@ def main() -> int:
          "ms_covers": "each of a forward's calls at batch 128, 640x640, timed alone at its "
                       "shape and summed (bf16 and int8 forwards); library_ms is ATen's "
                       "in-place add and F.relu on the same tensors"})
-    nl = ba["l2norm"]
+    nl, lf = ba["l2norm"], ba["lfpn_fuse"]
     kernels.append(
         {"name": "l2norm", "route": "cuda", "source": f"dan_tpu_torch/csrc/{L2NORM_SOURCE}.cu",
          "replaces": "no TPU kernel: ATen's six passes of L2Norm on the three shallow taps "
@@ -805,6 +817,18 @@ def main() -> int:
          "ms_covers": "the three taps of a bf16 forward at batch 128, 640x640, each timed "
                       "alone and summed; library_ms is ATen's expression (the kernel's plain "
                       "version) on the same tensors"})
+    kernels.append(
+        {"name": "lfpn_fuse", "route": "cuda",
+         "source": f"dan_tpu_torch/csrc/{LFPN_FUSE_SOURCE}.cu",
+         "replaces": "no TPU kernel: ATen's upsample_bilinear2d_nhwc and product of the LFPN's "
+                     "three blocks (XLA fuses the resize and the product on the TPU)",
+         "launches_per_forward": ba["lfpn_fuse_launches"], "max_ulps": 0,
+         "ms": lf["ms"], "library_ms": lf["aten_ms"], "bound_ms": lf["bound_ms"],
+         "bound_by": "bytes",
+         "ms_covers": "the three LFPN blocks of a bf16 forward at batch 128, 640x640, each timed "
+                      "alone in turns with ATen's upsample-then-product (library_ms) and summed; "
+                      "bound_ms counts the top-down maps read once, the lateral maps read once "
+                      "and the fused maps written once"})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5036,12 +5060,14 @@ def phase24_retinaface(dev, smi):
     with torch.inference_mode():
         det.model(x)
         torch.cuda.synchronize()
-        before = bias_act_cuda.LAUNCHES, bias_act_cuda.RESIDUAL_LAUNCHES, l2norm_cuda.LAUNCHES
+        before = (bias_act_cuda.LAUNCHES, bias_act_cuda.RESIDUAL_LAUNCHES, l2norm_cuda.LAUNCHES,
+                  lfpn_fuse_cuda.LAUNCHES)
         det.model(x)
         torch.cuda.synchronize()
         counts = {"bias_act": bias_act_cuda.LAUNCHES - before[0],
                   "residual": bias_act_cuda.RESIDUAL_LAUNCHES - before[1]}
-        l2norm = l2norm_cuda.LAUNCHES - before[2]
+        off = {"l2norm": l2norm_cuda.LAUNCHES - before[2],
+               "lfpn_fuse": lfpn_fuse_cuda.LAUNCHES - before[3]}
     del det, x
     torch.cuda.empty_cache()
     if counts != RETINAFACE_PASSES:
@@ -5073,7 +5099,7 @@ def phase24_retinaface(dev, smi):
         f"{t['ms']:.4f} ms, ATen {t['aten_ms']:.4f} ms, bound "
         f"{t['bound_ms']:.4f} ms (3 accesses a value); bound/kernel "
         f"{t['bound_ms'] / t['ms']:.1%}; {smi}")
-    return {"launches": dict(counts, l2norm=l2norm), **t}
+    return {"launches": dict(counts, **off), **t}
 
 
 def ulps_apart(a, b):
@@ -5242,23 +5268,169 @@ def l2norm_taps(cfg, dev, smi):
     return res
 
 
-def l2norm_off_paths(det, dev):
-    """L2Norm's launches where the kernel must not run: a recorded forward
-    and backward at batch 2 (the train step's), a detect_tta of one image
-    (the TTA runner's NCHW canvases).  -> {path: launches}."""
-    out = {}
-    before = l2norm_cuda.LAUNCHES
-    x = torch.randn((2, 128, 128, 3), device=dev) * 50
-    cls, loc = det.model(x)
-    (cls.float().sum() + loc.float().sum()).backward()
-    det.model.zero_grad(set_to_none=True)
-    torch.cuda.synchronize()
-    out["train"] = l2norm_cuda.LAUNCHES - before
-    before = l2norm_cuda.LAUNCHES
-    det.detect_tta(np.random.default_rng(SEED).integers(0, 255, (300, 400, 3), dtype=np.uint8))
-    torch.cuda.synchronize()
-    out["tta"] = l2norm_cuda.LAUNCHES - before
+def off_path_launches(det, dev):
+    """Launches of the one-pass L2Norm and of the LFPN's fused upsample
+    where neither may run: a recorded forward and backward at batch 2 (the
+    train step's), a detect_tta of one image (the TTA runner's NCHW
+    canvases).  -> {kernel: {path: launches}}."""
+    counters = {"l2norm": l2norm_cuda, "lfpn_fuse": lfpn_fuse_cuda}
+    out = {name: {} for name in counters}
+
+    def counted_path(path, fn):
+        before = {name: mod.LAUNCHES for name, mod in counters.items()}
+        fn()
+        torch.cuda.synchronize()
+        for name, mod in counters.items():
+            out[name][path] = mod.LAUNCHES - before[name]
+
+    def train():
+        cls, loc = det.model(torch.randn((2, 128, 128, 3), device=dev) * 50)
+        (cls.float().sum() + loc.float().sum()).backward()
+        det.model.zero_grad(set_to_none=True)
+
+    counted_path("train", train)
+    counted_path("tta", lambda: det.detect_tta(np.random.default_rng(SEED).integers(
+        0, 255, (300, 400, 3), dtype=np.uint8)))
     return out
+
+
+def lfpn_fuse_twice(td, lat, op, what):
+    """Two launches of the kernel: bit for bit the same, lat's dtype and
+    layout; -> the output."""
+    got = lfpn_fuse_cuda.lfpn_fuse(td, lat, op)
+    if (got.dtype != lat.dtype or got.shape != lat.shape
+            or not got.is_contiguous(memory_format=torch.channels_last)):
+        raise AssertionError(f"phase 24: lfpn_fuse gave {got.dtype} {tuple(got.shape)} "
+                             f"{got.stride()} for {what}")
+    if not same_bits(got, lfpn_fuse_cuda.lfpn_fuse(td, lat, op)):
+        raise AssertionError(f"phase 24: lfpn_fuse differs from launch to launch at {what}")
+    return got
+
+
+def lfpn_fuse_check(got, want, what):
+    """The kernel's output against ATen's upsample-then-op: bit for bit in
+    bf16 and in float32 from LFPN_FUSE_NHWC_C channels; below, in float32,
+    NaN and infinities where ATen's are and the rest within
+    LFPN_FUSE_F32_RTOL of the largest value.  -> (differing values, ulps of
+    the largest difference)."""
+    u = ulps_apart(got, want)
+    differ, worst = int((u != 0).sum()), int(u.max())
+    if got.dtype == torch.bfloat16 or got.shape[1] >= LFPN_FUSE_NHWC_C:
+        if not same_bits(got, want):
+            raise AssertionError(f"phase 24: lfpn_fuse != ATen's upsample-then-op at {what}: "
+                                 f"{differ} values differ, by up to {worst} ulps")
+        return 0, 0
+    finite = want.isfinite()
+    inf_got, inf_want = (torch.where(t.isinf(), t, 0) for t in (got, want))
+    diff, mag = (got - want).abs()[finite], want.abs()[finite]
+    if (not torch.equal(got.isnan(), want.isnan()) or not torch.equal(inf_got, inf_want)
+            or (diff.numel() and float(diff.max()) > LFPN_FUSE_F32_RTOL * float(mag.max()))):
+        raise AssertionError(f"phase 24: lfpn_fuse is off ATen's NCHW upsample at {what}")
+    return differ, worst
+
+
+def lfpn_fuse_pair(shape, dtype, gen, dev, specials=False, offset=False):
+    """A channels-last topdown (b, c, h, w) and lateral (b, c, H, W) of
+    normal values times 3; with `specials`, NaN, +-inf and -0 at topdown's
+    corners, edges and their neighbours and in lateral; with `offset`, both
+    one value off 16 bytes (the kernel's one-value path)."""
+    b, c, h, w, big_h, big_w = shape
+    td = torch.randn((b, h, w, c), generator=gen, device=dev) * 3
+    lat = torch.randn((b, big_h, big_w, c), generator=gen, device=dev) * 3
+    if specials:
+        td[0, 0, 0, 0] = float("nan")
+        td[0, h - 1, w - 1, c - 1] = float("inf")
+        td[-1, h // 2, 0, c // 2] = -float("inf")
+        td[-1, 0, w // 2, 1 % c] = -0.0
+        td[-1, h - 1, w // 2, 0] = float("nan")
+        td[0, min(1, h - 1), min(1, w - 1), c - 1] = -float("inf")
+        lat[0, big_h - 1, 0, 0] = float("inf")
+        lat[-1, 0, big_w - 1, c - 1] = -0.0
+        lat[-1, big_h // 2, big_w // 2, 0] = 0.0
+
+    def placed(v):
+        if not offset:
+            return v.to(dtype).permute(0, 3, 1, 2)
+        buf = torch.empty(v.numel() + 1, dtype=dtype, device=dev)
+        buf[1:].copy_(v.reshape(-1))
+        return buf[1:].view(v.shape).permute(0, 3, 1, 2)
+
+    return placed(td), placed(lat)
+
+
+def lfpn_fuse_edge_cases(dev):
+    """The kernel against ATen's upsample-then-op off the forward's shapes,
+    in bf16 and float32, under both ops: widths 1 and 6 (the one-value
+    path), 8 (one pack), 16, 24, 256, 512, 1,000 and 1,024; even sizes and
+    odd ones (the crop) in either direction, a 1 x 1 source; NaN, +-inf and
+    -0 at the corners, the edges and beside them; a fresh tensor and one a
+    value off 16 bytes.  -> (cases, float32 values below LFPN_FUSE_NHWC_C
+    channels that differ, their largest distance in ulps)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 327)
+    sizes = ((5, 4, 10, 8), (5, 4, 9, 7), (3, 6, 5, 12), (1, 1, 2, 1), (2, 3, 4, 6))
+    n, differ, worst = 0, 0, 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for op in lfpn_fuse_cuda.OPS:
+            for c in (1, 6, 8, 16, 24, 256, 512, 1000, 1024):
+                for h, w, big_h, big_w in sizes:
+                    for specials, offset in ((False, False), (True, False), (True, True)):
+                        shape = (3, c, h, w, big_h, big_w)
+                        td, lat = lfpn_fuse_pair(shape, dtype, gen, dev, specials, offset)
+                        what = (f"{shape} {dtype} {op} specials={specials} offset={offset}")
+                        got = lfpn_fuse_twice(td, lat, op, what)
+                        d, u = lfpn_fuse_check(got, lfpn_fuse_cuda.lfpn_fuse_plain(td, lat, op),
+                                               what)
+                        differ, worst, n = differ + d, max(worst, u), n + 1
+    return n, differ, worst
+
+
+def lfpn_fuse_shapes(cfg):
+    """(C, h, w, H, W) of the LFPN's three blocks at the configuration's
+    size, top-down: fc7 -> conv5_3, conv5_3 -> conv4_3, conv4_3 -> conv3_3."""
+    size = cfg.model.image_size
+    widths = dict(zip(("conv3_3", "conv4_3", "conv5_3"), cfg.model.lfpn_channels))
+    out = []
+    for lo, stride in (("conv5_3", 16), ("conv4_3", 8), ("conv3_3", 4)):
+        big = -(-size // stride)
+        small = -(-big // 2)
+        out.append((widths[lo], small, small, big, big))
+    return out
+
+
+def lfpn_fuse_blocks(cfg, dev, smi):
+    """The kernel at the LFPN's three shapes at batch 128: in bf16 under
+    both ops and in float32 under the product, bit for bit against ATen's
+    upsample-then-op, two launches bit for bit; then in bf16 under the
+    product each shape timed in turns with ATen's two passes (CUDA events),
+    beside the bound (top-down values read once, lateral values read once,
+    fused values written once).  -> the readings."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 328)
+    res = {"ms": 0.0, "aten_ms": 0.0, "bound_ms": 0.0, "shapes": lfpn_fuse_shapes(cfg)}
+    for c, h, w, big_h, big_w in res["shapes"]:
+        for dtype, ops in ((torch.bfloat16, lfpn_fuse_cuda.OPS), (torch.float32, ("product",))):
+            td, lat = lfpn_fuse_pair((BATCH, c, h, w, big_h, big_w), dtype, gen, dev)
+            td = td.contiguous(memory_format=torch.channels_last)
+            lat = lat.contiguous(memory_format=torch.channels_last)
+            for op in ops:
+                what = f"{(BATCH, c, big_h, big_w)} {dtype} {op}"
+                got = lfpn_fuse_twice(td, lat, op, what)
+                lfpn_fuse_check(got, lfpn_fuse_cuda.lfpn_fuse_plain(td, lat, op), what)
+                del got
+            if dtype == torch.bfloat16:
+                t = turns(lambda: lfpn_fuse_cuda.lfpn_fuse(td, lat, "product"),
+                          lambda: lfpn_fuse_cuda.lfpn_fuse_plain(td, lat, "product"),
+                          kernel_iters=10, library_iters=3)
+                res["ms"] += t["kernel"]
+                res["aten_ms"] += t["library"]
+                res["bound_ms"] += (nbytes(td) + 2 * nbytes(lat)) / PEAK_BYTES * 1e3
+            del td, lat
+            torch.cuda.empty_cache()
+    log(f"phase 24: lfpn_fuse at the LFPN's blocks {res['shapes']} x batch {BATCH}: bit for bit "
+        f"equal to ATen's upsample-then-op (bf16 product and sum, float32 product), two "
+        f"launches bit for bit; bf16 product, summed, in turns (CUDA events): kernel "
+        f"{res['ms']:.4f} ms, ATen's two passes {res['aten_ms']:.4f} ms, bound "
+        f"{res['bound_ms']:.4f} ms (bytes); bound/kernel {res['bound_ms'] / res['ms']:.1%}; {smi}")
+    return res
 
 
 def phase24(cfg, dev, smi):
@@ -5275,7 +5447,7 @@ def phase24(cfg, dev, smi):
     images = torch.from_numpy(rng.integers(0, 255, (BATCH, cfg.model.image_size,
                                                     cfg.model.image_size, 3),
                                            dtype=np.uint8)).to(dev)
-    res = {"launches": {}, "l2norm_launches": {}}
+    res = {"launches": {}, "l2norm_launches": {}, "lfpn_fuse_launches": {}}
     calls = {}
     with torch.inference_mode():
         x = normalize_image(images.float(), cfg.preprocess).to(compute_dtype(cfg.model))
@@ -5287,7 +5459,7 @@ def phase24(cfg, dev, smi):
             with checked_bias_act([]) as calls[which]:
                 model(x)
             torch.cuda.synchronize()
-            before = bias_act_cuda.LAUNCHES, l2norm_cuda.LAUNCHES
+            before = bias_act_cuda.LAUNCHES, l2norm_cuda.LAUNCHES, lfpn_fuse_cuda.LAUNCHES
             model(x)
             torch.cuda.synchronize()
             n = bias_act_cuda.LAUNCHES - before[0]
@@ -5299,14 +5471,19 @@ def phase24(cfg, dev, smi):
             if n_norm != L2NORM_PER_FORWARD:
                 raise AssertionError(f"phase 24: {which} forward launched l2norm {n_norm} times, "
                                      f"expected {L2NORM_PER_FORWARD}")
+            n_fuse = lfpn_fuse_cuda.LAUNCHES - before[2]
+            if n_fuse != LFPN_FUSE_PER_FORWARD:
+                raise AssertionError(f"phase 24: {which} forward launched lfpn_fuse {n_fuse} "
+                                     f"times, expected {LFPN_FUSE_PER_FORWARD}")
             res["launches"][which] = n
             res["l2norm_launches"][which] = n_norm
+            res["lfpn_fuse_launches"][which] = n_fuse
             relus = sum(r for *_, r in calls[which])
             log(f"phase 24: {which} forward at batch {BATCH}: {n} calls of the pass ({relus} "
                 f"with ReLU), each bit for bit equal to ATen's add-then-clamp and the plain "
                 f"version with NaN, -0, +0, +-inf and bf16 ties in its first and last pixel")
         del models, x
-    off = l2norm_off_paths(det, dev)
+    off = off_path_launches(det, dev)
     del det
     torch.cuda.empty_cache()
     for which in ("bf16", "int8"):
@@ -5320,13 +5497,22 @@ def phase24(cfg, dev, smi):
     log(f"phase 24: the residual pass == ATen's add, add and clamp bit for bit in "
         f"{residual_edge_cases(dev)} edge cases")
     res["retinaface"] = phase24_retinaface(dev, smi)
-    off["retinaface"] = res["retinaface"]["launches"].pop("l2norm")
-    if any(off.values()):
-        raise AssertionError(f"phase 24: l2norm launched off the inference path: {off}")
+    for name in off:
+        off[name]["retinaface"] = res["retinaface"]["launches"].pop(name)
+    if any(n for paths in off.values() for n in paths.values()):
+        raise AssertionError(f"phase 24: l2norm or lfpn_fuse launched off the inference path: "
+                             f"{off}")
     log(f"phase 24: l2norm launched {L2NORM_PER_FORWARD} times a bf16 and an int8 forward, "
-        f"{off} in a recorded forward and backward, a detect_tta and a RetinaFace forward; "
-        f"== ATen's expression in {l2norm_edge_cases(dev)} edge cases")
+        f"{off['l2norm']} in a recorded forward and backward, a detect_tta and a RetinaFace "
+        f"forward; == ATen's expression in {l2norm_edge_cases(dev)} edge cases")
     res["l2norm"] = l2norm_taps(cfg, dev, smi)
+    n, differ, worst = lfpn_fuse_edge_cases(dev)
+    log(f"phase 24: lfpn_fuse launched {LFPN_FUSE_PER_FORWARD} times a bf16 and an int8 forward, "
+        f"{off['lfpn_fuse']} in a recorded forward and backward, a detect_tta and a RetinaFace "
+        f"forward; == ATen's upsample-then-op bit for bit in {n} edge cases, but for float32 "
+        f"below {LFPN_FUSE_NHWC_C} channels (ATen's NCHW kernel): {differ} values differ there, "
+        f"by up to {worst} ulps")
+    res["lfpn_fuse"] = lfpn_fuse_blocks(cfg, dev, smi)
     log(f"phase 24: {time.perf_counter() - t0:.1f} s")
     return res
 

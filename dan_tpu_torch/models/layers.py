@@ -48,14 +48,16 @@ def _on_card(x: torch.Tensor) -> bool:
 def fused_epilogue(x: torch.Tensor, *params: torch.Tensor) -> bool:
     """Whether an inference step on x runs as a hand-written pass: the bias
     (and ReLU) of a convolution of x as one in-place pass of
-    ops/bias_act_cuda.py, an L2Norm of x as one pass of ops/l2norm_cuda.py.
-    It does where x is on the card in channels-last memory (so cuDNN writes
-    the output channels-last too) and autograd records nothing through x or
-    params.  Otherwise F.conv2d takes the bias and F.relu clamps; on the
-    card ATen then runs them as two passes after cuDNN's convolution, with
-    the kernel's bits; and L2Norm runs as ATen's six passes.  (The TTA
-    runner's resampled canvases are NCHW, so its forward keeps ATen's
-    passes.)"""
+    ops/bias_act_cuda.py, an L2Norm of x as one pass of ops/l2norm_cuda.py,
+    an LFPN block's upsample x lateral map x as one pass of
+    ops/lfpn_fuse_cuda.py (models/lfpn.py).  It does where x is on the card
+    in channels-last memory (so cuDNN writes the output channels-last too)
+    and autograd records nothing through x or params.  Otherwise F.conv2d
+    takes the bias and F.relu clamps; on the card ATen then runs them as two
+    passes after cuDNN's convolution, with the kernel's bits; L2Norm runs as
+    ATen's six passes, the LFPN's fusion as ATen's upsample and product.
+    (The TTA runner's resampled canvases are NCHW, so its forward keeps
+    ATen's passes.)"""
     if not (_on_card(x) and x.is_contiguous(memory_format=torch.channels_last)):
         return False
     return not (torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)))

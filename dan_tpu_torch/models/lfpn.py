@@ -4,7 +4,11 @@
     fused = up2(1x1_conv(higher)) * 1x1_conv(lower)
 
 ('sum' instead of the product when config.lfpn_fuse_op says so); the deep
-taps pass through unchanged."""
+taps pass through unchanged.  Where layers.fused_epilogue says so (an
+inference forward on the card in channels-last memory) the upsample, its
+crop and the product run as one pass of ops/lfpn_fuse_cuda.py with ATen's
+bits; elsewhere (the CPU, the train step, the TTA runner's NCHW canvases)
+as ATen's upsample, a cropping view and ATen's product."""
 from __future__ import annotations
 
 from typing import Dict
@@ -13,8 +17,9 @@ import torch
 from torch import nn
 
 from dan_tpu_torch.config import ModelConfig
-from dan_tpu_torch.models.layers import Conv, upsample2x
+from dan_tpu_torch.models.layers import Conv, fused_epilogue, upsample2x
 from dan_tpu_torch.models.vgg import TAP_NAMES, raw_tap_channels
+from dan_tpu_torch.ops import lfpn_fuse_cuda
 
 # Top-down order: (higher_tap, lower_tap).
 _LFPN_PAIRS = (
@@ -47,15 +52,17 @@ class LFPN(nn.Module):
     def forward(self, taps: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         out = dict(taps)
         higher = taps["fc7"]
+        op = self.config.lfpn_fuse_op
         for _, lo, _ in _pair_channels(self.config):
-            topdown = upsample2x(getattr(self, f"lfpn_td_{lo}")(higher))
+            topdown = getattr(self, f"lfpn_td_{lo}")(higher)
             lateral = getattr(self, f"lfpn_lat_{lo}")(taps[lo])
-            # Odd sizes: crop the upsampled map to the lateral's size.
-            topdown = topdown[:, :, : lateral.shape[2], : lateral.shape[3]]
-            if self.config.lfpn_fuse_op == "product":
-                fused = topdown * lateral
+            if (fused_epilogue(lateral, topdown)
+                    and topdown.is_contiguous(memory_format=torch.channels_last)):
+                fused = lfpn_fuse_cuda.lfpn_fuse(topdown, lateral, op)
             else:
-                fused = topdown + lateral
+                # Odd sizes: crop the upsampled map to the lateral's size.
+                topdown = upsample2x(topdown)[:, :, : lateral.shape[2], : lateral.shape[3]]
+                fused = topdown * lateral if op == "product" else topdown + lateral
             out[lo] = fused
             higher = fused
         return out

@@ -44,6 +44,7 @@ EXTRA_FLAGS = {
     "quantize_i8": ("-fmad=false",),
     "bias_act": ("-fmad=false",),
     "l2norm": ("-fmad=false",),
+    "lfpn_fuse": ("-fmad=false",),
     "upsample2x_bwd": ("-fmad=false",),
 }
 

@@ -16,7 +16,8 @@ images, `quant.QuantizedDetector`) on the same images, all under
 inference_mode.  The parent compares the four logit tensors and the
 calibration scales as integers of their width.  The last line is one JSON
 object: the card's name and power limit, each side's launches of the
-bias + ReLU pass and of the one-pass L2Norm where the checkout has them,
+bias + ReLU pass, of the one-pass L2Norm and of the LFPN's one-pass
+upsample x lateral (ops/lfpn_fuse_cuda.py) where the checkout has them,
 the number of differing elements of each tensor, each logit tensor's
 relative L2 distance ||B - A|| / ||A||, and `same` (every bit); the exit
 code is 0 only if the scales are the same bit for bit and every logit
@@ -31,6 +32,8 @@ import sys
 import tempfile
 
 SEED = 0
+# The hand-written inference passes whose launches each side counts.
+KERNELS = ("bias_act", "l2norm", "lfpn_fuse")
 
 
 def child(out: str, batch: int) -> None:
@@ -45,7 +48,7 @@ def child(out: str, batch: int) -> None:
     from dan_tpu_torch.ops.preprocess import normalize_image
 
     counters = {}
-    for name in ("bias_act", "l2norm"):
+    for name in KERNELS:
         try:
             counters[name] = importlib.import_module(f"dan_tpu_torch.ops.{name}_cuda")
         except ImportError:
@@ -76,7 +79,7 @@ def child(out: str, batch: int) -> None:
             cls, loc = model(x)
             torch.cuda.synchronize()
             launches[which] = {name: counters[name].LAUNCHES - before[name]
-                               if name in counters else None for name in ("bias_act", "l2norm")}
+                               if name in counters else None for name in KERNELS}
             got[f"{which}_cls"], got[f"{which}_loc"] = cls, loc
     np.savez(out, **{k: v.float().cpu().numpy().view(np.uint32) for k, v in got.items()})
     print(json.dumps({"launches": launches}))
